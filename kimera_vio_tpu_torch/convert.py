@@ -1,0 +1,116 @@
+"""Carry parameters and estimator state over from the JAX package.
+
+VIO has no weights; what a run carries is its parameters and its
+estimator state. These functions take them in the JAX package's layout as
+plain Python data (nested dicts of numbers and numpy arrays, e.g. built
+with `dataclasses.asdict` and `np.asarray`) and return the port's types.
+Nothing here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from kimera_vio_tpu_torch import resolve_device
+from kimera_vio_tpu_torch.backend.smoother import LandmarkTable, Window
+from kimera_vio_tpu_torch.common.types import ImuBias, TrackedFeatures
+from kimera_vio_tpu_torch.config import params as P
+from kimera_vio_tpu_torch.frontend.imu_frontend import Pim
+from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendState
+
+_PARAM_CLASSES = {
+    "pipeline": P.PipelineParams,
+    "imu": P.ImuParams,
+    "left_cam": P.CameraParams,
+    "right_cam": P.CameraParams,
+    "frontend": P.FrontendParams,
+    "backend": P.BackendParams,
+    "lcd": P.LcdParams,
+    "display": P.DisplayParams,
+    "odometry": P.OdometryParams,
+}
+
+
+def _params(cls, d: dict):
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"{cls.__name__}: unknown fields {sorted(unknown)}")
+    return cls(**{k: np.array(v) if isinstance(v, np.ndarray) else v for k, v in d.items()})
+
+
+def vio_params_from_dict(d: dict) -> P.VioParams:
+    """The JAX package's VioParams as a nested dict -> the port's
+    VioParams (same fields, same values)."""
+    kw = {}
+    for f in dataclasses.fields(P.VioParams):
+        v = d[f.name]
+        if f.name in _PARAM_CLASSES and v is not None:
+            v = _params(_PARAM_CLASSES[f.name], v)
+        kw[f.name] = v
+    return P.VioParams(**kw)
+
+
+def _pim(d: dict, t) -> Pim:
+    fields = [f.name for f in dataclasses.fields(Pim) if f.name != "bias_hat"]
+    return Pim(
+        **{k: t(d[k]) for k in fields},
+        bias_hat=ImuBias(accel=t(d["bias_hat"]["accel"]), gyro=t(d["bias_hat"]["gyro"])),
+    )
+
+
+def _features(d: dict, t) -> TrackedFeatures:
+    return TrackedFeatures(**{f.name: t(d[f.name]) for f in dataclasses.fields(TrackedFeatures)})
+
+
+def state_from_numpy(window: dict, landmarks: dict, frontend: dict | None = None, *,
+                     device: str | torch.device = "cuda"):
+    """The JAX Window, LandmarkTable and (optionally) FrontendState as
+    dicts of numpy arrays -> (Window, LandmarkTable, FrontendState | None)
+    of the port on `device`.
+
+    Refuses state the port cannot carry: a window that uses
+    external-odometry or between-stereo factors, and a frontend state of
+    the matmul tracker (which keeps LK templates instead of the keyframe
+    pyramid the port tracks from)."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    for k in ("ext_valid", "btw_valid", "odom_valid"):
+        if k in window and np.any(window[k]):
+            raise NotImplementedError(f"window uses {k}: factor not ported")
+    win = Window(
+        **{
+            f.name: t(window[f.name])
+            for f in dataclasses.fields(Window)
+            if f.name not in ("n", "pim")
+        },
+        n=int(window["n"]),
+        pim=_pim(window["pim"], t),
+    )
+    lmk = LandmarkTable(**{f.name: t(landmarks[f.name]) for f in dataclasses.fields(LandmarkTable)})
+    if frontend is None:
+        return win, lmk, None
+    if len(frontend["lkf_pyramid"]) == 0:
+        raise ValueError("frontend state holds no keyframe pyramid (matmul tracker)")
+    fe = FrontendState(
+        features=_features(frontend["features"], t),
+        lkf_features=_features(frontend["lkf_features"], t),
+        lkf_pyramid=tuple(t(x) for x in frontend["lkf_pyramid"]),
+        lkf_grads=tuple((t(gx), t(gy)) for gx, gy in frontend["lkf_grads"]),
+        pim=_pim(frontend["pim"], t),
+        imu_bias=ImuBias(accel=t(frontend["imu_bias"]["accel"]), gyro=t(frontend["imu_bias"]["gyro"])),
+        lkf_uvd=t(frontend["lkf_uvd"]),
+        lkf_uvd_mask=t(frontend["lkf_uvd_mask"]),
+        lkf_stamp=float(np.float32(frontend["lkf_stamp"])),
+        next_id=int(frontend["next_id"]),
+        frame_count=int(frontend["frame_count"]),
+        kf_count=int(frontend["kf_count"]),
+        last_status=int(frontend["last_status"]),
+    )
+    return win, lmk, fe

@@ -1,0 +1,471 @@
+"""Stereo vision frontend: per-frame tracking, per-keyframe geometry.
+
+Port of kimera_vio_tpu/frontend/vision_frontend.py::StereoFrontend in the
+form the reference takes with `lk_impl="pallas"`: the last keyframe's
+pyramid and Scharr gradients are kept in the state and every frame is
+tracked from them by the LK kernel (ops/lk_kernel.py).
+
+Per frame: preintegrate the IMU block since the last keyframe; predict the
+keypoints' motion from the gyro rotation; track lkf -> current with LK;
+apply the keyframe policy (VisionImuFrontend::shouldBeKeyframe). The
+reference gates the keyframe branch with `lax.cond` on the device; here it
+is a host `if` on the decision, which needs the tracked count and the
+median disparity on the host (one small copy per frame).
+
+Per keyframe: 2-pt mono RANSAC, re-detection (GFTT + binning ANMS), stereo
+matching, 1-pt stereo voting, measurements for the backend. RANSAC
+hypotheses come from a `torch.Generator` seeded with the frame count
+(the reference folds the frame count into PRNGKey(0)).
+
+Stereo, non-RGB-D only; the mono / RGB-D variants, the 5-pt and 3-pt
+solvers and the fused LCD extraction are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from kimera_vio_tpu_torch.common.types import (
+    ImuBias,
+    ImuBlock,
+    StereoMeasurements,
+    TrackedFeatures,
+    replace,
+)
+from kimera_vio_tpu_torch.frontend import imu_frontend as imu
+from kimera_vio_tpu_torch.frontend.camera import (
+    DIST_NONE,
+    StereoCamera,
+    rectification_map,
+    remap_bilinear,
+    undistort_to_normalized,
+)
+from kimera_vio_tpu_torch.ops import corner_detection as det
+from kimera_vio_tpu_torch.ops import optical_flow as of
+from kimera_vio_tpu_torch.ops import ransac
+from kimera_vio_tpu_torch.ops.lk_kernel import klt_track_lk
+from kimera_vio_tpu_torch.ops.stereo_matching import match_stereo
+
+TRACKING_VALID = 0
+TRACKING_LOW_DISPARITY = 1
+TRACKING_FEW_MATCHES = 2
+TRACKING_INVALID = 3
+
+
+def _f32(x) -> float:
+    """A Python float holding the float32 value of x (the reference keeps
+    these thresholds as float32 scalars)."""
+    return float(np.float32(x))
+
+
+@dataclass
+class FrontendConfig:
+    """Static frontend configuration (host values)."""
+
+    max_features: int = 384
+    klt_win: int = 24
+    klt_max_iter: int = 30
+    klt_max_level: int = 4
+    klt_eps: float = 0.1
+    templ_cols: int = 101
+    templ_rows: int = 11
+    max_disparity: int = 128
+    n_hyp_mono: int = 128
+    nr_horizontal_bins: int = 7
+    nr_vertical_bins: int = 5
+    do_subpixel: bool = True
+    max_feature_age: int = 25
+    quality_level: float = _f32(0.001)
+    min_distance: float = 20.0
+    min_intra_kf_time: float = _f32(0.2)
+    max_intra_kf_time: float = 5.0
+    min_features: int = 0
+    disparity_threshold: float = 0.5
+    max_disparity_since_lkf: float = 1000.0
+    ransac_threshold_mono: float = _f32(1e-6)
+    ransac_threshold_stereo: float = _f32(6.2514)
+    min_mono_inliers: int = 10
+    min_stereo_inliers: int = 5
+    min_point_dist: float = 0.5
+    max_point_dist: float = 10.0
+    templ_tolerance: float = _f32(0.15)
+    pixel_sigma: float = 1.0
+
+    @classmethod
+    def from_params(cls, fp, max_features=384) -> "FrontendConfig":
+        """From a FrontendParams, as the reference's `from_params`; refuses
+        the options this port does not have."""
+        if fp.feature_detector_type != 3 or not fp.enable_non_max_suppression \
+                or fp.non_max_suppression_type != 6 or fp.use_harris_detector:
+            raise NotImplementedError("only GFTT with binning ANMS (type 6) is ported")
+        if not (fp.ransac_use_2point_mono and fp.ransac_use_1point_stereo):
+            raise NotImplementedError("only 2-pt mono / 1-pt stereo RANSAC are ported")
+        if fp.use_pnp_tracking:
+            raise NotImplementedError("PnP tracking is not ported")
+        return cls(
+            max_features=max_features,
+            klt_win=fp.klt_win_size,
+            klt_max_iter=fp.klt_max_iter,
+            klt_max_level=fp.klt_max_level,
+            klt_eps=float(fp.klt_eps),
+            templ_cols=fp.templ_cols,
+            templ_rows=fp.templ_rows,
+            nr_horizontal_bins=fp.nr_horizontal_bins,
+            nr_vertical_bins=fp.nr_vertical_bins,
+            do_subpixel=fp.enable_subpixel_corner_finder,
+            max_feature_age=int(fp.max_feature_age),
+            quality_level=_f32(fp.quality_level),
+            min_distance=_f32(fp.min_distance),
+            min_intra_kf_time=_f32(fp.min_intra_keyframe_time_s),
+            max_intra_kf_time=_f32(fp.max_intra_keyframe_time_s),
+            min_features=int(fp.min_number_features),
+            disparity_threshold=_f32(fp.disparity_threshold),
+            max_disparity_since_lkf=_f32(fp.max_disparity_since_lkf),
+            ransac_threshold_mono=_f32(fp.ransac_threshold_mono),
+            ransac_threshold_stereo=_f32(6.2514 * fp.ransac_threshold_stereo),
+            min_mono_inliers=int(fp.min_nr_mono_inliers),
+            min_stereo_inliers=int(fp.min_nr_stereo_inliers),
+            min_point_dist=_f32(fp.min_point_dist),
+            max_point_dist=_f32(fp.max_point_dist),
+            templ_tolerance=_f32(fp.tolerance_template_matching),
+            n_hyp_mono=max(64, min(512, (fp.ransac_max_iterations + 63) // 64 * 64)),
+        )
+
+
+@dataclass
+class FrontendState:
+    """Frontend state carried frame to frame. Host scalars are Python
+    values; `lkf_stamp` is the float32 value of the keyframe stamp."""
+
+    features: TrackedFeatures  # tracked at the current frame
+    lkf_features: TrackedFeatures  # as of the last keyframe
+    lkf_pyramid: tuple  # last keyframe's pyramid, level 0 first
+    lkf_grads: tuple  # its Scharr gradients ((gx, gy) per level)
+    pim: imu.Pim  # accumulated since the last keyframe
+    imu_bias: ImuBias
+    lkf_uvd: torch.Tensor  # (N,3) last keyframe's stereo measurements
+    lkf_uvd_mask: torch.Tensor  # (N,)
+    lkf_stamp: float
+    next_id: int
+    frame_count: int
+    kf_count: int
+    last_status: int = TRACKING_VALID
+
+
+def _nanmedian_linear(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Median of x over `ok`, averaging the two middle values for an even
+    count (jnp.nanmedian's linear interpolation; torch.nanmedian returns
+    the lower one); 0 when nothing is valid."""
+    n = ok.sum()
+    v, _ = torch.sort(torch.where(ok, x, torch.full_like(x, torch.inf)))
+    k = torch.clamp(n - 1, min=0).to(torch.float32) * 0.5
+    lo = torch.floor(k)
+    hi = torch.ceil(k)
+    hw = k - lo
+    med = v[lo.to(torch.int64)] * (1.0 - hw) + v[hi.to(torch.int64)] * hw
+    return torch.where(n > 0, med, torch.zeros_like(med))
+
+
+class StereoFrontend:
+    """Host orchestrator of the per-frame / per-keyframe computations."""
+
+    def __init__(self, cfg: FrontendConfig, stereo: StereoCamera, pim_params: imu.PimParams,
+                 device: torch.device):
+        self.cfg = cfg
+        self.stereo = stereo
+        self.pim_params = pim_params
+        self.device = device
+        self.left = stereo.left
+        lf = self.left
+        self.identity_rect = bool(
+            lf.dist_model == DIST_NONE
+            and np.allclose(stereo.R_rect_l.cpu().numpy(), np.eye(3), atol=1e-6)
+            and np.allclose(
+                [float(stereo.fx), float(stereo.fy), float(stereo.cx), float(stereo.cy)],
+                [float(lf.fx), float(lf.fy), float(lf.cx), float(lf.cy)],
+            )
+        )
+        if not self.identity_rect:
+            self.map_left = torch.from_numpy(
+                rectification_map(stereo, stereo.left, stereo.R_rect_l)).to(device)
+            self.map_right = torch.from_numpy(
+                rectification_map(stereo, stereo.right, stereo.R_rect_r)).to(device)
+        K_raw = np.array(
+            [[float(lf.fx), 0.0, float(lf.cx)], [0.0, float(lf.fy), float(lf.cy)], [0.0, 0.0, 1.0]],
+            np.float32,
+        )
+        self.K_raw = torch.from_numpy(K_raw).to(device)
+        self.K_raw_inv = torch.from_numpy(np.linalg.inv(K_raw).astype(np.float32)).to(device)
+        self.R_cam_body = stereo.R_b_rect.T.contiguous()
+        self.R_leftcam_body = self.left.R_bc.T.contiguous()
+
+    # ------------------------------------------------------------------
+    def _remap_left(self, img):
+        return img if self.identity_rect else remap_bilinear(img, self.map_left)
+
+    def _remap_right(self, img):
+        return img if self.identity_rect else remap_bilinear(img, self.map_right)
+
+    def _rect_and_versors(self, uv_raw):
+        """(uv_rect, versors) from one shared undistortion."""
+        xy = undistort_to_normalized(self.left, uv_raw, iters=10)
+        rays = torch.cat([xy, torch.ones_like(xy[:, :1])], dim=-1)
+        rays = (self.stereo.R_rect_l @ rays[..., None])[..., 0]
+        versors = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+        if self.identity_rect:
+            return uv_raw, versors
+        z = torch.clamp(rays[..., 2], min=1e-8)
+        u = self.stereo.fx * rays[..., 0] / z + self.stereo.cx
+        v = self.stereo.fy * rays[..., 1] / z + self.stereo.cy
+        return torch.stack([u, v], dim=-1), versors
+
+    def _detect(self, img, feats: TrackedFeatures):
+        cfg = self.cfg
+        return det.detect_features(
+            img, feats.uv, feats.mask, cfg.max_features,
+            quality_level=cfg.quality_level, min_distance=cfg.min_distance,
+            nr_horizontal_bins=cfg.nr_horizontal_bins,
+            nr_vertical_bins=cfg.nr_vertical_bins, do_subpixel=cfg.do_subpixel,
+        )
+
+    def _pyramid_and_grads(self, img):
+        pyr = of.build_pyramid(img, self.cfg.klt_max_level)
+        return tuple(pyr), tuple(of._grad(p) for p in pyr)
+
+    # ------------------------------------------------------------------
+    def init_state(self, left_img, right_img, stamp: float):
+        """First frame: detect, stereo-match, start the state. Returns
+        (state, measurements)."""
+        cfg = self.cfg
+        dev = self.device
+        left_img = left_img.to(torch.float32)
+        right_img = right_img.to(torch.float32)
+        pyr, grads = self._pyramid_and_grads(left_img)
+        empty = TrackedFeatures.empty(cfg.max_features, dev)
+        uv, valid = self._detect(left_img, empty)
+        ar = torch.arange(cfg.max_features, dtype=torch.int32, device=dev)
+        ids = torch.where(valid, ar, torch.full_like(ar, -1))
+        uv_rect0, versors0 = self._rect_and_versors(uv)
+        feats = TrackedFeatures(
+            uv=uv, uv_rect=uv_rect0, versors=versors0, ids=ids,
+            ages=torch.zeros(cfg.max_features, dtype=torch.int32, device=dev), mask=valid,
+        )
+        meas = self._stereo_measurements(
+            self._remap_left(left_img), self._remap_right(right_img), feats
+        )
+        state = FrontendState(
+            features=feats,
+            lkf_features=feats,
+            lkf_pyramid=pyr,
+            lkf_grads=grads,
+            pim=imu.Pim.zero(device=dev),
+            imu_bias=ImuBias.zero(dev),
+            lkf_uvd=meas.uvs,
+            lkf_uvd_mask=meas.mask,
+            lkf_stamp=_f32(stamp),
+            next_id=cfg.max_features,
+            frame_count=1,
+            kf_count=1,
+        )
+        return state, meas
+
+    def _stereo_measurements(self, left_rect, right_rect, feats) -> StereoMeasurements:
+        cfg = self.cfg
+        uv_right, _, ok = match_stereo(
+            left_rect, right_rect, feats.uv_rect, feats.mask,
+            fx=self.stereo.fx, baseline=self.stereo.baseline,
+            templ_cols=cfg.templ_cols, templ_rows=cfg.templ_rows,
+            max_disparity=cfg.max_disparity, min_point_dist=cfg.min_point_dist,
+            max_point_dist=cfg.max_point_dist, tolerance=cfg.templ_tolerance,
+        )
+        uvd = torch.stack([feats.uv_rect[:, 0], uv_right[:, 0], feats.uv_rect[:, 1]], -1)
+        return StereoMeasurements(ids=feats.ids, uvs=uvd, mask=ok & feats.mask)
+
+    # ------------------------------------------------------------------
+    def process_frame(self, state: FrontendState, left_img, right_img, imu_block: ImuBlock,
+                      stamp: float):
+        """Track one frame; run the keyframe branch when the policy says so.
+        Returns (state, outputs)."""
+        cfg = self.cfg
+        left_img = left_img.to(torch.float32)
+        right_img = right_img.to(torch.float32)
+        cur_pyr = of.build_pyramid(left_img, cfg.klt_max_level)
+
+        pim = imu.preintegrate(self.pim_params, imu_block, state.imu_bias, init=state.pim)
+        R_cam = self.R_cam_body @ pim.delta_R @ self.R_cam_body.T
+        R_cam_raw = self.R_leftcam_body @ pim.delta_R @ self.R_leftcam_body.T
+        feats = state.lkf_features
+        init_uv = of.predict_flow_rotational(
+            feats.uv, feats.mask, R_cam_raw.T, self.K_raw, self.K_raw_inv,
+            self.left.width, self.left.height,
+        )
+        tracked_uv, ok = klt_track_lk(
+            list(state.lkf_pyramid), cur_pyr, feats.uv, init_uv, feats.mask,
+            win=cfg.klt_win, max_iter=cfg.klt_max_iter, eps=cfg.klt_eps,
+            prev_grads=list(state.lkf_grads), device=self.device,
+        )
+        ok = ok & feats.mask & (feats.ages < cfg.max_feature_age)
+        tracked_rect, tracked_versors = self._rect_and_versors(tracked_uv)
+        cur_feats = TrackedFeatures(
+            uv=tracked_uv, uv_rect=tracked_rect, versors=tracked_versors,
+            ids=torch.where(ok, feats.ids, torch.full_like(feats.ids, -1)),
+            ages=feats.ages, mask=ok,
+        )
+
+        # Keyframe policy (VisionImuFrontend::shouldBeKeyframe), on the host.
+        disp = torch.linalg.norm(tracked_uv - feats.uv, dim=-1)
+        n_ok_t = ok.sum()
+        med_t = _nanmedian_linear(disp, ok)
+        n_ok, med_disp = int(n_ok_t), float(med_t)
+        dt = float(np.float32(stamp) - np.float32(state.lkf_stamp))
+        time_min = dt >= cfg.min_intra_kf_time
+        time_max = dt >= cfg.max_intra_kf_time
+        enough_disp = med_disp >= cfg.disparity_threshold
+        too_few = n_ok < max(cfg.min_features, 1)
+        low_disparity = time_min and not enough_disp and not too_few
+        first_time_low = state.last_status != TRACKING_LOW_DISPARITY
+        max_disp_reached = med_disp > cfg.max_disparity_since_lkf
+        is_keyframe = (
+            time_max
+            or too_few
+            or (time_min and enough_disp)
+            or (low_disparity and first_time_low)
+            or max_disp_reached
+        )
+        status = (
+            TRACKING_LOW_DISPARITY if low_disparity
+            else TRACKING_FEW_MATCHES if too_few else TRACKING_VALID
+        )
+
+        if is_keyframe:
+            state, meas, extras = self._keyframe_branch(
+                state, cur_feats, cur_pyr, left_img, right_img, pim, R_cam, stamp
+            )
+            ransac_few = extras["n_mono_inliers"] < cfg.min_mono_inliers or \
+                extras["n_stereo_inliers"] < cfg.min_stereo_inliers
+            if ransac_few and status == TRACKING_VALID:
+                status = TRACKING_FEW_MATCHES
+        else:
+            state = replace(state, features=cur_feats, pim=pim, frame_count=state.frame_count + 1)
+            meas = None
+            extras = {"n_mono_inliers": 0, "n_stereo_inliers": 0}
+        state = replace(state, last_status=status)
+        outputs = {
+            "is_keyframe": is_keyframe,
+            "status": status if is_keyframe else TRACKING_VALID,
+            "n_tracked": n_ok,
+            "median_disparity": med_disp,
+            "pim": pim,
+            "measurements": meas,
+            "stamp": stamp,
+            **extras,
+        }
+        return state, outputs
+
+    # ------------------------------------------------------------------
+    def _keyframe_branch(self, state, cur_feats, cur_pyr, left_img, right_img, pim, R_cam, stamp):
+        cfg = self.cfg
+        dev = self.device
+        left_rect = self._remap_left(left_img)
+        right_rect = self._remap_right(right_img)
+
+        # 5. Mono RANSAC on lkf <-> cur bearings, rotation from the gyro.
+        pair_mask = cur_feats.mask & state.lkf_features.mask
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(state.frame_count)
+        t_mono, mono_inl, n_mono_t = ransac.ransac_2pt_mono(
+            state.lkf_features.versors, cur_feats.versors, pair_mask, R_cam, gen,
+            n_hyp=cfg.n_hyp_mono, threshold=cfg.ransac_threshold_mono,
+        )
+        n_mono = int(n_mono_t)
+        mono_trust = n_mono >= cfg.min_mono_inliers
+        feats_inl = replace(
+            cur_feats,
+            mask=cur_feats.mask & (mono_inl | ~pair_mask | (not mono_trust)),
+        )
+
+        # 6+8: re-detect, merge, one stereo match for the merged set.
+        uv_new, new_valid = self._detect(left_img, feats_inl)
+        feats_full, next_id = self._merge_detections(feats_inl, uv_new, new_valid, state.next_id)
+        meas_full = self._stereo_measurements(left_rect, right_rect, feats_full)
+
+        # 7. Stereo 1-pt voting on lkf <-> cur 3D points.
+        tracked_mask = meas_full.mask & feats_inl.mask
+        st = self.stereo
+        p_cur = st.backproject_rect(meas_full.uvs)
+        p_ref = st.backproject_rect(state.lkf_uvd)
+        both = tracked_mask & state.lkf_uvd_mask
+        cov_cur = ransac.stereo_point_cov_from_rect(
+            st.fx, st.fy, st.cx, st.cy, st.baseline, meas_full.uvs, cfg.pixel_sigma)
+        cov_ref = ransac.stereo_point_cov_from_rect(
+            st.fx, st.fy, st.cx, st.cy, st.baseline, state.lkf_uvd, cfg.pixel_sigma)
+        t_vote, stereo_inl, n_stereo_t = ransac.voting_1pt_stereo(
+            p_ref, p_cur, cov_ref, cov_cur, both, R_cam,
+            threshold=cfg.ransac_threshold_stereo,
+        )
+        n_stereo = int(n_stereo_t)
+        if n_stereo >= cfg.min_stereo_inliers:
+            kill = both & ~stereo_inl
+            feats_full = replace(
+                feats_full,
+                mask=feats_full.mask & ~kill,
+                ids=torch.where(kill, torch.full_like(feats_full.ids, -1), feats_full.ids),
+            )
+            meas_out = StereoMeasurements(
+                ids=feats_full.ids, uvs=meas_full.uvs, mask=meas_full.mask & ~kill)
+        else:
+            meas_out = replace(meas_full, ids=feats_full.ids)
+
+        pyr, grads = tuple(cur_pyr), tuple(of._grad(p) for p in cur_pyr)
+        kf_state = replace(
+            state,
+            features=feats_full,
+            lkf_features=feats_full,
+            lkf_uvd=meas_out.uvs,
+            lkf_uvd_mask=meas_out.mask,
+            lkf_pyramid=pyr,
+            lkf_grads=grads,
+            pim=imu.Pim.zero(state.imu_bias),
+            lkf_stamp=_f32(stamp),
+            next_id=next_id,
+            frame_count=state.frame_count + 1,
+            kf_count=state.kf_count + 1,
+        )
+        extras = {
+            "n_mono_inliers": n_mono,
+            "n_stereo_inliers": n_stereo,
+            "t_stereo_vote": t_vote,
+            "t_mono": t_mono,
+        }
+        return kf_state, meas_out, extras
+
+    # ------------------------------------------------------------------
+    def _merge_detections(self, feats, uv_new, new_valid, next_id: int):
+        """Fill empty slots with new detections (ids from the running
+        counter); age surviving tracks."""
+        N = self.cfg.max_features
+        free = ~feats.mask
+        free_slots = torch.argsort((~free).to(torch.uint8), stable=True)
+        rank = torch.cumsum(new_valid.to(torch.int64), 0) - 1
+        can = new_valid & (rank < free.sum())
+        slot = torch.where(can, free_slots[torch.clamp(rank, 0, N - 1)], torch.full_like(rank, N))
+        new_ids = (next_id + rank).to(torch.int32)
+
+        def scatter(table, values):
+            padded = torch.cat([table, table[:1]], dim=0)
+            padded[slot] = values
+            return padded[:N]
+
+        uv = scatter(feats.uv, uv_new)
+        ids = scatter(feats.ids, torch.where(can, new_ids, torch.full_like(new_ids, -1)))
+        ages = scatter(feats.ages, torch.zeros_like(feats.ages))
+        mask = scatter(feats.mask, torch.ones_like(feats.mask))
+        uv_rect_m, versors_m = self._rect_and_versors(uv)
+        out = TrackedFeatures(
+            uv=uv, uv_rect=uv_rect_m, versors=versors_m, ids=ids,
+            ages=torch.where(mask, ages + 1, ages), mask=mask,
+        )
+        return out, next_id + int(can.sum())

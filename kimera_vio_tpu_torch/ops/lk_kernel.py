@@ -1,0 +1,439 @@
+"""Pyramidal Lucas-Kanade: the CUDA kernel, its plain PyTorch twin, the tracker.
+
+Replaces the Pallas TPU tracker kimera_vio_tpu/ops/pallas/lk_kernel.py:
+both of its kernels, `_level_kernel` (:68, windows gathered by XLA) and
+`_level_kernel_vmem` (:332, whole level resident in VMEM), become ONE CUDA
+kernel (csrc/lk_kernel.cu) launched once per pyramid level; the tracker
+`klt_track_lk` has the signature and the level plan of
+`klt_track_pallas` (:649-728).
+
+The level function, per keypoint:
+  * template/gx/gy windows blended bilinearly at the previous-frame
+    position; 2x2 gradient matrix G, min-eigenvalue gate, G^-1;
+  * up to `max_iter` forward-additive Gauss-Newton steps, exiting at the
+    keypoint's own convergence (|step| < eps);
+  * with `window_rule` (the Pallas kernels): windows clamped as
+    `_gather_windows` / `_level_kernel_vmem` clamp them, and the keypoint
+    fails when it leaves its (search_rows x 128) search window;
+  * without it: the reference's XLA level (`optical_flow._track_level` of
+    the JAX package, edge-replicated windows), which `klt_track_pallas`
+    uses on levels too small for the search window.
+
+Pallas ran a block of 8 keypoints until all 8 converged and re-checked the
+window of a converged keypoint while its neighbours iterated; here each
+keypoint stops at its own convergence and its window is checked before
+each of its own steps (the same per-keypoint rule as the XLA tracker). The
+TPU workarounds (bf16 residency, one-hot select matmuls, dynamic lane
+roll, blocks of 8) have no counterpart.
+
+Dispatch: a CPU tensor runs `lk_level_plain`; a CUDA tensor launches the
+kernel or raises. There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from kimera_vio_tpu_torch import resolve_device
+from kimera_vio_tpu_torch.ops.corner_detection import image_gradients
+
+_LANES = 128  # search-window width (the TPU lane width in the reference)
+# Largest padded level `klt_track_pallas` keeps resident in VMEM
+# (klt_track_pallas: VMEM_LIMIT_PX); larger levels took the gather kernel.
+_VMEM_LIMIT_PX = 480 * 768 + 8
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+_SRC = _PKG_DIR / "csrc" / "lk_kernel.cu"
+_BUILD_DIR = _PKG_DIR / "_build"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # Keep a*b + c as two roundings, like the plain PyTorch version, so the
+    # two differ only in the order of the window sums.
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+# ---------------------------------------------------------------------------
+# Level plan (klt_track_pallas's per-level choice)
+# ---------------------------------------------------------------------------
+
+
+def level_mode(H: int, W: int, win: int, search_rows: int | None):
+    """How `klt_track_pallas` treats an (H, W) level: ("vmem", clamp_h),
+    ("gather", clamp_h), ("xla", None) or ("skip", None). `clamp_h` is the
+    height the window origins are clamped to: the 8-row padded height for
+    the VMEM kernel, the true height for the gather kernel. With
+    `search_rows=None` (the reference's gather tracker, `klt_track`) every
+    level the window fits in is an "xla" level."""
+    if search_rows is None:
+        return ("xla", None) if min(H, W) >= win + 2 else ("skip", None)
+    Hp8 = _round_up(H, 8)
+    fits_vmem = Hp8 * _round_up(W, _LANES) <= _VMEM_LIMIT_PX
+    if fits_vmem and H >= search_rows and min(H, W) >= win + 4:
+        return "vmem", Hp8
+    if H < search_rows + 4 or W < _LANES + 4:
+        return ("xla", None) if min(H, W) >= win + 2 else ("skip", None)
+    return "gather", H
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of the level function
+# ---------------------------------------------------------------------------
+
+
+def _read(img: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """img[rows, cols] with edge-clamped indices; rows (N,R), cols (N,C)
+    -> (N,R,C)."""
+    H, W = img.shape
+    r = torch.clamp(rows, 0, H - 1)
+    c = torch.clamp(cols, 0, W - 1)
+    return img[r[:, :, None], c[:, None, :]]
+
+
+def _blend4(raw: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
+    """4-tap bilinear blend of (N, w+1, w+1) windows with per-keypoint
+    scalar weights, in the reference's term order."""
+    fx = fx[:, None, None]
+    fy = fy[:, None, None]
+    w00 = (1 - fx) * (1 - fy)
+    w01 = fx * (1 - fy)
+    w10 = (1 - fx) * fy
+    w11 = fx * fy
+    return (
+        w00 * raw[:, :-1, :-1]
+        + w01 * raw[:, :-1, 1:]
+        + w10 * raw[:, 1:, :-1]
+        + w11 * raw[:, 1:, 1:]
+    )
+
+
+def lk_level_plain(
+    prev, gx, gy, cur, base, pts, valid, *,
+    win: int, max_iter: int, eps: float, min_eig_thresh: float,
+    window_rule: bool, search_rows: int = 56, clamp_h: int | None = None,
+):
+    """One LK pyramid level for all keypoints, plain PyTorch.
+
+    prev/gx/gy/cur: (H, W) float32 level images; base: (N,2) keypoints in
+    prev; pts: (N,2) initial guesses in cur; valid: (N,) bool.
+    Returns (pts (N,2), ok (N,), iters (N,) int32 — the Gauss-Newton steps
+    each keypoint took)."""
+    H, W = prev.shape
+    dev = prev.device
+    N = base.shape[0]
+    half = (win - 1) * 0.5
+    a1 = torch.arange(win + 1, device=dev)
+    px, py = base[:, 0], base[:, 1]
+    cx, cy = pts[:, 0].clone(), pts[:, 1].clone()
+
+    if window_rule:
+        clamp_h = H if clamp_h is None else clamp_h
+        TR = _round_up(win + 2, 8)
+        TC = _round_up(win + 3, 32)
+        t_ox = torch.clamp(torch.floor(px - half).to(torch.int64), 0, max(W - TC, 0))
+        t_oy = torch.clamp(torch.floor(py - half).to(torch.int64), 0, max(clamp_h - TR, 0))
+        ftx = px - half - t_ox.to(torch.float32)
+        fty = py - half - t_oy.to(torch.float32)
+        frac_ok = (ftx >= 0.0) & (ftx < 1.5) & (fty >= 0.0) & (fty < 1.5)
+    else:
+        pad = win // 2 + 2
+        x0f = (px + pad) - half
+        y0f = (py + pad) - half
+        x0 = torch.floor(x0f)
+        y0 = torch.floor(y0f)
+        ftx = x0f - x0
+        fty = y0f - y0
+        t_ox = torch.clamp(x0.to(torch.int64), 0, W + 2 * pad - win - 1) - pad
+        t_oy = torch.clamp(y0.to(torch.int64), 0, H + 2 * pad - win - 1) - pad
+        frac_ok = torch.ones_like(valid)
+
+    rows = t_oy[:, None] + a1[None, :]
+    cols = t_ox[:, None] + a1[None, :]
+    tmpl = _blend4(_read(prev, rows, cols), ftx, fty)
+    tgx = _blend4(_read(gx, rows, cols), ftx, fty)
+    tgy = _blend4(_read(gy, rows, cols), ftx, fty)
+
+    gxx = torch.sum(tgx * tgx, dim=(-2, -1))
+    gxy = torch.sum(tgx * tgy, dim=(-2, -1))
+    gyy = torch.sum(tgy * tgy, dim=(-2, -1))
+    det = gxx * gyy - gxy * gxy
+    half_tr = 0.5 * (gxx + gyy)
+    min_eig = (half_tr - torch.sqrt(torch.clamp(half_tr**2 - det, min=0.0))) / (win * win)
+    good_g = (min_eig > min_eig_thresh) & valid & frac_ok
+    safe_det = torch.where(torch.abs(det) > 1e-12, det, torch.ones_like(det))
+    inv00 = gyy / safe_det
+    inv01 = -gxy / safe_det
+    inv11 = gxx / safe_det
+
+    if window_rule:
+        SR = search_rows
+        sx0 = torch.clamp(torch.floor(cx).to(torch.int64) - _LANES // 2, 0, max(W - _LANES, 0))
+        sy0 = torch.clamp(torch.floor(cy).to(torch.int64) - SR // 2, 0, max(clamp_h - SR, 0))
+        S = _read(
+            cur,
+            sy0[:, None] + torch.arange(SR, device=dev)[None, :],
+            sx0[:, None] + torch.arange(_LANES, device=dev)[None, :],
+        )  # (N, SR, 128)
+        sxf = sx0.to(torch.float32)
+        syf = sy0.to(torch.float32)
+        n_idx = torch.arange(N, device=dev)[:, None, None]
+
+    moving = torch.ones(N, dtype=torch.bool, device=dev)
+    inb = torch.ones(N, dtype=torch.bool, device=dev)
+    iters = torch.zeros(N, dtype=torch.int32, device=dev)
+    for _ in range(max_iter):
+        act = moving & inb & good_g
+        if not bool(act.any()):
+            break
+        if window_rule:
+            ox = cx - half - sxf
+            oy = cy - half - syf
+            oxi = torch.floor(ox).to(torch.int64)
+            oyi = torch.floor(oy).to(torch.int64)
+            in_b = (
+                (oxi >= 0) & (oyi >= 0)
+                & (oxi <= _LANES - win - 2) & (oyi <= SR - win - 2)
+            )
+            inb = torch.where(act, inb & in_b, inb)
+            act = act & inb
+            oxc = torch.clamp(oxi, 0, _LANES - win - 2)
+            oyc = torch.clamp(oyi, 0, SR - win - 2)
+            fx = (ox - oxc.to(torch.float32))[:, None, None]
+            fy = (oy - oyc.to(torch.float32))[:, None, None]
+            P = S[n_idx, (oyc[:, None] + a1)[:, :, None], (oxc[:, None] + a1)[:, None, :]]
+            ya = (1.0 - fy) * P[:, :-1, :-1] + fy * P[:, 1:, :-1]
+            yb = (1.0 - fy) * P[:, :-1, 1:] + fy * P[:, 1:, 1:]
+            sample = (1.0 - fx) * ya + fx * yb
+        else:
+            x0f = (cx + pad) - half
+            y0f = (cy + pad) - half
+            x0 = torch.floor(x0f)
+            y0 = torch.floor(y0f)
+            xi = torch.clamp(x0.to(torch.int64), 0, W + 2 * pad - win - 1) - pad
+            yi = torch.clamp(y0.to(torch.int64), 0, H + 2 * pad - win - 1) - pad
+            raw = _read(cur, yi[:, None] + a1[None, :], xi[:, None] + a1[None, :])
+            sample = _blend4(raw, x0f - x0, y0f - y0)
+        dI = sample - tmpl
+        bx = torch.sum(dI * tgx, dim=(-2, -1))
+        by = torch.sum(dI * tgy, dim=(-2, -1))
+        dx = -(inv00 * bx + inv01 * by)
+        dy = -(inv01 * bx + inv11 * by)
+        cx = torch.where(act, cx + dx, cx)
+        cy = torch.where(act, cy + dy, cy)
+        moving = moving & ~(act & (dx * dx + dy * dy < eps * eps))
+        iters = iters + act.to(torch.int32)
+    return torch.stack([cx, cy], dim=-1), good_g & inb, iters
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA LK kernel cannot be built")
+    return path
+
+
+def build_kernel() -> tuple[Path, str]:
+    """Compile csrc/lk_kernel.cu into _build/ (once per source and flags)
+    and return (path of the .so, ptxas report). Raises on failure."""
+    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = _BUILD_DIR / f"liblk_{key}.so"
+    log = _BUILD_DIR / f"liblk_{key}.log"
+    if so.exists():
+        return so, log.read_text() if log.exists() else ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _BUILD_DIR / f"liblk_{key}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    log.write_text(res.stdout + res.stderr)
+    os.replace(tmp, so)
+    return so, res.stdout + res.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    so, _ = build_kernel()
+    lib = ctypes.CDLL(str(so))
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lk_level_launch.argtypes = [
+        P, P, P, P, I, I,  # prev, gx, gy, cur, H, W
+        P, P, P,  # base, init, valid
+        P, P, P,  # out_pts, out_ok, out_iters
+        I, I, I, I,  # N, win, search_rows, max_iter
+        Fl, Fl,  # eps^2, min_eig_thresh
+        I, I,  # window_rule, clamp_h
+        P,  # stream
+    ]
+    lib.lk_level_launch.restype = I
+    lib.lk_error_string.argtypes = [I]
+    lib.lk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_image(name, t, dev, shape=None):
+    if t.device != dev or t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous 2-D float32 tensor on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+
+
+def lk_level_cuda(
+    prev, gx, gy, cur, base, pts, valid, *,
+    win: int, max_iter: int, eps: float, min_eig_thresh: float,
+    window_rule: bool, search_rows: int = 56, clamp_h: int | None = None,
+):
+    """Launch the CUDA level kernel (one launch). Same contract as
+    `lk_level_plain`. Adds one to `lk_level_cuda.launches` per launch."""
+    dev = prev.device
+    if dev.type != "cuda":
+        raise ValueError("lk_level_cuda needs CUDA tensors")
+    H, W = prev.shape
+    _check_image("prev", prev, dev)
+    for name, t in (("gx", gx), ("gy", gy), ("cur", cur)):
+        _check_image(name, t, dev, (H, W))
+    N = base.shape[0]
+    for name, t in (("base", base), ("pts", pts)):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (N, 2):
+            raise ValueError(f"{name}: need ({N},2) float32 on {dev}")
+    if valid.device != dev or tuple(valid.shape) != (N,):
+        raise ValueError(f"valid: need ({N},) on {dev}")
+    if window_rule and (search_rows < win + 2 or W < 1 or H < 1):
+        raise ValueError("search window smaller than the LK window")
+    base = base.contiguous()
+    init = pts.contiguous()
+    valid_i = valid.to(torch.int32).contiguous()
+    out_pts = torch.empty((N, 2), dtype=torch.float32, device=dev)
+    out_ok = torch.empty((N,), dtype=torch.int32, device=dev)
+    out_iters = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N == 0:
+        return out_pts, out_ok.bool(), out_iters
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.lk_level_launch(
+            prev.data_ptr(), gx.data_ptr(), gy.data_ptr(), cur.data_ptr(), H, W,
+            base.data_ptr(), init.data_ptr(), valid_i.data_ptr(),
+            out_pts.data_ptr(), out_ok.data_ptr(), out_iters.data_ptr(),
+            N, win, search_rows, max_iter, float(eps * eps), float(min_eig_thresh),
+            int(bool(window_rule)), int(H if clamp_h is None else clamp_h),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"LK kernel launch failed: {lib.lk_error_string(rc).decode()}")
+    lk_level_cuda.launches += 1
+    return out_pts, out_ok.bool(), out_iters
+
+
+lk_level_cuda.launches = 0
+
+
+def lk_level(prev, *args, **kwargs):
+    """One LK level: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
+    if prev.device.type == "cpu":
+        return lk_level_plain(prev, *args, **kwargs)
+    if prev.device.type == "cuda":
+        return lk_level_cuda(prev, *args, **kwargs)
+    raise ValueError(f"no LK implementation for device {prev.device}")
+
+
+# ---------------------------------------------------------------------------
+# Coarse-to-fine tracker
+# ---------------------------------------------------------------------------
+
+
+def track_pyramid(
+    level_fn, prev_pyr, cur_pyr, prev_pts, init_pts, valid, prev_grads, *,
+    win: int, max_iter: int, eps: float, min_eig_thresh: float, search_rows: int | None,
+):
+    """`klt_track_pallas`'s coarse-to-fine loop over `level_fn` (one of
+    `lk_level`, `lk_level_plain`, `lk_level_cuda`); with `search_rows=None`
+    the loop of the reference's gather tracker `klt_track` (no window rule
+    on any level, level 0's gate kept). Returns (tracked_pts, ok, levels),
+    `levels` one dict per tracked level: its shape, mode and per-keypoint
+    step counts."""
+    n_levels = len(prev_pyr)
+    scale_top = 2.0 ** (n_levels - 1)
+    pts = init_pts / scale_top
+    base = prev_pts / scale_top
+    ok = valid
+    levels = []
+    for lvl in range(n_levels - 1, -1, -1):
+        if lvl != n_levels - 1:
+            pts = pts * 2.0
+            base = base * 2.0
+        Hl, Wl = prev_pyr[lvl].shape
+        mode, clamp_h = level_mode(Hl, Wl, win, search_rows)
+        if mode == "skip":
+            continue
+        Ix, Iy = prev_grads[lvl]
+        pts, ok_lvl, iters = level_fn(
+            prev_pyr[lvl].contiguous(), Ix.contiguous(), Iy.contiguous(),
+            cur_pyr[lvl].contiguous(), base, pts, valid,
+            win=win, max_iter=max_iter, eps=eps, min_eig_thresh=min_eig_thresh,
+            window_rule=mode != "xla", search_rows=search_rows or 0, clamp_h=clamp_h,
+        )
+        levels.append({"level": lvl, "shape": (Hl, Wl), "mode": mode, "iters": iters})
+        # klt_track_pallas drops the ok of an XLA level 0; the gather
+        # tracker keeps it.
+        if lvl == 0 and (mode != "xla" or search_rows is None):
+            ok = ok & ok_lvl
+    H0, W0 = prev_pyr[0].shape
+    half = win * 0.5
+    inb = (
+        (pts[:, 0] >= half)
+        & (pts[:, 0] < W0 - half)
+        & (pts[:, 1] >= half)
+        & (pts[:, 1] < H0 - half)
+    )
+    return pts, ok & inb, levels
+
+
+def klt_track_lk(
+    prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
+    win: int = 24, max_iter: int = 30, eps: float = 0.1,
+    min_eig_thresh: float = 1e-4, prev_grads=None, search_rows: int = 56,
+    device: str | torch.device = "cuda",
+):
+    """Pyramidal LK with the level plan of `klt_track_pallas`: coarse to
+    fine, window-rule levels where `klt_track_pallas` used a kernel, the
+    reference XLA level below the search-window size, a final in-image
+    gate. All tensors must already lie on `device`. Returns
+    (tracked_pts (N,2), ok (N,))."""
+    dev = resolve_device(device)
+    tensors = [*prev_pyr, *cur_pyr, prev_pts, init_pts, valid]
+    if prev_grads is not None:
+        tensors += [g for pair in prev_grads for g in pair]
+    for t in tensors:
+        if t.device.type != dev.type:
+            raise ValueError(f"klt_track_lk(device={dev}): got a tensor on {t.device}")
+    if prev_grads is None:
+        prev_grads = [image_gradients(p, scharr=True) for p in prev_pyr]
+    pts, ok, _ = track_pyramid(
+        lk_level, prev_pyr, cur_pyr, prev_pts, init_pts, valid, prev_grads,
+        win=win, max_iter=max_iter, eps=eps, min_eig_thresh=min_eig_thresh,
+        search_rows=search_rows,
+    )
+    return pts, ok
