@@ -14,23 +14,28 @@ card's name and power limit, the build, the kernel comparison, the main
 path, one JSON line with the kernel table, and last the JSON result line.
 
 Phases:
-  1. kernel: the LK level kernel vs `lk_level_plain` on the same CUDA
-     tensors, at the main path's shapes (a 752x480 keyframe-to-frame pair
-     of the synthetic sequence, 5 levels, 256 detected keypoints, win 24,
-     30 iterations, 56-row search window) and at 1241x376 (KITTI-sized,
-     where level 0 takes the reference's gather kernel). Same float32
-     arithmetic in the same term order, only the window sums differ in
-     order: median |d| < 0.01 px, >= 98 % agreement of `ok`.
+  1. kernel: the LK pyramid kernel (`lk_pyramid_cuda`, one launch per
+     frame) vs its plain version `track_pyramid(lk_level_plain, ...)` on
+     the same CUDA tensors, at the main path's shapes (a 752x480
+     keyframe-to-frame pair of the synthetic sequence, 5 levels, 256
+     detected keypoints, win 24, 30 iterations, 56-row search window), at
+     1241x376 (KITTI-sized, where level 0 takes the reference's gather
+     kernel) and, for the kernel's generic instantiation, at 752x480 with
+     win 31 and a 64-row search window (its top level is skipped). Same
+     float32 arithmetic in the same term order, only the window sums
+     differ in order: median |d| < 0.01 px, >= 98 % agreement of `ok`.
+     Printed per level: mean and max Gauss-Newton steps.
   2. main path: launch counter set to 0, `run()` on the card at the full
      configuration (752x480, 256 features, 10-keyframe horizon, 384
-     landmarks, 80 frames); the counter must equal tracked frames x 5
-     levels, the trajectory must be finite and within the JAX package's
-     ATE gate (rmse < 0.05 m, tests/test_pipeline_e2e.py:35).
+     landmarks, 80 frames); the counter must equal the tracked frames
+     (one launch each), the trajectory must be finite and within the JAX
+     package's ATE gate (rmse < 0.05 m, tests/test_pipeline_e2e.py:35).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -86,14 +91,14 @@ def graph_ms(fn, reps: int = 200) -> float:
     return time_ms(graph.replay, reps)
 
 
-def lk_bound_ms(levels, n_kpts: int) -> tuple[float, str]:
+def lk_bound_ms(levels, n_kpts: int, win: int = WIN) -> tuple[float, str]:
     """Least time the card could take for one frame's LK levels: bytes
     (each level's four planes read once, keypoint inputs and outputs once)
     over HBM bandwidth vs the float32 operations this run's steps need
     over the float32 peak. Per window pixel: 27 flops of setup (three
     4-tap blends, the G sums) and 17 per Gauss-Newton step (two y-lerps,
     an x-lerp, the residual, two multiply-adds)."""
-    npx = WIN * WIN
+    npx = win * win
     nbytes = 0
     flops = 0.0
     for lv in levels:
@@ -106,19 +111,15 @@ def lk_bound_ms(levels, n_kpts: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_lk(prev_pyr, cur_pyr, pts, valid, label: str) -> dict:
-    """Kernel vs plain version through the same coarse-to-fine loop on
-    the same CUDA tensors; returns the errors, times and the bound."""
+def compare_lk(prev_pyr, cur_pyr, pts, valid, label: str, **kw) -> dict:
+    """Kernel vs plain version on the same CUDA tensors; returns the
+    errors, per-level steps, times and the bound."""
+    kw = {**LK_KW, **kw}
     grads = [of._grad(p) for p in prev_pyr]
-    args = (prev_pyr, cur_pyr, pts, pts, valid, grads)
-    calls = []
-
-    def recording(*a, **k):
-        calls.append((a, k))
-        return lk.lk_level_cuda(*a, **k)
-
-    out_k, ok_k, lv_k = lk.track_pyramid(recording, *args, **LK_KW)
-    out_p, ok_p, _ = lk.track_pyramid(lk.lk_level_plain, *args, **LK_KW)
+    args = (prev_pyr, cur_pyr, grads, pts, pts, valid)
+    out_k, ok_k, it_k = lk.lk_pyramid_cuda(*args, **kw)
+    out_p, ok_p, lv_p = lk.track_pyramid(lk.lk_level_plain, prev_pyr, cur_pyr, pts, pts,
+                                         valid, grads, **kw)
     torch.cuda.synchronize()
     agree = float((ok_k == ok_p).float().mean())
     both = ok_k & ok_p
@@ -130,43 +131,55 @@ def compare_lk(prev_pyr, cur_pyr, pts, valid, label: str) -> dict:
     if not (median < 0.01 and agree >= 0.98):
         raise AssertionError(f"{label}: median {median} px, ok agreement {agree}")
 
-    def run_levels(level_fn):
-        def go():
-            lk.track_pyramid(level_fn, *args, **LK_KW)
-        return go
-
-    def kernel_calls():
-        for a, k in calls:
-            lk.lk_level_cuda(*a, **k)
-
-    # ms: device time of one frame's kernel calls (graph replay); the
-    # eager time of the whole tracker, host overhead included, beside it.
-    ms = graph_ms(kernel_calls)
-    eager_ms = time_ms(run_levels(lk.lk_level_cuda), reps=50)
-    plain_ms = time_ms(run_levels(lk.lk_level_plain), reps=3, warmup=1)
-    bound_ms, bound_by = lk_bound_ms(lv_k, pts.shape[0])
+    levels = []
+    for lv in lv_p:
+        steps = it_k[:, lv["level"]]
+        levels.append({**lv, "iters": steps, "plain_iters": lv["iters"]})
+    # ms: device time of one frame's kernel launch (graph replay); the
+    # eager time of the whole tracker entry point, host work included,
+    # beside it.
+    ms = graph_ms(lambda: lk.lk_pyramid_cuda(*args, **kw))
+    eager_ms = time_ms(lambda: lk.klt_track_lk(prev_pyr, cur_pyr, pts, pts, valid,
+                                               prev_grads=grads, device=pts.device, **kw), reps=50)
+    plain_ms = time_ms(lambda: lk.track_pyramid(lk.lk_level_plain, prev_pyr, cur_pyr, pts, pts,
+                                                valid, grads, **kw), reps=3, warmup=1)
+    bound_ms, bound_by = lk_bound_ms(levels, pts.shape[0], kw["win"])
     res = {
-        "label": label, "levels": [(lv["shape"], lv["mode"]) for lv in lv_k],
-        "launches_per_frame": len(lv_k), "tracked": int(ok_k.sum()),
+        "label": label, "win": kw["win"], "search_rows": kw["search_rows"],
+        "launches_per_frame": 1, "tracked": int(ok_k.sum()),
         "ok_agreement": agree, "median_abs_err": median, "max_abs_err": max_err,
         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "mean_steps_level0": float(lv_k[-1]["iters"].float().mean()),
+        "levels": [{
+            "level": lv["level"], "shape": lv["shape"], "mode": lv["mode"],
+            "mean_steps": float(lv["iters"].float().mean()), "max_steps": int(lv["iters"].max()),
+            "plain_mean_steps": float(lv["plain_iters"].float().mean()),
+            "plain_max_steps": int(lv["plain_iters"].max()),
+        } for lv in levels],
     }
     log(f"[kernel] {json.dumps(res)}")
     return res
 
 
-def kernel_phase(dev) -> dict:
-    """Main-path shapes: keyframe -> frame+4 of the synthetic 752x480
-    sequence, 256 detected keypoints; plus a 1241x376 pair."""
+def main_lk_inputs(dev):
+    """The main path's LK inputs: keyframe -> frame+4 of the synthetic
+    752x480 sequence, 5-level pyramids, 256 detected keypoints. Returns
+    (prev_pyr, cur_pyr, keypoints, valid)."""
     prov = SyntheticStereoProvider(n_frames=8, vx=0.5)
     img0 = torch.from_numpy(prov.load_image(("left", 0))).to(dev)
     img4 = torch.from_numpy(prov.load_image(("left", 4))).to(dev)
     empty_uv = torch.zeros((256, 2), device=dev)
     uv, valid = det.detect_features(img0, empty_uv, torch.zeros(256, dtype=torch.bool, device=dev), 256)
-    main = compare_lk(of.build_pyramid(img0, 4), of.build_pyramid(img4, 4), uv, valid, "752x480")
-    if main["launches_per_frame"] != 5:
-        raise AssertionError(f"752x480 should take 5 launches, took {main['launches_per_frame']}")
+    return of.build_pyramid(img0, 4), of.build_pyramid(img4, 4), uv, valid
+
+
+def kernel_phase(dev) -> dict:
+    """Main-path shapes (and the generic instantiation on them); plus a
+    1241x376 pair."""
+    prev_pyr, cur_pyr, uv, valid = main_lk_inputs(dev)
+    main = compare_lk(prev_pyr, cur_pyr, uv, valid, "752x480")
+    generic = compare_lk(prev_pyr, cur_pyr, uv, valid, "752x480 generic", win=31, search_rows=64)
+    if [lv["mode"] for lv in generic["levels"]][0] != "xla" or len(generic["levels"]) != 4:
+        raise AssertionError("752x480 with win 31 should skip its top level")
 
     rng = np.random.default_rng(7)
     H, W = 376, 1241
@@ -179,7 +192,7 @@ def kernel_phase(dev) -> dict:
                            .astype(np.float32)).to(dev)
     kitti = compare_lk(of.build_pyramid(a, 4), of.build_pyramid(b, 4), pts,
                        torch.ones(256, dtype=torch.bool, device=dev), "1241x376")
-    if kitti["levels"][-1][1] != "gather":
+    if kitti["levels"][-1]["mode"] != "gather":
         raise AssertionError("1241x376 level 0 should take the gather-kernel window rule")
     return main
 
@@ -191,15 +204,15 @@ def path_phase(dev) -> dict:
     provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
     pipe = StereoImuPipeline(params, device=dev)
     torch.cuda.synchronize()
-    lk.lk_level_cuda.launches = 0
+    lk.lk_pyramid_cuda.launches = 0
     t0 = time.perf_counter()
     out = pipe.run(provider)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lk.lk_level_cuda.launches
+    launches = lk.lk_pyramid_cuda.launches
     tracked = out.n_frames - 1  # the first frame initializes, the rest track
-    if launches != tracked * 5:
-        raise AssertionError(f"LK kernel launches {launches} != {tracked} tracked frames x 5 levels")
+    if launches != tracked:
+        raise AssertionError(f"LK kernel launches {launches} != {tracked} tracked frames")
     est = np.stack(out.positions)
     if est.shape != (out.n_keyframes, 3) or not np.isfinite(est).all():
         raise AssertionError("trajectory not finite or of the wrong shape")
@@ -237,9 +250,13 @@ def main() -> int:
     t0 = time.perf_counter()
     so, ptxas = lk.build_kernel()
     log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
+    kernel = "?"
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        m = re.search(r"Compiling entry function '\S*?lk_pyramid_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+        if m:
+            kernel = "lk_pyramid_kernel<win {}, search_rows {}, threads {}>".format(*m.groups())
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {kernel}: {line.strip()}")
 
     t = time.perf_counter()
     kern = kernel_phase(dev)
@@ -249,15 +266,17 @@ def main() -> int:
     log(f"[phase] path {time.perf_counter() - t:.1f} s")
 
     kernels = [{
-        "name": "lk_level",
+        "name": "lk_pyramid",
         "route": "cuda",
         "source": "kimera_vio_tpu_torch/csrc/lk_kernel.cu",
         "replaces": "kimera_vio_tpu/ops/pallas/lk_kernel.py:332",
-        "also_replaces": "kimera_vio_tpu/ops/pallas/lk_kernel.py:68",
+        "also_replaces": ["kimera_vio_tpu/ops/pallas/lk_kernel.py:68",
+                          "kimera_vio_tpu/ops/optical_flow.py:92"],
         "launches": path["lk_launches"],
         "max_abs_err": kern["max_abs_err"],
         "median_abs_err": kern["median_abs_err"],
         "ms": kern["ms"],
+        "eager_ms": kern["eager_ms"],
         "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],

@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from kimera_vio_tpu_torch import resolve_device
 from kimera_vio_tpu_torch.common import geometry as geo
 from kimera_vio_tpu_torch.common.types import ImuBias, NavState, replace, tree_map, tree_map2
 from kimera_vio_tpu_torch.frontend.imu_frontend import Pim, imu_residual, pim_predict
@@ -90,7 +91,8 @@ class BackendConfig:
 
     @classmethod
     def from_params(cls, backend_params, imu_params, stereo_cam, *, max_landmarks=512,
-                    gn_iters=2, device="cpu"):
+                    gn_iters=2, device="cuda"):
+        device = resolve_device(device)
         bp = backend_params
         if int(getattr(imu_params, "preintegration_type", 1)) == 0:
             raise NotImplementedError("the Combined IMU factor is not ported")
@@ -155,7 +157,8 @@ class Window:
     prior_bias: torch.Tensor
 
     @classmethod
-    def empty(cls, K: int, device="cpu", dtype=torch.float32) -> "Window":
+    def empty(cls, K: int, device="cuda", dtype=torch.float32) -> "Window":
+        device = resolve_device(device)
         D = K * S_DOF
         eye = torch.eye(3, dtype=dtype, device=device).expand(K, 3, 3).contiguous()
         z3 = torch.zeros((K, 3), dtype=dtype, device=device)
@@ -197,7 +200,8 @@ class LandmarkTable:
     pts_ok: torch.Tensor  # (L,)
 
     @classmethod
-    def empty(cls, L: int, K: int, device="cpu", dtype=torch.float32) -> "LandmarkTable":
+    def empty(cls, L: int, K: int, device="cuda", dtype=torch.float32) -> "LandmarkTable":
+        device = resolve_device(device)
         return cls(
             ids=torch.full((L,), -1, dtype=torch.int32, device=device),
             obs_uvd=torch.zeros((L, K, 3), dtype=dtype, device=device),

@@ -17,6 +17,8 @@ from dataclasses import dataclass
 
 import torch
 
+from kimera_vio_tpu_torch import resolve_device
+
 
 def replace(obj, **changes):
     """Functional update of a dataclass (flax `.replace` counterpart)."""
@@ -63,7 +65,8 @@ class ImuBias:
     gyro: torch.Tensor  # (3,)
 
     @classmethod
-    def zero(cls, device="cpu", dtype=torch.float32) -> "ImuBias":
+    def zero(cls, device="cuda", dtype=torch.float32) -> "ImuBias":
+        device = resolve_device(device)
         return cls(
             accel=torch.zeros(3, dtype=dtype, device=device),
             gyro=torch.zeros(3, dtype=dtype, device=device),
@@ -104,7 +107,8 @@ class TrackedFeatures:
     mask: torch.Tensor  # (N,) bool
 
     @classmethod
-    def empty(cls, capacity: int, device="cpu", dtype=torch.float32) -> "TrackedFeatures":
+    def empty(cls, capacity: int, device="cuda", dtype=torch.float32) -> "TrackedFeatures":
+        device = resolve_device(device)
         return cls(
             uv=torch.zeros((capacity, 2), dtype=dtype, device=device),
             uv_rect=torch.zeros((capacity, 2), dtype=dtype, device=device),

@@ -1,25 +1,61 @@
-// One pyramid level of forward-additive Lucas-Kanade, one warp per keypoint.
+// Pyramidal forward-additive Lucas-Kanade: one launch tracks one frame,
+// every pyramid level coarse to fine; one multi-warp block per keypoint.
 //
-// Replaces the Pallas TPU kernels of kimera_vio_tpu/ops/pallas/lk_kernel.py:
-// `_level_kernel` (:68, launched by `_track_level_pallas`) and
-// `_level_kernel_vmem` (:332, launched by `_track_level_pallas_vmem`), and,
-// with window_rule = 0, the XLA level `_track_level` of
-// kimera_vio_tpu/ops/optical_flow.py that `klt_track_pallas` uses on coarse
-// levels. The plain PyTorch twin is `lk_level_plain` in ops/lk_kernel.py;
-// both compute the same f32 arithmetic in the same term order (built with
-// -fmad=false) and differ only in the order of the window sums.
+// Replaces, in one kernel:
+//   * kimera_vio_tpu/ops/pallas/lk_kernel.py:_level_kernel_vmem (:332,
+//     launched by _track_level_pallas_vmem, pallas_call :626): the level
+//     resident in VMEM, window origins clamped to the 8-row padded height;
+//   * kimera_vio_tpu/ops/pallas/lk_kernel.py:_level_kernel (:68, launched
+//     by _track_level_pallas, pallas_call :309): windows gathered by XLA,
+//     origins clamped to the true height;
+//   * kimera_vio_tpu/ops/optical_flow.py:_track_level (:92): the XLA level
+//     (edge-replicated windows, no search window) that
+//     klt_track_pallas (:649) runs on levels too small for the search window;
+//   * and klt_track_pallas's coarse-to-fine loop itself: the level plan is a
+//     table passed by value (`Table`, built on the host by
+//     ops/lk_kernel.py:level_table), so a frame is one launch, not one per
+//     level.
+// The plain PyTorch version is `track_pyramid(lk_level_plain, ...)` in
+// ops/lk_kernel.py. Both compute the same float32 arithmetic in the same term
+// order (built with -fmad=false); only the order of the window sums differs.
 //
-// Design. A keypoint's work is a chain of up to max_iter dependent
-// Gauss-Newton steps over a 24x24 window, so the kernel is bound by that
-// chain's latency, not by bytes or FLOPs (a 752x480 level moves ~6 MB:
-// ~2 us at 3.35 TB/s; its arithmetic is a few MFLOP). One warp owns one
-// keypoint: its template, gradient windows and search window are cut from
-// global memory once into shared memory, each lane blends 18 of the 576
-// window pixels per step, and warp shuffles reduce the two sums; every lane
-// then holds the same step and the warp leaves the loop at the keypoint's
-// own convergence. Blocks are one warp, so N keypoints are N independent
-// blocks (no block waits for its slowest keypoint, unlike the TPU's blocks
-// of 8).
+// What bounds it on this card. A keypoint's work is a serial chain: stage
+// its windows, blend the template, reduce the 2x2 gradient matrix, then up
+// to max_iter dependent Gauss-Newton steps, each a 24x24 resample and two
+// sums, on every level in turn. A frame moves ~8 MB (a few us at 3.35 TB/s)
+// and does a few MFLOP, so neither bytes nor FLOPs bound it: the latency of
+// that chain does, and the frame waits for its slowest keypoint.
+//
+// What the design does about it.
+//   1. One launch per frame: the keypoint walks every level in one block
+//      with its point in registers; no launch gaps, no host work between
+//      levels, and the frame pays the worst keypoint's whole chain once
+//      instead of the sum over levels of each level's worst keypoint.
+//   2. NT threads (96, 192 or 288) own a keypoint, so each thread blends
+//      576 / NT window pixels per step; its template and gradient pixels
+//      live in registers. A step's two sums (and the setup's three) are
+//      reduced together: interleaved xor-butterfly shuffles (every lane ends
+//      with bit-identical sums), one partial per warp to shared memory,
+//      one barrier, and every thread adds the partials in the same order,
+//      so all threads take the same exit decision. The partials are
+//      double-buffered, so one barrier per step suffices.
+//   3. Loads are asynchronous and issued all at once: cp.async (4 bytes,
+//      from clamped source addresses, which gives the reference's edge
+//      replication) stages the 56x128 search window of a level -- or, at an
+//      XLA level that fits, the whole current plane -- while the template is
+//      blended from the tiles staged earlier; the next level's raw template
+//      and gradient tiles (they depend only on the keypoint's position in the
+//      previous frame, known at launch) are prefetched into a second buffer
+//      while the current level iterates. Search-window rows are padded to a
+//      stride congruent to the window width mod 32, so a warp's 32
+//      consecutive window pixels fall in 32 distinct banks.
+//   4. win and search_rows are template parameters (<24, 56> for the main
+//      path; <0, 0> is the generic instantiation with runtime sizes, win up
+//      to kMaxWin), so the pixel loops unroll and divide by constants.
+// TMA does not fit: level rows (94, 47, 311, 621, 1241 floats...) are not
+// multiples of 16 bytes, and its out-of-bounds fill is zeros, not the edge
+// replication the reference uses. Tensor cores have nothing to do: a step is
+// two 576-long dot products over a freshly resampled window.
 //
 // Plain C interface, loaded with ctypes; the launch returns cudaGetLastError.
 
@@ -28,195 +64,463 @@
 
 namespace {
 
-constexpr int kLanes = 128;  // search-window width (the TPU lane width)
+constexpr int kLanes = 128;     // search-window width (the TPU lane width)
+constexpr int kMaxLevels = 8;
+constexpr int kMaxWin = 32;     // largest window of the generic instantiation
 constexpr unsigned kFull = 0xffffffffu;
+
+enum Mode : int { kSkip = 0, kXla = 1, kVmem = 2, kGather = 3 };
+
+struct Level {
+  const float* prev;
+  const float* gx;
+  const float* gy;
+  const float* cur;
+  int H, W, mode, clamp_h;
+  float scale;   // the point and its base are multiplied by this first
+  int keep_ok;   // this level's ok is and-ed into the result
+};
+
+struct Table {
+  Level lv[kMaxLevels];  // coarse to fine: entry e is level n - 1 - e
+  int n;
+  int H0, W0;            // level 0, for the final in-image gate
+  int win, search_rows, max_iter;
+  float eps2, min_eig_thresh;
+  int stage_floats;      // floats of the staging buffer
+};
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Sum over the warp, then lane 0's value to every lane, so that all lanes
-// take bit-identical decisions afterwards.
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return __shfl_sync(kFull, v, 0);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// Edge-replicated read (the padding of the reference's windows).
-__device__ __forceinline__ float ld(const float* __restrict__ img, int H, int W,
-                                    int y, int x) {
-  y = clampi(y, 0, H - 1);
-  x = clampi(x, 0, W - 1);
-  return __ldg(img + (size_t)y * W + x);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float blend4(const float* __restrict__ img, int H, int W,
-                                        int y, int x, float w00, float w01,
-                                        float w10, float w11) {
-  return w00 * ld(img, H, W, y, x) + w01 * ld(img, H, W, y, x + 1) +
-         w10 * ld(img, H, W, y + 1, x) + w11 * ld(img, H, W, y + 1, x + 1);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__global__ void __launch_bounds__(32)
-lk_level_kernel(const float* __restrict__ prev, const float* __restrict__ gxi,
-                const float* __restrict__ gyi, const float* __restrict__ cur,
-                int H, int W, const float* __restrict__ base,
-                const float* __restrict__ init, const int32_t* __restrict__ valid,
-                float* __restrict__ out_pts, int32_t* __restrict__ out_ok,
-                int32_t* __restrict__ out_iters, int win, int search_rows,
-                int max_iter, float eps2, float min_eig_thresh, int window_rule,
-                int clamp_h) {
-  extern __shared__ float smem[];
-  const int k = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int npx = win * win;
-  float* s_t = smem;
-  float* s_gx = s_t + npx;
-  float* s_gy = s_gx + npx;
-  float* s_S = s_gy + npx;  // search_rows x kLanes (window rule only)
+// Sum K values over the block. Every thread returns the same bits: the
+// butterfly leaves identical sums in every lane, and every thread adds the
+// warps' partials in the same order. `part` holds two buffers of one float4
+// per warp; alternating them makes one barrier enough.
+template <int K, int NWARP>
+__device__ __forceinline__ void block_sum(float (&v)[K], float4* part, int& parity) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
+  }
+  float4* buf = part + parity * NWARP;
+  if ((threadIdx.x & 31) == 0) {
+    float4 t = make_float4(v[0], 0.f, 0.f, 0.f);
+    if constexpr (K > 1) t.y = v[1];
+    if constexpr (K > 2) t.z = v[2];
+    buf[threadIdx.x >> 5] = t;
+  }
+  __syncthreads();
+  float4 s = buf[0];
+#pragma unroll
+  for (int w = 1; w < NWARP; ++w) {
+    const float4 t = buf[w];
+    s.x += t.x;
+    s.y += t.y;
+    s.z += t.z;
+  }
+  v[0] = s.x;
+  if constexpr (K > 1) v[1] = s.y;
+  if constexpr (K > 2) v[2] = s.z;
+  parity ^= 1;
+}
 
+// Origin of the (win+1)^2 raw template tile and the blend fractions at
+// base point (px, py): the window rule's clamp (Pallas kernels) or the XLA
+// level's edge-padded origin.
+__device__ __forceinline__ void tile_origin(const Level& L, int win, float px, float py,
+                                            int& t_ox, int& t_oy, float& ftx, float& fty,
+                                            bool& frac_ok) {
   const float half = (win - 1) * 0.5f;
-  const int pad = win / 2 + 2;  // the XLA level's edge padding
-  const float px = base[2 * k], py = base[2 * k + 1];
-  float cx = init[2 * k], cy = init[2 * k + 1];
-
-  // ---- template origin + fractional offsets --------------------------------
-  int t_ox, t_oy, sx0 = 0, sy0 = 0;
-  float ftx, fty;
-  bool frac_ok = true;
-  if (window_rule) {
+  if (L.mode != kXla) {
     const int TR = (win + 2 + 7) / 8 * 8;
     const int TC = (win + 3 + 31) / 32 * 32;
-    t_ox = clampi((int)floorf(px - half), 0, max(W - TC, 0));
-    t_oy = clampi((int)floorf(py - half), 0, max(clamp_h - TR, 0));
+    t_ox = clampi((int)floorf(px - half), 0, max(L.W - TC, 0));
+    t_oy = clampi((int)floorf(py - half), 0, max(L.clamp_h - TR, 0));
     ftx = px - half - (float)t_ox;
     fty = py - half - (float)t_oy;
     frac_ok = ftx >= 0.f && ftx < 1.5f && fty >= 0.f && fty < 1.5f;
-    sx0 = clampi((int)floorf(cx) - kLanes / 2, 0, max(W - kLanes, 0));
-    sy0 = clampi((int)floorf(cy) - search_rows / 2, 0, max(clamp_h - search_rows, 0));
   } else {
+    const int pad = win / 2 + 2;
     const float x0f = (px + (float)pad) - half, y0f = (py + (float)pad) - half;
     const float x0 = floorf(x0f), y0 = floorf(y0f);
     ftx = x0f - x0;
     fty = y0f - y0;
-    t_ox = clampi((int)x0, 0, W + 2 * pad - win - 1) - pad;
-    t_oy = clampi((int)y0, 0, H + 2 * pad - win - 1) - pad;
+    t_ox = clampi((int)x0, 0, L.W + 2 * pad - win - 1) - pad;
+    t_oy = clampi((int)y0, 0, L.H + 2 * pad - win - 1) - pad;
+    frac_ok = true;
+  }
+}
+
+// Issue the cp.async copies of a level's raw prev / gx / gy tiles (edge-
+// clamped) into dst (3 planes of (win+1)^2 floats).
+template <int NT>
+__device__ __forceinline__ void stage_tiles(float* dst, const Level& L, int win, float px,
+                                            float py) {
+  int t_ox, t_oy;
+  float ftx, fty;
+  bool frac_ok;
+  tile_origin(L, win, px, py, t_ox, t_oy, ftx, fty, frac_ok);
+  const int tw = win + 1, t2 = tw * tw;
+  for (int i = threadIdx.x; i < 3 * t2; i += NT) {
+    const int q = i / t2, rem = i - q * t2;
+    const int r = rem / tw, c = rem - r * tw;
+    const float* plane = q == 0 ? L.prev : (q == 1 ? L.gx : L.gy);
+    cp_async4(dst + i, plane + (size_t)clampi(t_oy + r, 0, L.H - 1) * L.W +
+                           clampi(t_ox + c, 0, L.W - 1));
+  }
+}
+
+__device__ __forceinline__ int next_active(const Table& tab, int e) {
+  while (e < tab.n && tab.lv[e].mode == kSkip) ++e;
+  return e;
+}
+
+template <int WIN, int SR, int NT>
+__global__ void __launch_bounds__(NT)
+lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ prev_pts,
+                  const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
+                  float* __restrict__ out_pts, uint8_t* __restrict__ out_ok,
+                  int32_t* __restrict__ out_iters) {
+  constexpr int kWarps = NT / 32;
+  constexpr int kPPT = ((WIN > 0 ? WIN * WIN : kMaxWin * kMaxWin) + NT - 1) / NT;
+  constexpr bool kExact = WIN > 0 && (WIN * WIN) % NT == 0;
+  const int win = WIN > 0 ? WIN : tab.win;
+  const int sr = SR > 0 ? SR : tab.search_rows;
+  const int npx = win * win;
+  const int tw = win + 1, t2 = tw * tw;
+  const int sstride = kLanes + win % 32;  // == win (mod 32): conflict-free rows
+  const float half = (win - 1) * 0.5f;
+  const int pad = win / 2 + 2;
+
+  extern __shared__ __align__(16) float smem[];
+  float4* s_part = reinterpret_cast<float4*>(smem);  // 2 x kWarps
+  float* s_stage = smem + 8 * kWarps;                // search window or plane
+  float* s_raw = s_stage + tab.stage_floats;         // 2 x 3 x t2
+
+  const int k = blockIdx.x;
+  const int tid = threadIdx.x;
+
+  // The window pixels this thread owns: p = tid + j * NT.
+  int pr[kPPT], pc[kPPT];
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    const int p = tid + j * NT;
+    pr[j] = p / win;
+    pc[j] = p - pr[j] * win;
+  }
+  float tmpl[kPPT], tgx[kPPT], tgy[kPPT];
+
+  float px = prev_pts[2 * k], py = prev_pts[2 * k + 1];
+  float cx = init_pts[2 * k], cy = init_pts[2 * k + 1];
+  const bool vk = valid[k] != 0;
+  bool ok = vk;
+  int parity = 0;
+  int buf = 0;
+
+  // Prologue: the first tracked level's tiles.
+  {
+    const int e0 = next_active(tab, 0);
+    if (e0 < tab.n) {
+      float bx = px, by = py;
+      for (int e = 0; e <= e0; ++e) {
+        bx = bx * tab.lv[e].scale;
+        by = by * tab.lv[e].scale;
+      }
+      stage_tiles<NT>(s_raw, tab.lv[e0], win, bx, by);
+    }
+    cp_async_commit();
   }
 
-  // ---- template / gradient windows and the 2x2 gradient matrix -------------
-  {
-    const float w00 = (1.f - ftx) * (1.f - fty), w01 = ftx * (1.f - fty);
-    const float w10 = (1.f - ftx) * fty, w11 = ftx * fty;
-    float sxx = 0.f, sxy = 0.f, syy = 0.f;
-    for (int p = lane; p < npx; p += 32) {
-      const int y = t_oy + p / win, x = t_ox + p % win;
-      const float t = blend4(prev, H, W, y, x, w00, w01, w10, w11);
-      const float gx = blend4(gxi, H, W, y, x, w00, w01, w10, w11);
-      const float gy = blend4(gyi, H, W, y, x, w00, w01, w10, w11);
-      s_t[p] = t;
-      s_gx[p] = gx;
-      s_gy[p] = gy;
-      sxx += gx * gx;
-      sxy += gx * gy;
-      syy += gy * gy;
+  for (int e = 0; e < tab.n; ++e) {
+    const Level& L = tab.lv[e];
+    const int lvl = tab.n - 1 - e;
+    px = px * L.scale;
+    py = py * L.scale;
+    cx = cx * L.scale;
+    cy = cy * L.scale;
+    if (L.mode == kSkip) {
+      if (tid == 0) out_iters[(size_t)k * tab.n + lvl] = 0;
+      continue;
     }
-    if (window_rule) {
-      for (int p = lane; p < search_rows * kLanes; p += 32)
-        s_S[p] = ld(cur, H, W, sy0 + p / kLanes, sx0 + p % kLanes);
+    const int H = L.H, W = L.W;
+    const bool window = L.mode != kXla;
+
+    // ---- stage the search window (or the XLA level's plane) ---------------
+    int sx0 = 0, sy0 = 0;
+    const float* P = L.cur;  // what an XLA level's steps sample: plane or its copy
+    if (window) {
+      sx0 = clampi((int)floorf(cx) - kLanes / 2, 0, max(W - kLanes, 0));
+      sy0 = clampi((int)floorf(cy) - sr / 2, 0, max(L.clamp_h - sr, 0));
+      for (int i = tid; i < sr * kLanes; i += NT) {
+        const int r = i / kLanes, c = i % kLanes;
+        cp_async4(s_stage + r * sstride + c,
+                  L.cur + (size_t)clampi(sy0 + r, 0, H - 1) * W + clampi(sx0 + c, 0, W - 1));
+      }
+    } else if (H * W <= tab.stage_floats) {
+      for (int i = tid; i < H * W; i += NT) cp_async4(s_stage + i, L.cur + i);
+      P = s_stage;
     }
-    __syncwarp();
-    sxx = warp_sum(sxx);
-    sxy = warp_sum(sxy);
-    syy = warp_sum(syy);
+    cp_async_commit();
+
+    // ---- prefetch the next tracked level's tiles into the other buffer ----
+    {
+      const int ne = next_active(tab, e + 1);
+      if (ne < tab.n) {
+        float bx = px, by = py;
+        for (int f = e + 1; f <= ne; ++f) {
+          bx = bx * tab.lv[f].scale;
+          by = by * tab.lv[f].scale;
+        }
+        stage_tiles<NT>(s_raw + (buf ^ 1) * 3 * t2, tab.lv[ne], win, bx, by);
+      }
+      cp_async_commit();
+    }
+
+    // ---- this level's tiles have landed: template, gradients, G -----------
+    cp_async_wait<2>();
+    __syncthreads();
+    int t_ox, t_oy;
+    float ftx, fty;
+    bool frac_ok;
+    tile_origin(L, win, px, py, t_ox, t_oy, ftx, fty, frac_ok);
+    float g[3] = {0.f, 0.f, 0.f};
+    {
+      const float w00 = (1.f - ftx) * (1.f - fty), w01 = ftx * (1.f - fty);
+      const float w10 = (1.f - ftx) * fty, w11 = ftx * fty;
+      const float* raw = s_raw + buf * 3 * t2;
+#pragma unroll
+      for (int j = 0; j < kPPT; ++j) {
+        if (kExact || tid + j * NT < npx) {
+          const float* r0 = raw + pr[j] * tw + pc[j];
+          const float* r1 = r0 + t2;
+          const float* r2 = r1 + t2;
+          tmpl[j] = w00 * r0[0] + w01 * r0[1] + w10 * r0[tw] + w11 * r0[tw + 1];
+          tgx[j] = w00 * r1[0] + w01 * r1[1] + w10 * r1[tw] + w11 * r1[tw + 1];
+          tgy[j] = w00 * r2[0] + w01 * r2[1] + w10 * r2[tw] + w11 * r2[tw + 1];
+          g[0] += tgx[j] * tgx[j];
+          g[1] += tgx[j] * tgy[j];
+          g[2] += tgy[j] * tgy[j];
+        }
+      }
+    }
+    block_sum<3, kWarps>(g, s_part, parity);
+    const float sxx = g[0], sxy = g[1], syy = g[2];
     const float det = sxx * syy - sxy * sxy;
     const float half_tr = 0.5f * (sxx + syy);
-    const float min_eig =
-        (half_tr - sqrtf(fmaxf(half_tr * half_tr - det, 0.f))) / (float)(win * win);
-    const bool good = (min_eig > min_eig_thresh) && valid[k] > 0 && frac_ok;
+    const float min_eig = (half_tr - sqrtf(fmaxf(half_tr * half_tr - det, 0.f))) / (float)npx;
+    const bool good = (min_eig > tab.min_eig_thresh) && vk && frac_ok;
     const float safe_det = fabsf(det) > 1e-12f ? det : 1.f;
     const float inv00 = syy / safe_det, inv01 = -sxy / safe_det, inv11 = sxx / safe_det;
 
-    // ---- Gauss-Newton iterations, exiting at this keypoint's convergence ---
+    // ---- the search window (or plane) has landed ---------------------------
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // ---- Gauss-Newton steps, exiting at this keypoint's convergence --------
     bool inb = true;
     int it = 0;
-    if (good) {
+    if (good && window) {
       const float sxf = (float)sx0, syf = (float)sy0;
-      for (; it < max_iter;) {
-        float bx = 0.f, by = 0.f;
-        if (window_rule) {
-          const float ox = cx - half - sxf, oy = cy - half - syf;
-          const int oxi = (int)floorf(ox), oyi = (int)floorf(oy);
-          if (oxi < 0 || oyi < 0 || oxi > kLanes - win - 2 || oyi > search_rows - win - 2) {
-            inb = false;  // left the search window: the keypoint fails here
-            break;
-          }
-          const float fx = ox - (float)oxi, fy = oy - (float)oyi;
-          for (int p = lane; p < npx; p += 32) {
-            const float* r0 = s_S + (oyi + p / win) * kLanes + oxi + p % win;
-            const float* r1 = r0 + kLanes;
+      int off[kPPT];
+#pragma unroll
+      for (int j = 0; j < kPPT; ++j) off[j] = pr[j] * sstride + pc[j];
+      while (it < tab.max_iter) {
+        const float ox = cx - half - sxf, oy = cy - half - syf;
+        const int oxi = (int)floorf(ox), oyi = (int)floorf(oy);
+        if (oxi < 0 || oyi < 0 || oxi > kLanes - win - 2 || oyi > sr - win - 2) {
+          inb = false;  // left the search window: the keypoint fails here
+          break;
+        }
+        const float fx = ox - (float)oxi, fy = oy - (float)oyi;
+        const float* w0 = s_stage + oyi * sstride + oxi;
+        float b[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kPPT; ++j) {
+          if (kExact || tid + j * NT < npx) {
+            const float* r0 = w0 + off[j];
+            const float* r1 = r0 + sstride;
             const float ya = (1.f - fy) * r0[0] + fy * r1[0];
             const float yb = (1.f - fy) * r0[1] + fy * r1[1];
-            const float dI = ((1.f - fx) * ya + fx * yb) - s_t[p];
-            bx += dI * s_gx[p];
-            by += dI * s_gy[p];
-          }
-        } else {
-          const float x0f = (cx + (float)pad) - half, y0f = (cy + (float)pad) - half;
-          const float x0 = floorf(x0f), y0 = floorf(y0f);
-          const float fx = x0f - x0, fy = y0f - y0;
-          const int xi = clampi((int)x0, 0, W + 2 * pad - win - 1) - pad;
-          const int yi = clampi((int)y0, 0, H + 2 * pad - win - 1) - pad;
-          const float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
-          const float w10 = (1.f - fx) * fy, w11 = fx * fy;
-          for (int p = lane; p < npx; p += 32) {
-            const float v = blend4(cur, H, W, yi + p / win, xi + p % win, w00, w01, w10, w11);
-            const float dI = v - s_t[p];
-            bx += dI * s_gx[p];
-            by += dI * s_gy[p];
+            const float dI = ((1.f - fx) * ya + fx * yb) - tmpl[j];
+            b[0] += dI * tgx[j];
+            b[1] += dI * tgy[j];
           }
         }
-        bx = warp_sum(bx);
-        by = warp_sum(by);
-        const float dx = -(inv00 * bx + inv01 * by);
-        const float dy = -(inv01 * bx + inv11 * by);
+        block_sum<2, kWarps>(b, s_part, parity);
+        const float dx = -(inv00 * b[0] + inv01 * b[1]);
+        const float dy = -(inv01 * b[0] + inv11 * b[1]);
         cx = cx + dx;
         cy = cy + dy;
         ++it;
-        if (dx * dx + dy * dy < eps2) break;
+        if (dx * dx + dy * dy < tab.eps2) break;
+      }
+    } else if (good) {
+      while (it < tab.max_iter) {
+        const float x0f = (cx + (float)pad) - half, y0f = (cy + (float)pad) - half;
+        const float x0 = floorf(x0f), y0 = floorf(y0f);
+        const float fx = x0f - x0, fy = y0f - y0;
+        const int xi = clampi((int)x0, 0, W + 2 * pad - win - 1) - pad;
+        const int yi = clampi((int)y0, 0, H + 2 * pad - win - 1) - pad;
+        const float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
+        const float w10 = (1.f - fx) * fy, w11 = fx * fy;
+        float b[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kPPT; ++j) {
+          if (kExact || tid + j * NT < npx) {
+            const int ya = clampi(yi + pr[j], 0, H - 1) * W;
+            const int yb = clampi(yi + pr[j] + 1, 0, H - 1) * W;
+            const int xa = clampi(xi + pc[j], 0, W - 1);
+            const int xb = clampi(xi + pc[j] + 1, 0, W - 1);
+            const float v = w00 * P[ya + xa] + w01 * P[ya + xb] + w10 * P[yb + xa] +
+                            w11 * P[yb + xb];
+            const float dI = v - tmpl[j];
+            b[0] += dI * tgx[j];
+            b[1] += dI * tgy[j];
+          }
+        }
+        block_sum<2, kWarps>(b, s_part, parity);
+        const float dx = -(inv00 * b[0] + inv01 * b[1]);
+        const float dy = -(inv01 * b[0] + inv11 * b[1]);
+        cx = cx + dx;
+        cy = cy + dy;
+        ++it;
+        if (dx * dx + dy * dy < tab.eps2) break;
       }
     }
-    if (lane == 0) {
-      out_pts[2 * k] = cx;
-      out_pts[2 * k + 1] = cy;
-      out_ok[k] = (good && inb) ? 1 : 0;
-      out_iters[k] = it;
-    }
+    if (L.keep_ok) ok = ok && good && inb;
+    if (tid == 0) out_iters[(size_t)k * tab.n + lvl] = it;
+    buf ^= 1;
+    __syncthreads();  // every read of this level's buffers precedes the next copies
   }
+  cp_async_wait<0>();
+
+  if (tid == 0) {
+    const float half0 = win * 0.5f;
+    const bool in_img = cx >= half0 && cx < (float)tab.W0 - half0 && cy >= half0 &&
+                        cy < (float)tab.H0 - half0;
+    out_pts[2 * k] = cx;
+    out_pts[2 * k + 1] = cy;
+    out_ok[k] = (ok && in_img) ? 1 : 0;
+  }
+}
+
+template <int WIN, int SR, int NT>
+int launch(const Table& tab, size_t smem, int N, const void* prev_pts, const void* init_pts,
+           const void* valid, void* out_pts, void* out_ok, void* out_iters,
+           cudaStream_t stream) {
+  auto kernel = lk_pyramid_kernel<WIN, SR, NT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<N, NT, smem, stream>>>(tab, (const float*)prev_pts, (const float*)init_pts,
+                                  (const uint8_t*)valid, (float*)out_pts, (uint8_t*)out_ok,
+                                  (int32_t*)out_iters);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_sized(const Table& tab, size_t smem, int N, const void* prev_pts,
+                 const void* init_pts, const void* valid, void* out_pts, void* out_ok,
+                 void* out_iters, cudaStream_t stream) {
+  if (tab.win == 24 && tab.search_rows == 56)
+    return launch<24, 56, NT>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
+                              out_iters, stream);
+  return launch<0, 0, NT>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok, out_iters,
+                          stream);
 }
 
 }  // namespace
 
-extern "C" int lk_level_launch(const void* prev, const void* gx, const void* gy,
-                               const void* cur, int H, int W, const void* base,
-                               const void* init, const void* valid, void* out_pts,
-                               void* out_ok, void* out_iters, int N, int win,
-                               int search_rows, int max_iter, float eps2,
-                               float min_eig_thresh, int window_rule, int clamp_h,
-                               void* stream) {
+// planes: 4 pointers per level (prev, gx, gy, cur), coarse to fine;
+// ints: 5 per level (H, W, mode, clamp_h, keep_ok); scales: 1 per
+// level. Outputs: pts (N,2) float32, ok (N,) uint8, iters (N, n_levels) int32
+// indexed by level number.
+extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, const float* scales,
+                                 int n_levels, int H0, int W0, const void* prev_pts,
+                                 const void* init_pts, const void* valid, void* out_pts,
+                                 void* out_ok, void* out_iters, int N, int win,
+                                 int search_rows, int max_iter, float eps2,
+                                 float min_eig_thresh, int threads, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || win < 2 || win > kMaxWin ||
+      search_rows < win + 2)
+    return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  const size_t smem =
-      sizeof(float) * (3 * (size_t)win * win + (window_rule ? (size_t)search_rows * kLanes : 0));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lk_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  Table tab = {};
+  tab.n = n_levels;
+  tab.H0 = H0;
+  tab.W0 = W0;
+  tab.win = win;
+  tab.search_rows = search_rows;
+  tab.max_iter = max_iter;
+  tab.eps2 = eps2;
+  tab.min_eig_thresh = min_eig_thresh;
+  bool any_window = false;
+  for (int e = 0; e < n_levels; ++e) {
+    Level& L = tab.lv[e];
+    L.prev = (const float*)planes[4 * e];
+    L.gx = (const float*)planes[4 * e + 1];
+    L.gy = (const float*)planes[4 * e + 2];
+    L.cur = (const float*)planes[4 * e + 3];
+    L.H = ints[5 * e];
+    L.W = ints[5 * e + 1];
+    L.mode = ints[5 * e + 2];
+    L.clamp_h = ints[5 * e + 3];
+    L.keep_ok = ints[5 * e + 4];
+    L.scale = scales[e];
+    if (L.mode < kSkip || L.mode > kGather) return (int)cudaErrorInvalidValue;
+    any_window = any_window || L.mode == kVmem || L.mode == kGather;
   }
-  lk_level_kernel<<<N, 32, smem, (cudaStream_t)stream>>>(
-      (const float*)prev, (const float*)gx, (const float*)gy, (const float*)cur, H, W,
-      (const float*)base, (const float*)init, (const int32_t*)valid, (float*)out_pts,
-      (int32_t*)out_ok, (int32_t*)out_iters, win, search_rows, max_iter, eps2,
-      min_eig_thresh, window_rule, clamp_h);
-  return (int)cudaGetLastError();
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  // Shared memory: the warps' partials, the staging buffer, two tile buffers.
+  const size_t fixed =
+      sizeof(float) * (8 * (size_t)(threads / 32) + 2 * 3 * (size_t)(win + 1) * (win + 1));
+  size_t stage = any_window ? (size_t)search_rows * (kLanes + win % 32) : 0;
+  if (fixed + sizeof(float) * stage > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
+  for (int l = 0; l < n_levels; ++l) {
+    const Level& L = tab.lv[l];
+    const size_t plane = (size_t)L.H * L.W;
+    if (L.mode == kXla && plane > stage && fixed + sizeof(float) * plane <= (size_t)optin)
+      stage = plane;  // XLA levels that fit are staged whole
+  }
+  tab.stage_floats = (int)stage;
+  const size_t smem = fixed + sizeof(float) * stage;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (threads) {
+    case 96:
+      return launch_sized<96>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
+                              out_iters, s);
+    case 192:
+      return launch_sized<192>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
+                               out_iters, s);
+    case 288:
+      return launch_sized<288>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
+                               out_iters, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* lk_error_string(int code) {

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from kimera_vio_tpu_torch import resolve_device
 from kimera_vio_tpu_torch.config.params import CameraParams
 
 DIST_NONE = 0
@@ -56,7 +57,8 @@ class PinholeCamera:
     height: int = 480
 
     @classmethod
-    def from_params(cls, p: CameraParams, device="cpu") -> "PinholeCamera":
+    def from_params(cls, p: CameraParams, device="cuda") -> "PinholeCamera":
+        device = resolve_device(device)
         if getattr(p, "camera_model", "pinhole") == "omni":
             raise NotImplementedError("omni cameras are not ported")
         d = np.zeros(5)
@@ -143,9 +145,10 @@ class StereoCamera:
     t_b_rect: torch.Tensor
 
     @classmethod
-    def from_params(cls, left_p: CameraParams, right_p: CameraParams, device="cpu") -> "StereoCamera":
+    def from_params(cls, left_p: CameraParams, right_p: CameraParams, device="cuda") -> "StereoCamera":
         """Bouguet-style rectification computed on the host in float64
         (what cv::stereoRectify does), stored as float32 tensors."""
+        device = resolve_device(device)
         from scipy.spatial.transform import Rotation
 
         left = PinholeCamera.from_params(left_p, device)

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
+from kimera_vio_tpu_torch import resolve_device
 from kimera_vio_tpu_torch.common import geometry as geo
 from kimera_vio_tpu_torch.common.types import ImuBias, ImuBlock, NavState
 
@@ -34,7 +35,8 @@ class PimParams:
     n_gravity: torch.Tensor  # (3,)
 
     @classmethod
-    def from_params(cls, imu_params, device="cpu") -> "PimParams":
+    def from_params(cls, imu_params, device="cuda") -> "PimParams":
+        device = resolve_device(device)
         return cls(
             gyro_noise_density=_f32(imu_params.gyro_noise_density, device),
             acc_noise_density=_f32(imu_params.acc_noise_density, device),
@@ -64,7 +66,8 @@ class Pim:
     @classmethod
     def zero(cls, bias: ImuBias | None = None, device=None, dtype=torch.float32) -> "Pim":
         if device is None:
-            device = bias.accel.device if bias is not None else "cpu"
+            device = bias.accel.device if bias is not None else "cuda"
+        device = resolve_device(device)
         z33 = torch.zeros((3, 3), dtype=dtype, device=device)
         return cls(
             delta_R=torch.eye(3, dtype=dtype, device=device),

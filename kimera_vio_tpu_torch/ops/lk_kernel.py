@@ -2,9 +2,10 @@
 
 Replaces the Pallas TPU tracker kimera_vio_tpu/ops/pallas/lk_kernel.py:
 both of its kernels, `_level_kernel` (:68, windows gathered by XLA) and
-`_level_kernel_vmem` (:332, whole level resident in VMEM), become ONE CUDA
-kernel (csrc/lk_kernel.cu) launched once per pyramid level; the tracker
-`klt_track_lk` has the signature and the level plan of
+`_level_kernel_vmem` (:332, whole level resident in VMEM), the XLA level
+`klt_track_pallas` falls back to on small levels, and its coarse-to-fine
+loop become ONE CUDA kernel (csrc/lk_kernel.cu) launched once per frame;
+the tracker `klt_track_lk` has the signature and the level plan of
 `klt_track_pallas` (:649-728).
 
 The level function, per keypoint:
@@ -26,8 +27,13 @@ each of its own steps (the same per-keypoint rule as the XLA tracker). The
 TPU workarounds (bf16 residency, one-hot select matmuls, dynamic lane
 roll, blocks of 8) have no counterpart.
 
-Dispatch: a CPU tensor runs `lk_level_plain`; a CUDA tensor launches the
-kernel or raises. There is no fallback between the two.
+`level_table` is the level plan both sides walk: `track_pyramid` (the
+plain coarse-to-fine loop over `lk_level_plain`) and the kernel, which
+receives it by value as a launch parameter.
+
+Dispatch: a CPU tensor runs `track_pyramid(lk_level_plain, ...)`; a CUDA
+tensor launches the kernel (`lk_pyramid_cuda`) or raises. There is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -89,6 +96,42 @@ def level_mode(H: int, W: int, win: int, search_rows: int | None):
     if H < search_rows + 4 or W < _LANES + 4:
         return ("xla", None) if min(H, W) >= win + 2 else ("skip", None)
     return "gather", H
+
+
+_MODE_CODES = {"skip": 0, "xla": 1, "vmem": 2, "gather": 3}  # csrc/lk_kernel.cu: Mode
+_MAX_LEVELS = 8  # csrc/lk_kernel.cu: kMaxLevels
+_MAX_WIN = 32  # csrc/lk_kernel.cu: kMaxWin
+
+
+class LevelPlan(NamedTuple):
+    """One entry of the coarse-to-fine plan: pyramid level `level` of
+    `shape` (H, W) is tracked in `mode` with window origins clamped to
+    `clamp_h`; the running point and its base are first multiplied by
+    `scale`, and the level's `ok` joins the result when `keep_ok`."""
+
+    level: int
+    shape: tuple[int, int]
+    mode: str
+    clamp_h: int | None
+    scale: float
+    keep_ok: bool
+
+
+def level_table(shapes, win: int, search_rows: int | None) -> list[LevelPlan]:
+    """`klt_track_pallas`'s coarse-to-fine plan over pyramid level shapes
+    (level 0 first), coarsest entry first. Points start at
+    `pts / 2**(n-1)` and double on every finer level, skipped levels
+    included; every level sees the original `valid`; only level 0's `ok`
+    is kept, and not when it is an XLA level of the Pallas tracker."""
+    n = len(shapes)
+    plan = []
+    for lvl in range(n - 1, -1, -1):
+        H, W = (int(d) for d in shapes[lvl])
+        mode, clamp_h = level_mode(H, W, win, search_rows)
+        keep_ok = lvl == 0 and mode != "skip" and (mode != "xla" or search_rows is None)
+        scale = 1.0 / 2.0 ** (n - 1) if lvl == n - 1 else 2.0
+        plan.append(LevelPlan(lvl, (H, W), mode, clamp_h, scale, keep_ok))
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +284,49 @@ def lk_level_plain(
 
 
 # ---------------------------------------------------------------------------
+# Coarse-to-fine tracker, plain version
+# ---------------------------------------------------------------------------
+
+
+def track_pyramid(
+    level_fn, prev_pyr, cur_pyr, prev_pts, init_pts, valid, prev_grads, *,
+    win: int, max_iter: int, eps: float, min_eig_thresh: float, search_rows: int | None,
+):
+    """`klt_track_pallas`'s coarse-to-fine loop over `level_fn`
+    (`lk_level_plain`, or a wrapper of it); with `search_rows=None` the
+    loop of the reference's gather tracker `klt_track` (no window rule on
+    any level, level 0's gate kept). Returns (tracked_pts, ok, levels),
+    `levels` one dict per tracked level: its shape, mode and per-keypoint
+    step counts."""
+    pts, base, ok = init_pts, prev_pts, valid
+    levels = []
+    for e in level_table([p.shape for p in prev_pyr], win, search_rows):
+        pts = pts * e.scale
+        base = base * e.scale
+        if e.mode == "skip":
+            continue
+        Ix, Iy = prev_grads[e.level]
+        pts, ok_lvl, iters = level_fn(
+            prev_pyr[e.level].contiguous(), Ix.contiguous(), Iy.contiguous(),
+            cur_pyr[e.level].contiguous(), base, pts, valid,
+            win=win, max_iter=max_iter, eps=eps, min_eig_thresh=min_eig_thresh,
+            window_rule=e.mode != "xla", search_rows=search_rows or 0, clamp_h=e.clamp_h,
+        )
+        levels.append({"level": e.level, "shape": e.shape, "mode": e.mode, "iters": iters})
+        if e.keep_ok:
+            ok = ok & ok_lvl
+    H0, W0 = prev_pyr[0].shape
+    half = win * 0.5
+    inb = (
+        (pts[:, 0] >= half)
+        & (pts[:, 0] < W0 - half)
+        & (pts[:, 1] >= half)
+        & (pts[:, 1] < H0 - half)
+    )
+    return pts, ok & inb, levels
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
@@ -276,16 +362,17 @@ def _lib() -> ctypes.CDLL:
     so, _ = build_kernel()
     lib = ctypes.CDLL(str(so))
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lk_level_launch.argtypes = [
-        P, P, P, P, I, I,  # prev, gx, gy, cur, H, W
-        P, P, P,  # base, init, valid
+    lib.lk_pyramid_launch.argtypes = [
+        P, P, P, I,  # planes, level ints, level scales, n_levels
+        I, I,  # H0, W0
+        P, P, P,  # prev_pts, init_pts, valid
         P, P, P,  # out_pts, out_ok, out_iters
         I, I, I, I,  # N, win, search_rows, max_iter
         Fl, Fl,  # eps^2, min_eig_thresh
-        I, I,  # window_rule, clamp_h
+        I,  # threads per block
         P,  # stream
     ]
-    lib.lk_level_launch.restype = I
+    lib.lk_pyramid_launch.restype = I
     lib.lk_error_string.argtypes = [I]
     lib.lk_error_string.restype = ctypes.c_char_p
     return lib
@@ -299,116 +386,83 @@ def _check_image(name, t, dev, shape=None):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
 
 
-def lk_level_cuda(
-    prev, gx, gy, cur, base, pts, valid, *,
-    win: int, max_iter: int, eps: float, min_eig_thresh: float,
-    window_rule: bool, search_rows: int = 56, clamp_h: int | None = None,
+# Threads per block (one block per keypoint). The kernel is built for 96,
+# 192 and 288; 192 was the fastest of the three on an H100 (scripts/lk_ab.py).
+LK_THREADS = 192
+
+
+def lk_pyramid_cuda(
+    prev_pyr, cur_pyr, prev_grads, prev_pts, init_pts, valid, *,
+    win: int, max_iter: int, eps: float, min_eig_thresh: float, search_rows: int,
+    threads: int = LK_THREADS,
 ):
-    """Launch the CUDA level kernel (one launch). Same contract as
-    `lk_level_plain`. Adds one to `lk_level_cuda.launches` per launch."""
-    dev = prev.device
+    """Track one frame, every level, in ONE launch of the CUDA kernel.
+    Computes what `track_pyramid(lk_level_plain, ...)` computes (the
+    window sums in another order). Returns (pts (N,2) float32, ok (N,)
+    bool, iters (N, n_levels) int32: the Gauss-Newton steps per level,
+    indexed by level number). Adds one to `lk_pyramid_cuda.launches` per
+    launch. `threads` is the block size (96, 192 or 288)."""
+    n = len(prev_pyr)
+    if n == 0 or len(cur_pyr) != n or len(prev_grads) != n:
+        raise ValueError("need one prev, cur and gradient pair per level")
+    if n > _MAX_LEVELS:
+        raise ValueError(f"at most {_MAX_LEVELS} pyramid levels, got {n}")
+    if not (2 <= win <= _MAX_WIN and search_rows >= win + 2):
+        raise ValueError(f"need 2 <= win <= {_MAX_WIN} and search_rows >= win + 2")
+    dev = prev_pyr[0].device
     if dev.type != "cuda":
-        raise ValueError("lk_level_cuda needs CUDA tensors")
-    H, W = prev.shape
-    _check_image("prev", prev, dev)
-    for name, t in (("gx", gx), ("gy", gy), ("cur", cur)):
-        _check_image(name, t, dev, (H, W))
-    N = base.shape[0]
-    for name, t in (("base", base), ("pts", pts)):
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (N, 2):
-            raise ValueError(f"{name}: need ({N},2) float32 on {dev}")
-    if valid.device != dev or tuple(valid.shape) != (N,):
-        raise ValueError(f"valid: need ({N},) on {dev}")
-    if window_rule and (search_rows < win + 2 or W < 1 or H < 1):
-        raise ValueError("search window smaller than the LK window")
-    base = base.contiguous()
-    init = pts.contiguous()
-    valid_i = valid.to(torch.int32).contiguous()
+        raise ValueError("lk_pyramid_cuda needs CUDA tensors")
+    N = prev_pts.shape[0]
+    for name, t in (("prev_pts", prev_pts), ("init_pts", init_pts)):
+        if (t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (N, 2)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous ({N},2) float32 tensor on {dev}")
+    if (valid.device != dev or valid.dtype != torch.bool or tuple(valid.shape) != (N,)
+            or not valid.is_contiguous()):
+        raise ValueError(f"valid: need a contiguous ({N},) bool tensor on {dev}")
+    plan = level_table([p.shape for p in prev_pyr], win, search_rows)
+    planes = (ctypes.c_void_p * (4 * n))()
+    ints = (ctypes.c_int * (5 * n))()
+    scales = (ctypes.c_float * n)()
+    for e, lv in enumerate(plan):
+        scales[e] = lv.scale
+        ints[5 * e : 5 * e + 5] = [*lv.shape, _MODE_CODES[lv.mode], lv.clamp_h or 0, int(lv.keep_ok)]
+        if lv.mode == "skip":
+            continue
+        lvl = lv.level
+        _check_image(f"prev_pyr[{lvl}]", prev_pyr[lvl], dev)
+        gx, gy = prev_grads[lvl]
+        for name, t in (("gx", gx), ("gy", gy), ("cur", cur_pyr[lvl])):
+            _check_image(f"{name}[{lvl}]", t, dev, lv.shape)
+        planes[4 * e : 4 * e + 4] = [prev_pyr[lvl].data_ptr(), gx.data_ptr(), gy.data_ptr(),
+                                     cur_pyr[lvl].data_ptr()]
     out_pts = torch.empty((N, 2), dtype=torch.float32, device=dev)
-    out_ok = torch.empty((N,), dtype=torch.int32, device=dev)
-    out_iters = torch.empty((N,), dtype=torch.int32, device=dev)
+    out_ok = torch.empty((N,), dtype=torch.bool, device=dev)
+    out_iters = torch.empty((N, n), dtype=torch.int32, device=dev)
     if N == 0:
-        return out_pts, out_ok.bool(), out_iters
+        return out_pts, out_ok, out_iters
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    H0, W0 = prev_pyr[0].shape
     with torch.cuda.device(dev):
-        rc = lib.lk_level_launch(
-            prev.data_ptr(), gx.data_ptr(), gy.data_ptr(), cur.data_ptr(), H, W,
-            base.data_ptr(), init.data_ptr(), valid_i.data_ptr(),
+        rc = lib.lk_pyramid_launch(
+            planes, ints, scales, n, H0, W0,
+            prev_pts.data_ptr(), init_pts.data_ptr(), valid.data_ptr(),
             out_pts.data_ptr(), out_ok.data_ptr(), out_iters.data_ptr(),
             N, win, search_rows, max_iter, float(eps * eps), float(min_eig_thresh),
-            int(bool(window_rule)), int(H if clamp_h is None else clamp_h),
-            stream,
+            threads, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"LK kernel launch failed: {lib.lk_error_string(rc).decode()}")
-    lk_level_cuda.launches += 1
-    return out_pts, out_ok.bool(), out_iters
+    lk_pyramid_cuda.launches += 1
+    return out_pts, out_ok, out_iters
 
 
-lk_level_cuda.launches = 0
-
-
-def lk_level(prev, *args, **kwargs):
-    """One LK level: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors."""
-    if prev.device.type == "cpu":
-        return lk_level_plain(prev, *args, **kwargs)
-    if prev.device.type == "cuda":
-        return lk_level_cuda(prev, *args, **kwargs)
-    raise ValueError(f"no LK implementation for device {prev.device}")
+lk_pyramid_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Coarse-to-fine tracker
+# Tracker entry point
 # ---------------------------------------------------------------------------
-
-
-def track_pyramid(
-    level_fn, prev_pyr, cur_pyr, prev_pts, init_pts, valid, prev_grads, *,
-    win: int, max_iter: int, eps: float, min_eig_thresh: float, search_rows: int | None,
-):
-    """`klt_track_pallas`'s coarse-to-fine loop over `level_fn` (one of
-    `lk_level`, `lk_level_plain`, `lk_level_cuda`); with `search_rows=None`
-    the loop of the reference's gather tracker `klt_track` (no window rule
-    on any level, level 0's gate kept). Returns (tracked_pts, ok, levels),
-    `levels` one dict per tracked level: its shape, mode and per-keypoint
-    step counts."""
-    n_levels = len(prev_pyr)
-    scale_top = 2.0 ** (n_levels - 1)
-    pts = init_pts / scale_top
-    base = prev_pts / scale_top
-    ok = valid
-    levels = []
-    for lvl in range(n_levels - 1, -1, -1):
-        if lvl != n_levels - 1:
-            pts = pts * 2.0
-            base = base * 2.0
-        Hl, Wl = prev_pyr[lvl].shape
-        mode, clamp_h = level_mode(Hl, Wl, win, search_rows)
-        if mode == "skip":
-            continue
-        Ix, Iy = prev_grads[lvl]
-        pts, ok_lvl, iters = level_fn(
-            prev_pyr[lvl].contiguous(), Ix.contiguous(), Iy.contiguous(),
-            cur_pyr[lvl].contiguous(), base, pts, valid,
-            win=win, max_iter=max_iter, eps=eps, min_eig_thresh=min_eig_thresh,
-            window_rule=mode != "xla", search_rows=search_rows or 0, clamp_h=clamp_h,
-        )
-        levels.append({"level": lvl, "shape": (Hl, Wl), "mode": mode, "iters": iters})
-        # klt_track_pallas drops the ok of an XLA level 0; the gather
-        # tracker keeps it.
-        if lvl == 0 and (mode != "xla" or search_rows is None):
-            ok = ok & ok_lvl
-    H0, W0 = prev_pyr[0].shape
-    half = win * 0.5
-    inb = (
-        (pts[:, 0] >= half)
-        & (pts[:, 0] < W0 - half)
-        & (pts[:, 1] >= half)
-        & (pts[:, 1] < H0 - half)
-    )
-    return pts, ok & inb, levels
 
 
 def klt_track_lk(
@@ -420,8 +474,9 @@ def klt_track_lk(
     """Pyramidal LK with the level plan of `klt_track_pallas`: coarse to
     fine, window-rule levels where `klt_track_pallas` used a kernel, the
     reference XLA level below the search-window size, a final in-image
-    gate. All tensors must already lie on `device`. Returns
-    (tracked_pts (N,2), ok (N,))."""
+    gate. All tensors must already lie on `device`: CUDA tensors go
+    through the kernel (one launch), CPU tensors through the plain
+    version. Returns (tracked_pts (N,2), ok (N,))."""
     dev = resolve_device(device)
     tensors = [*prev_pyr, *cur_pyr, prev_pts, init_pts, valid]
     if prev_grads is not None:
@@ -431,9 +486,15 @@ def klt_track_lk(
             raise ValueError(f"klt_track_lk(device={dev}): got a tensor on {t.device}")
     if prev_grads is None:
         prev_grads = [image_gradients(p, scharr=True) for p in prev_pyr]
-    pts, ok, _ = track_pyramid(
-        lk_level, prev_pyr, cur_pyr, prev_pts, init_pts, valid, prev_grads,
-        win=win, max_iter=max_iter, eps=eps, min_eig_thresh=min_eig_thresh,
-        search_rows=search_rows,
+    kw = dict(win=win, max_iter=max_iter, eps=eps, min_eig_thresh=min_eig_thresh,
+              search_rows=search_rows)
+    if dev.type == "cpu":
+        pts, ok, _ = track_pyramid(lk_level_plain, prev_pyr, cur_pyr, prev_pts, init_pts,
+                                   valid, prev_grads, **kw)
+        return pts, ok
+    pts, ok, _ = lk_pyramid_cuda(
+        [p.contiguous() for p in prev_pyr], [c.contiguous() for c in cur_pyr],
+        [(gx.contiguous(), gy.contiguous()) for gx, gy in prev_grads],
+        prev_pts.contiguous(), init_pts.contiguous(), valid, **kw,
     )
     return pts, ok

@@ -12,7 +12,8 @@ synchronizing host timer around each main-path stage. Prints, as JSON
 lines: the card's name and power limit; the wall time, the summed device
 time of all kernels and the device's busy share (kernels run on one
 stream, so their sum is the busy time); the kernels with the most device
-time; the LK kernel's device time per launch; and per stage its calls and
+time; the LK pyramid kernel's launches (one per tracked frame) and device
+time per launch; and per stage its calls and
 milliseconds (stages nest: the keyframe branch holds detection, stereo
 matching and RANSAC; the backend holds the solve and marginalization).
 Exits non-zero without CUDA.
@@ -115,14 +116,14 @@ def main() -> int:
     for name, (n, ms) in top:
         print(json.dumps({"kernel": name[:120], "launches": n, "device_ms": ms,
                           "share_of_device": ms / max(device_ms, 1e-9)}))
-    lk = [(n, ms) for name, (n, ms) in per_kernel.items() if "lk_level_kernel" in name]
+    lk = [(n, ms) for name, (n, ms) in per_kernel.items() if "lk_pyramid_kernel" in name]
     if lk:
         n, ms = lk[0]
-        print(json.dumps({"lk_level_kernel_launches": n, "lk_device_ms_total": ms,
+        print(json.dumps({"lk_pyramid_kernel_launches": n, "lk_device_ms_total": ms,
                           "lk_device_us_per_launch": 1e3 * ms / n,
                           "lk_device_ms_per_frame": ms / max(out.n_frames - 1, 1)}))
     else:
-        print(json.dumps({"lk_level_kernel": "no device events recorded"}))
+        print(json.dumps({"lk_pyramid_kernel": "no device events recorded"}))
 
     acc = defaultdict(lambda: [0, 0.0])
     instrument(acc)

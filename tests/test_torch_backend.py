@@ -90,9 +90,10 @@ def test_backend_step_matches_jax():
     tparams = vio_params_from_dict(dataclasses.asdict(jparams))
     assert isinstance(jparams, JVioParams)
     jstereo = JStereoCamera.from_params(jparams.left_cam, jparams.right_cam)
-    tstereo = StereoCamera.from_params(tparams.left_cam, tparams.right_cam)
+    tstereo = StereoCamera.from_params(tparams.left_cam, tparams.right_cam, device="cpu")
     jcfg = jsm.BackendConfig.from_params(jparams.backend, jparams.imu, jstereo, max_landmarks=L)
-    tcfg = tsm.BackendConfig.from_params(tparams.backend, tparams.imu, tstereo, max_landmarks=L)
+    tcfg = tsm.BackendConfig.from_params(tparams.backend, tparams.imu, tstereo, max_landmarks=L,
+                                         device="cpu")
     jpp = jimu.PimParams.from_params(jparams.imu)
 
     jstep = jax.jit(lambda w, l, pim, st, ids, uvd, m, status: jsm.backend_step(

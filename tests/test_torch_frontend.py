@@ -45,9 +45,9 @@ def test_frontend_init_matches_jax_and_tracks_from_converted_state():
     jcfg = JFrontendConfig.from_params(jparams.frontend, max_features=64).replace(lk_impl="gather")
     jfe = JStereoFrontend(jcfg, JStereoCamera.from_params(jparams.left_cam, jparams.right_cam),
                           jimu.PimParams.from_params(jparams.imu))
-    tstereo = StereoCamera.from_params(tparams.left_cam, tparams.right_cam)
+    tstereo = StereoCamera.from_params(tparams.left_cam, tparams.right_cam, device="cpu")
     tfe = StereoFrontend(FrontendConfig.from_params(tparams.frontend, max_features=64), tstereo,
-                         PimParams.from_params(tparams.imu), torch.device("cpu"))
+                         PimParams.from_params(tparams.imu, device="cpu"), torch.device("cpu"))
 
     jprov = JProvider(n_frames=6, **SIZE)
     tprov = SyntheticStereoProvider(n_frames=6, **SIZE)

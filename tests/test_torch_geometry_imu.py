@@ -103,7 +103,7 @@ def _pim_to_np(p):
 def test_imu_preintegration_matches_jax():
     ip = ImuParams()
     jp = jimu.PimParams.from_params(ip)
-    tp = timu.PimParams.from_params(ip)
+    tp = timu.PimParams.from_params(ip, device="cpu")
     acc, gyr, dt, mask = _imu_block(1)
     acc2, gyr2, dt2, mask2 = _imu_block(2)
     bias = np.array([0.05, -0.02, 0.01, 0.003, -0.002, 0.001], np.float32)
@@ -203,7 +203,7 @@ def test_camera_rectification_matches_jax(model):
     jl, jr = _rig(JCameraParams, model)
     tl, tr = _rig(CameraParams, model)
     js = jcam.StereoCamera.from_params(jl, jr)
-    ts = tcam.StereoCamera.from_params(tl, tr)
+    ts = tcam.StereoCamera.from_params(tl, tr, device="cpu")
     for k in ("fx", "fy", "cx", "cy", "baseline", "R_rect_l", "R_rect_r", "R_b_rect", "t_b_rect"):
         np.testing.assert_allclose(N(getattr(ts, k)), np.asarray(getattr(js, k)), atol=1e-6, err_msg=k)
     rng = np.random.default_rng(12)

@@ -8,7 +8,10 @@ tests run them on the CPU, in interpret mode:
   * the whole tracker `klt_track_pallas` on a 240x320 pair (the VMEM kernel
     on levels 0-2, the XLA level on level 3);
   * `_track_level_pallas` (gather kernel, B1) and
-    `_track_level_pallas_vmem` (VMEM kernel, B2) directly on one level.
+    `_track_level_pallas_vmem` (VMEM kernel, B2) directly on one level;
+  * the level table the CUDA kernel receives (`level_table`, pure Python)
+    against `klt_track_pallas`'s branch choice, base-point scaling and
+    level-0 gate, and against `track_pyramid`'s loop.
 
 Tolerance: median distance < 0.05 px over the points both sides track and
 >= 90 % agreement of `ok`, the repository's own bound for Pallas vs XLA LK
@@ -141,5 +144,82 @@ def test_klt_track_lk_refuses_cuda_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         tlk.klt_track_lk(pyr, pyr, pts, pts, torch.ones(4, dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tlk.lk_level_cuda(pyr[0], pyr[0], pyr[0], pyr[0], pts, pts, torch.ones(4, dtype=torch.bool),
-                          win=24, max_iter=30, eps=0.1, min_eig_thresh=1e-4, window_rule=True)
+        tlk.lk_pyramid_cuda(pyr, pyr, [(p, p) for p in pyr], pts, pts, torch.ones(4, dtype=torch.bool),
+                            win=24, max_iter=30, eps=0.1, min_eig_thresh=1e-4, search_rows=56)
+
+
+def _pyramid_shapes(h, w, n):
+    """Level shapes of `build_pyramid` (each level ceil-halves the last)."""
+    shapes = [(h, w)]
+    for _ in range(n - 1):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        shapes.append((h, w))
+    return shapes
+
+
+@pytest.mark.parametrize(
+    "h,w,n,plan",
+    [
+        (480, 752, 5, [("xla", None), ("vmem", 64), ("vmem", 120), ("vmem", 240), ("vmem", 480)]),
+        (376, 1241, 4, [("xla", None), ("vmem", 96), ("vmem", 192), ("gather", 376)]),
+        (240, 320, 5, [("skip", None), ("xla", None), ("vmem", 64), ("vmem", 120), ("vmem", 240)]),
+        (50, 200, 2, [("skip", None), ("xla", None)]),
+    ],
+    ids=["752x480", "1241x376", "320x240_top_skipped", "200x50_xla_level0"],
+)
+def test_level_table_is_klt_track_pallas_plan(monkeypatch, h, w, n, plan):
+    """The kernel's level table (built on the host) against the branch
+    `klt_track_pallas` takes on each level, the base point each level
+    receives there and in `track_pyramid`, and which level's `ok` counts.
+    The level functions on both sides are replaced by recorders that
+    fail every keypoint, so the final `ok` shows whether level 0's was
+    kept."""
+    shapes = _pyramid_shapes(h, w, n)
+    table = tlk.level_table(shapes, 24, 56)
+    assert [(e.mode, e.clamp_h) for e in table] == plan
+    assert [e.level for e in table] == list(range(n - 1, -1, -1))
+    assert [e.shape for e in table] == shapes[::-1]
+    tracked = [e for e in table if e.mode != "skip"]
+    pts = random_points(h, w, 8, seed=11, margin=13)
+    # Every level's base point: the keypoints scaled by the product of the
+    # table's scales so far (x2 per level below the top, skipped ones too).
+    scale, expect = 1.0, {}
+    for e in table:
+        scale *= e.scale
+        expect[e.level] = pts * np.float32(scale)
+
+    calls = []
+
+    def recorder(kind):
+        def level(prev, gx, gy, cur, base, p, valid, *a, **k):
+            calls.append((kind, tuple(prev.shape), np.asarray(base).copy()))
+            return p, np.zeros(len(valid), bool)
+        return level
+
+    monkeypatch.setattr(jlk, "_track_level_pallas_vmem", recorder("vmem"))
+    monkeypatch.setattr(jlk, "_track_level_pallas", recorder("gather"))
+    monkeypatch.setattr(jlk.of, "_track_level", recorder("xla"))
+    zeros = [np.zeros(s, np.float32) for s in shapes]
+    _, ok_j = jlk.klt_track_pallas(zeros, zeros, pts, pts, np.ones(8, bool),
+                                   prev_grads=[(z, z) for z in zeros])
+    assert [(k, s) for k, s, _ in calls] == [(e.mode, e.shape) for e in tracked]
+    for (_, _, base), e in zip(calls, tracked):
+        np.testing.assert_array_equal(base, expect[e.level])
+    assert bool(np.asarray(ok_j).any()) == (not table[-1].keep_ok)
+
+    seen = []
+
+    def level_fn(prev, gx, gy, cur, base, p, valid, **kw):
+        seen.append((tuple(prev.shape), kw["window_rule"], kw["clamp_h"], base.numpy().copy()))
+        return p, torch.zeros_like(valid), torch.zeros(len(valid), dtype=torch.int32)
+
+    tz = [torch.from_numpy(z) for z in zeros]
+    _, ok_t, _ = tlk.track_pyramid(
+        level_fn, tz, tz, torch.from_numpy(pts), torch.from_numpy(pts),
+        torch.ones(8, dtype=torch.bool), [(z, z) for z in tz],
+        win=24, max_iter=30, eps=0.1, min_eig_thresh=1e-4, search_rows=56,
+    )
+    assert [s[:3] for s in seen] == [(e.shape, e.mode != "xla", e.clamp_h) for e in tracked]
+    for (*_, base), e in zip(seen, tracked):
+        np.testing.assert_array_equal(base, expect[e.level])
+    assert bool(ok_t.any()) == (not table[-1].keep_ok)

@@ -20,8 +20,12 @@ import torch
 from kimera_vio_tpu.dataprovider.synthetic import SyntheticStereoProvider as JProvider
 from kimera_vio_tpu.dataprovider.synthetic import synthetic_params as j_synthetic_params
 from kimera_vio_tpu.pipeline.stereo_pipeline import StereoImuPipeline as JPipeline
+from kimera_vio_tpu_torch.backend import smoother as sm
 from kimera_vio_tpu_torch.common.geometry import quat_to_rot, so3_log
+from kimera_vio_tpu_torch.common.types import ImuBias, TrackedFeatures
 from kimera_vio_tpu_torch.dataprovider.synthetic import SyntheticStereoProvider, synthetic_params
+from kimera_vio_tpu_torch.frontend import imu_frontend as imu
+from kimera_vio_tpu_torch.frontend.camera import PinholeCamera, StereoCamera
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 from kimera_vio_tpu_torch.utils.logger import compute_ate
 
@@ -66,6 +70,32 @@ def test_pipeline_refuses_cuda_without_a_card():
         pytest.skip("this machine has CUDA: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         StereoImuPipeline(synthetic_params(**SIZE, **CAP))
+
+
+_PARAMS = synthetic_params(**SIZE, **CAP)
+_CONSTRUCTORS = {
+    "PinholeCamera.from_params": lambda: PinholeCamera.from_params(_PARAMS.left_cam),
+    "StereoCamera.from_params": lambda: StereoCamera.from_params(_PARAMS.left_cam, _PARAMS.right_cam),
+    "PimParams.from_params": lambda: imu.PimParams.from_params(_PARAMS.imu),
+    "Pim.zero": lambda: imu.Pim.zero(),
+    "BackendConfig.from_params": lambda: sm.BackendConfig.from_params(
+        _PARAMS.backend, _PARAMS.imu,
+        StereoCamera.from_params(_PARAMS.left_cam, _PARAMS.right_cam, device="cpu")),
+    "Window.empty": lambda: sm.Window.empty(3),
+    "LandmarkTable.empty": lambda: sm.LandmarkTable.empty(8, 3),
+    "ImuBias.zero": lambda: ImuBias.zero(),
+    "TrackedFeatures.empty": lambda: TrackedFeatures.empty(8),
+}
+
+
+@pytest.mark.parametrize("name", list(_CONSTRUCTORS))
+def test_public_constructors_default_to_the_card(name):
+    """Every public constructor defaults to CUDA: without a card it raises
+    unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _CONSTRUCTORS[name]()
 
 
 def test_pipeline_refuses_unported_options():
