@@ -31,8 +31,9 @@
 //      with its point in registers; no launch gaps, no host work between
 //      levels, and the frame pays the worst keypoint's whole chain once
 //      instead of the sum over levels of each level's worst keypoint.
-//   2. NT threads (96, 192 or 288) own a keypoint, so each thread blends
-//      576 / NT window pixels per step; its template and gradient pixels
+//   2. kThreads = 192 threads (6 warps) own a keypoint, so each thread
+//      blends 3 of the 576 window pixels per step (against 18 for the one
+//      warp of a per-level kernel); its template and gradient pixels
 //      live in registers. A step's two sums (and the setup's three) are
 //      reduced together: interleaved xor-butterfly shuffles (every lane ends
 //      with bit-identical sums), one partial per warp to shared memory,
@@ -67,6 +68,10 @@ namespace {
 constexpr int kLanes = 128;     // search-window width (the TPU lane width)
 constexpr int kMaxLevels = 8;
 constexpr int kMaxWin = 32;     // largest window of the generic instantiation
+// Threads per block (one block per keypoint). Of 96, 192 and 288, which
+// split a 24x24 window evenly, 192 was the fastest on an H100.
+constexpr int kThreads = 192;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode : int { kSkip = 0, kXla = 1, kVmem = 2, kGather = 3 };
@@ -112,14 +117,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // butterfly leaves identical sums in every lane, and every thread adds the
 // warps' partials in the same order. `part` holds two buffers of one float4
 // per warp; alternating them makes one barrier enough.
-template <int K, int NWARP>
+template <int K>
 __device__ __forceinline__ void block_sum(float (&v)[K], float4* part, int& parity) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
     for (int i = 0; i < K; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
   }
-  float4* buf = part + parity * NWARP;
+  float4* buf = part + parity * kWarps;
   if ((threadIdx.x & 31) == 0) {
     float4 t = make_float4(v[0], 0.f, 0.f, 0.f);
     if constexpr (K > 1) t.y = v[1];
@@ -129,7 +134,7 @@ __device__ __forceinline__ void block_sum(float (&v)[K], float4* part, int& pari
   __syncthreads();
   float4 s = buf[0];
 #pragma unroll
-  for (int w = 1; w < NWARP; ++w) {
+  for (int w = 1; w < kWarps; ++w) {
     const float4 t = buf[w];
     s.x += t.x;
     s.y += t.y;
@@ -170,7 +175,6 @@ __device__ __forceinline__ void tile_origin(const Level& L, int win, float px, f
 
 // Issue the cp.async copies of a level's raw prev / gx / gy tiles (edge-
 // clamped) into dst (3 planes of (win+1)^2 floats).
-template <int NT>
 __device__ __forceinline__ void stage_tiles(float* dst, const Level& L, int win, float px,
                                             float py) {
   int t_ox, t_oy;
@@ -178,7 +182,7 @@ __device__ __forceinline__ void stage_tiles(float* dst, const Level& L, int win,
   bool frac_ok;
   tile_origin(L, win, px, py, t_ox, t_oy, ftx, fty, frac_ok);
   const int tw = win + 1, t2 = tw * tw;
-  for (int i = threadIdx.x; i < 3 * t2; i += NT) {
+  for (int i = threadIdx.x; i < 3 * t2; i += kThreads) {
     const int q = i / t2, rem = i - q * t2;
     const int r = rem / tw, c = rem - r * tw;
     const float* plane = q == 0 ? L.prev : (q == 1 ? L.gx : L.gy);
@@ -192,15 +196,14 @@ __device__ __forceinline__ int next_active(const Table& tab, int e) {
   return e;
 }
 
-template <int WIN, int SR, int NT>
-__global__ void __launch_bounds__(NT)
+template <int WIN, int SR>
+__global__ void __launch_bounds__(kThreads)
 lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ prev_pts,
                   const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
                   float* __restrict__ out_pts, uint8_t* __restrict__ out_ok,
                   int32_t* __restrict__ out_iters) {
-  constexpr int kWarps = NT / 32;
-  constexpr int kPPT = ((WIN > 0 ? WIN * WIN : kMaxWin * kMaxWin) + NT - 1) / NT;
-  constexpr bool kExact = WIN > 0 && (WIN * WIN) % NT == 0;
+  constexpr int kPPT = ((WIN > 0 ? WIN * WIN : kMaxWin * kMaxWin) + kThreads - 1) / kThreads;
+  constexpr bool kExact = WIN > 0 && (WIN * WIN) % kThreads == 0;
   const int win = WIN > 0 ? WIN : tab.win;
   const int sr = SR > 0 ? SR : tab.search_rows;
   const int npx = win * win;
@@ -217,11 +220,11 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
   const int k = blockIdx.x;
   const int tid = threadIdx.x;
 
-  // The window pixels this thread owns: p = tid + j * NT.
+  // The window pixels this thread owns: p = tid + j * kThreads.
   int pr[kPPT], pc[kPPT];
 #pragma unroll
   for (int j = 0; j < kPPT; ++j) {
-    const int p = tid + j * NT;
+    const int p = tid + j * kThreads;
     pr[j] = p / win;
     pc[j] = p - pr[j] * win;
   }
@@ -243,7 +246,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
         bx = bx * tab.lv[e].scale;
         by = by * tab.lv[e].scale;
       }
-      stage_tiles<NT>(s_raw, tab.lv[e0], win, bx, by);
+      stage_tiles(s_raw, tab.lv[e0], win, bx, by);
     }
     cp_async_commit();
   }
@@ -268,13 +271,13 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
     if (window) {
       sx0 = clampi((int)floorf(cx) - kLanes / 2, 0, max(W - kLanes, 0));
       sy0 = clampi((int)floorf(cy) - sr / 2, 0, max(L.clamp_h - sr, 0));
-      for (int i = tid; i < sr * kLanes; i += NT) {
+      for (int i = tid; i < sr * kLanes; i += kThreads) {
         const int r = i / kLanes, c = i % kLanes;
         cp_async4(s_stage + r * sstride + c,
                   L.cur + (size_t)clampi(sy0 + r, 0, H - 1) * W + clampi(sx0 + c, 0, W - 1));
       }
     } else if (H * W <= tab.stage_floats) {
-      for (int i = tid; i < H * W; i += NT) cp_async4(s_stage + i, L.cur + i);
+      for (int i = tid; i < H * W; i += kThreads) cp_async4(s_stage + i, L.cur + i);
       P = s_stage;
     }
     cp_async_commit();
@@ -288,7 +291,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
           bx = bx * tab.lv[f].scale;
           by = by * tab.lv[f].scale;
         }
-        stage_tiles<NT>(s_raw + (buf ^ 1) * 3 * t2, tab.lv[ne], win, bx, by);
+        stage_tiles(s_raw + (buf ^ 1) * 3 * t2, tab.lv[ne], win, bx, by);
       }
       cp_async_commit();
     }
@@ -307,7 +310,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
       const float* raw = s_raw + buf * 3 * t2;
 #pragma unroll
       for (int j = 0; j < kPPT; ++j) {
-        if (kExact || tid + j * NT < npx) {
+        if (kExact || tid + j * kThreads < npx) {
           const float* r0 = raw + pr[j] * tw + pc[j];
           const float* r1 = r0 + t2;
           const float* r2 = r1 + t2;
@@ -320,7 +323,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
         }
       }
     }
-    block_sum<3, kWarps>(g, s_part, parity);
+    block_sum<3>(g, s_part, parity);
     const float sxx = g[0], sxy = g[1], syy = g[2];
     const float det = sxx * syy - sxy * sxy;
     const float half_tr = 0.5f * (sxx + syy);
@@ -353,7 +356,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
         float b[2] = {0.f, 0.f};
 #pragma unroll
         for (int j = 0; j < kPPT; ++j) {
-          if (kExact || tid + j * NT < npx) {
+          if (kExact || tid + j * kThreads < npx) {
             const float* r0 = w0 + off[j];
             const float* r1 = r0 + sstride;
             const float ya = (1.f - fy) * r0[0] + fy * r1[0];
@@ -363,7 +366,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
             b[1] += dI * tgy[j];
           }
         }
-        block_sum<2, kWarps>(b, s_part, parity);
+        block_sum<2>(b, s_part, parity);
         const float dx = -(inv00 * b[0] + inv01 * b[1]);
         const float dy = -(inv01 * b[0] + inv11 * b[1]);
         cx = cx + dx;
@@ -383,7 +386,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
         float b[2] = {0.f, 0.f};
 #pragma unroll
         for (int j = 0; j < kPPT; ++j) {
-          if (kExact || tid + j * NT < npx) {
+          if (kExact || tid + j * kThreads < npx) {
             const int ya = clampi(yi + pr[j], 0, H - 1) * W;
             const int yb = clampi(yi + pr[j] + 1, 0, H - 1) * W;
             const int xa = clampi(xi + pc[j], 0, W - 1);
@@ -395,7 +398,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
             b[1] += dI * tgy[j];
           }
         }
-        block_sum<2, kWarps>(b, s_part, parity);
+        block_sum<2>(b, s_part, parity);
         const float dx = -(inv00 * b[0] + inv01 * b[1]);
         const float dy = -(inv01 * b[0] + inv11 * b[1]);
         cx = cx + dx;
@@ -421,31 +424,20 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
   }
 }
 
-template <int WIN, int SR, int NT>
+template <int WIN, int SR>
 int launch(const Table& tab, size_t smem, int N, const void* prev_pts, const void* init_pts,
            const void* valid, void* out_pts, void* out_ok, void* out_iters,
            cudaStream_t stream) {
-  auto kernel = lk_pyramid_kernel<WIN, SR, NT>;
+  auto kernel = lk_pyramid_kernel<WIN, SR>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<N, NT, smem, stream>>>(tab, (const float*)prev_pts, (const float*)init_pts,
+  kernel<<<N, kThreads, smem, stream>>>(tab, (const float*)prev_pts, (const float*)init_pts,
                                   (const uint8_t*)valid, (float*)out_pts, (uint8_t*)out_ok,
                                   (int32_t*)out_iters);
   return (int)cudaGetLastError();
-}
-
-template <int NT>
-int launch_sized(const Table& tab, size_t smem, int N, const void* prev_pts,
-                 const void* init_pts, const void* valid, void* out_pts, void* out_ok,
-                 void* out_iters, cudaStream_t stream) {
-  if (tab.win == 24 && tab.search_rows == 56)
-    return launch<24, 56, NT>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
-                              out_iters, stream);
-  return launch<0, 0, NT>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok, out_iters,
-                          stream);
 }
 
 }  // namespace
@@ -459,7 +451,7 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, con
                                  const void* init_pts, const void* valid, void* out_pts,
                                  void* out_ok, void* out_iters, int N, int win,
                                  int search_rows, int max_iter, float eps2,
-                                 float min_eig_thresh, int threads, void* stream) {
+                                 float min_eig_thresh, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || win < 2 || win > kMaxWin ||
       search_rows < win + 2)
     return (int)cudaErrorInvalidValue;
@@ -496,7 +488,7 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, con
   if (e != cudaSuccess) return (int)e;
   // Shared memory: the warps' partials, the staging buffer, two tile buffers.
   const size_t fixed =
-      sizeof(float) * (8 * (size_t)(threads / 32) + 2 * 3 * (size_t)(win + 1) * (win + 1));
+      sizeof(float) * (8 * (size_t)kWarps + 2 * 3 * (size_t)(win + 1) * (win + 1));
   size_t stage = any_window ? (size_t)search_rows * (kLanes + win % 32) : 0;
   if (fixed + sizeof(float) * stage > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
   for (int l = 0; l < n_levels; ++l) {
@@ -508,19 +500,9 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, con
   tab.stage_floats = (int)stage;
   const size_t smem = fixed + sizeof(float) * stage;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (threads) {
-    case 96:
-      return launch_sized<96>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
-                              out_iters, s);
-    case 192:
-      return launch_sized<192>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
-                               out_iters, s);
-    case 288:
-      return launch_sized<288>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
-                               out_iters, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (win == 24 && search_rows == 56)
+    return launch<24, 56>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok, out_iters, s);
+  return launch<0, 0>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok, out_iters, s);
 }
 
 extern "C" const char* lk_error_string(int code) {

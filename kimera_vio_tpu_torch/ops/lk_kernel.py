@@ -369,7 +369,6 @@ def _lib() -> ctypes.CDLL:
         P, P, P,  # out_pts, out_ok, out_iters
         I, I, I, I,  # N, win, search_rows, max_iter
         Fl, Fl,  # eps^2, min_eig_thresh
-        I,  # threads per block
         P,  # stream
     ]
     lib.lk_pyramid_launch.restype = I
@@ -386,22 +385,16 @@ def _check_image(name, t, dev, shape=None):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
 
 
-# Threads per block (one block per keypoint). The kernel is built for 96,
-# 192 and 288; 192 was the fastest of the three on an H100 (scripts/lk_ab.py).
-LK_THREADS = 192
-
-
 def lk_pyramid_cuda(
     prev_pyr, cur_pyr, prev_grads, prev_pts, init_pts, valid, *,
     win: int, max_iter: int, eps: float, min_eig_thresh: float, search_rows: int,
-    threads: int = LK_THREADS,
 ):
     """Track one frame, every level, in ONE launch of the CUDA kernel.
     Computes what `track_pyramid(lk_level_plain, ...)` computes (the
     window sums in another order). Returns (pts (N,2) float32, ok (N,)
     bool, iters (N, n_levels) int32: the Gauss-Newton steps per level,
     indexed by level number). Adds one to `lk_pyramid_cuda.launches` per
-    launch. `threads` is the block size (96, 192 or 288)."""
+    launch."""
     n = len(prev_pyr)
     if n == 0 or len(cur_pyr) != n or len(prev_grads) != n:
         raise ValueError("need one prev, cur and gradient pair per level")
@@ -449,7 +442,7 @@ def lk_pyramid_cuda(
             prev_pts.data_ptr(), init_pts.data_ptr(), valid.data_ptr(),
             out_pts.data_ptr(), out_ok.data_ptr(), out_iters.data_ptr(),
             N, win, search_rows, max_iter, float(eps * eps), float(min_eig_thresh),
-            threads, torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"LK kernel launch failed: {lib.lk_error_string(rc).decode()}")
