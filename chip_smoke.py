@@ -26,26 +26,51 @@ Phases:
      differ in order: median and max |d| < 0.01 px over the keypoints
      both track, and the same `ok` for every keypoint. Printed per level: mean and max
      Gauss-Newton steps; and the launch's time with no Gauss-Newton step.
-  2. main path: launch counter set to 0, `run()` on the card at the full
-     configuration (752x480, 256 features, 10-keyframe horizon, 384
-     landmarks, 80 frames); the counter must equal the tracked frames
-     (one launch each), the trajectory must be finite and within the JAX
-     package's ATE gate (rmse < 0.05 m, tests/test_pipeline_e2e.py:35).
+  2. main path: launch counter set to 0, the sequential `run()`
+     (`parallel_run=False`, which times frame and keyframe steps apart)
+     on the card at the full configuration (752x480, 256 features,
+     10-keyframe horizon, 384 landmarks, 80 frames); the counter must
+     equal the tracked frames (one launch each), the trajectory must be
+     finite and within the JAX package's ATE gate (rmse < 0.05 m,
+     tests/test_pipeline_e2e.py:35).
+  3. cli: phase 2's sequence written as a EuRoC `mav0` folder (PNGs from
+     this script's own encoder, whose rows cycle through all five PNG
+     filters; CSVs with repr floats) and phase 2's params as a
+     reference-format YAML params folder (parallel_run: 1). Exact gates
+     first: `VioParams.from_folder` equals the params, and every decoded
+     PNG equals the array written. Then `python -m kimera_vio_tpu_torch`
+     in-process (`__main__.main`) in three modes: (a) the default, the
+     parallel `run()`; (b) `--chunked --chunk_size 16` with
+     KIMERA_STAGE_CODEC=raw; (c) the same with delta4c. Gates per mode: LK
+     launches = tracked frames, ATE rmse < 0.05 m, phase 2's keyframe
+     stamps, positions within 1e-3 m of phase 2's; in (c), every frame the
+     delta4c decoder gives on the card equals the raw-staged frame of (b)
+     bit for bit. One `[cli]` line per mode: frames/s, wall, PNG decode ms
+     per image, stage h2d / wire, delta4c decode ms, readback.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
+from kimera_vio_tpu_torch import __main__ as cli
+from kimera_vio_tpu_torch.config.params import VioParams
+from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider
 from kimera_vio_tpu_torch.dataprovider.synthetic import SyntheticStereoProvider, synthetic_params
 from kimera_vio_tpu_torch.ops import corner_detection as det
+from kimera_vio_tpu_torch.ops import frame_codec
 from kimera_vio_tpu_torch.ops import lk_kernel as lk
 from kimera_vio_tpu_torch.ops import optical_flow as of
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
@@ -238,9 +263,10 @@ def kernel_phase(dev) -> dict:
 def path_phase(dev) -> dict:
     params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
     # Warm-up (CUDA context, cuBLAS/cuSOLVER handles, kernel library).
-    StereoImuPipeline(params, device=dev).run(SyntheticStereoProvider(n_frames=6, vx=0.5))
+    StereoImuPipeline(params, parallel_run=False, device=dev).run(
+        SyntheticStereoProvider(n_frames=6, vx=0.5))
     provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
-    pipe = StereoImuPipeline(params, device=dev)
+    pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
     torch.cuda.synchronize()
     lk.lk_pyramid_cuda.launches = 0
     t0 = time.perf_counter()
@@ -270,6 +296,401 @@ def path_phase(dev) -> dict:
         "lk_launches": launches,
     }
     log(f"[path] {json.dumps(res)}")
+    res["stamps_ns"], res["positions"] = out.stamps_ns, est
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the CLI on a EuRoC-format folder
+# ---------------------------------------------------------------------------
+
+
+def png_bytes(img: np.ndarray, filter_type: int | None = None) -> bytes:
+    """An 8-bit grayscale PNG of `img`. Row y is filtered with
+    `filter_type`, or, when it is None, with type y % 5, so a decoder meets
+    None, Sub, Up, Average and Paeth rows in turn."""
+    H, W = img.shape
+    x = img.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = (np.zeros_like(x), a, b, (a + b) >> 1, paeth)
+    rows = []
+    for y in range(H):
+        ft = y % 5 if filter_type is None else filter_type
+        rows.append(bytes([ft]) + ((x[y] - preds[ft][y]) & 0xFF).astype(np.uint8).tobytes())
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    """The synthetic provider renders float32 gray levels; a PNG holds them
+    rounded to uint8."""
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def write_euroc(root: str, provider, write_png=None) -> list:
+    """Write `provider`'s sequence as a EuRoC `mav0` folder under `root`:
+    cam0/cam1 PNGs and data.csv, imu0/data.csv and the ground truth, floats
+    as repr. Returns the uint8 images written, as (path, array) pairs."""
+    if write_png is None:
+        def write_png(path, img):
+            with open(path, "wb") as f:
+                f.write(png_bytes(img))
+
+    mav0 = os.path.join(root, "mav0")
+    written = []
+    for cam, kind in (("cam0", "left"), ("cam1", "right")):
+        os.makedirs(os.path.join(mav0, cam, "data"), exist_ok=True)
+        with open(os.path.join(mav0, cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for k, stamp in enumerate(provider.left_stamps):
+                img = to_uint8(provider.load_image((kind, k)))
+                path = os.path.join(mav0, cam, "data", f"{stamp}.png")
+                write_png(path, img)
+                written.append((path, img))
+                f.write(f"{stamp},{stamp}.png\n")
+    sync = provider.imu_sync
+    os.makedirs(os.path.join(mav0, "imu0"))
+    with open(os.path.join(mav0, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],w_RS_S_z [rad s^-1],"
+                "a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],a_RS_S_z [m s^-2]\n")
+        for t, g, a in zip(sync.t, sync.gyr, sync.acc):
+            f.write(",".join([str(int(t))] + [repr(float(v)) for v in (*g, *a)]) + "\n")
+    gt = provider.ground_truth
+    os.makedirs(os.path.join(mav0, "state_groundtruth_estimate0"))
+    with open(os.path.join(mav0, "state_groundtruth_estimate0", "data.csv"), "w") as f:
+        f.write("#timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z,v_x,v_y,v_z,b_w_x,b_w_y,b_w_z,"
+                "b_a_x,b_a_y,b_a_z\n")
+        for i, t in enumerate(gt.stamps_ns):
+            vals = (*gt.positions[i], *gt.quats_wxyz[i], *gt.velocities[i], *gt.gyro_bias[i],
+                    *gt.accel_bias[i])
+            f.write(",".join([str(int(t))] + [repr(float(v)) for v in vals]) + "\n")
+    return written
+
+
+# Params dataclass field -> key of the reference's YAML files, the inverse
+# of each from_yaml (kimera_vio_tpu_torch/config/params.py).
+YAML_KEYS = {
+    "PipelineParams.yaml": ("pipeline", {k: k for k in (
+        "frontend_type", "backend_type", "display_type", "parallel_run")}),
+    "ImuParams.yaml": ("imu", {
+        "preintegration_type": "imu_preintegration_type", "rate_hz": "rate_hz",
+        "gyro_noise_density": "gyroscope_noise_density",
+        "gyro_random_walk": "gyroscope_random_walk",
+        "acc_noise_density": "accelerometer_noise_density",
+        "acc_random_walk": "accelerometer_random_walk",
+        "imu_integration_sigma": "imu_integration_sigma",
+        "imu_bias_init_sigma": "imu_bias_init_sigma", "imu_time_shift_s": "imu_time_shift",
+        "n_gravity": "n_gravity", "T_BS": "T_BS",
+        "do_imu_rate_time_alignment": "do_imu_rate_time_alignment",
+        "time_alignment_window_size_s": "time_alignment_window_size_s",
+        "time_alignment_variance_threshold_scaling": "time_alignment_variance_threshold_scaling"}),
+    "LeftCameraParams.yaml": ("left_cam", None),
+    "RightCameraParams.yaml": ("right_cam", None),
+    "FrontendParams.yaml": ("frontend", {
+        "klt_win_size": "klt_win_size", "klt_max_iter": "klt_max_iter",
+        "klt_max_level": "klt_max_level", "klt_eps": "klt_eps", "max_feature_age": "maxFeatureAge",
+        "feature_detector_type": "feature_detector_type",
+        "max_features_per_frame": "maxFeaturesPerFrame", "quality_level": "quality_level",
+        "min_distance": "min_distance", "block_size": "block_size",
+        "use_harris_detector": "use_harris_detector", "k": "k", "fast_thresh": "fast_thresh",
+        "equalize_image": "equalizeImage",
+        "max_nr_keypoints_before_anms": "max_nr_keypoints_before_anms",
+        "enable_non_max_suppression": "enable_non_max_suppression",
+        "non_max_suppression_type": "non_max_suppression_type",
+        "nr_horizontal_bins": "nr_horizontal_bins", "nr_vertical_bins": "nr_vertical_bins",
+        "enable_subpixel_corner_finder": "enable_subpixel_corner_finder",
+        "subpix_max_iters": "max_iters", "subpix_eps": "epsilon_error",
+        "subpix_window_size": "window_size", "nominal_baseline": "nominalBaseline",
+        "tolerance_template_matching": "toleranceTemplateMatching",
+        "templ_cols": "templ_cols", "templ_rows": "templ_rows",
+        "stripe_extra_rows": "stripe_extra_rows", "min_point_dist": "minPointDist",
+        "max_point_dist": "maxPointDist", "bidirectional_matching": "bidirectionalMatching",
+        "subpixel_refinement_stereo": "subpixelRefinementStereo", "use_ransac": "useRANSAC",
+        "min_nr_mono_inliers": "minNrMonoInliers", "min_nr_stereo_inliers": "minNrStereoInliers",
+        "ransac_threshold_mono": "ransac_threshold_mono",
+        "ransac_threshold_stereo": "ransac_threshold_stereo",
+        "ransac_use_1point_stereo": "ransac_use_1point_stereo",
+        "ransac_use_2point_mono": "ransac_use_2point_mono",
+        "ransac_max_iterations": "ransac_max_iterations",
+        "ransac_probability": "ransac_probability", "ransac_randomize": "ransac_randomize",
+        "min_intra_keyframe_time_s": "min_intra_keyframe_time",
+        "max_intra_keyframe_time_s": "max_intra_keyframe_time",
+        "max_disparity_since_lkf": "max_disparity_since_lkf",
+        "min_number_features": "minNumberFeatures", "use_stereo_tracking": "useStereoTracking",
+        "disparity_threshold": "disparityThreshold",
+        "optical_flow_predictor_type": "optical_flow_predictor_type",
+        "use_pnp_tracking": "use_pnp_tracking", "min_pnp_inliers": "min_pnp_inliers",
+        "ransac_threshold_pnp": "ransac_threshold_pnp"}),
+    "BackendParams.yaml": ("backend", {
+        "backend_modality": "backend_modality", "auto_initialize": "autoInitialize",
+        "round_on_auto_initialize": "roundOnAutoInitialize",
+        "initial_position_sigma": "initialPositionSigma",
+        "initial_roll_pitch_sigma": "initialRollPitchSigma", "initial_yaw_sigma": "initialYawSigma",
+        "initial_velocity_sigma": "initialVelocitySigma",
+        "initial_acc_bias_sigma": "initialAccBiasSigma",
+        "initial_gyro_bias_sigma": "initialGyroBiasSigma",
+        "linearization_mode": "linearizationMode", "degeneracy_mode": "degeneracyMode",
+        "rank_tolerance": "rankTolerance",
+        "landmark_distance_threshold": "landmarkDistanceThreshold",
+        "outlier_rejection": "outlierRejection",
+        "retriangulation_threshold": "retriangulationThreshold",
+        "smart_noise_sigma": "smartNoiseSigma", "mono_noise_sigma": "monoNoiseSigma",
+        "mono_norm_type": "monoNormType", "mono_norm_param": "monoNormParam",
+        "stereo_noise_sigma": "stereoNoiseSigma", "stereo_norm_type": "stereoNormType",
+        "stereo_norm_param": "stereoNormParam", "regularity_noise_sigma": "regularityNoiseSigma",
+        "regularity_norm_type": "regularityNormType",
+        "regularity_norm_param": "regularityNormParam",
+        "add_between_stereo_factors": "addBetweenStereoFactors",
+        "between_rotation_precision": "betweenRotationPrecision",
+        "between_translation_precision": "betweenTranslationPrecision",
+        "relinearize_threshold": "relinearizeThreshold", "relinearize_skip": "relinearizeSkip",
+        "zero_velocity_precision": "zero_velocity_precision",
+        "no_motion_position_precision": "no_motion_position_precision",
+        "no_motion_rotation_precision": "no_motion_rotation_precision",
+        "constant_vel_precision": "constant_vel_precision", "num_optimize": "numOptimize",
+        "nr_states": "nr_states", "wildfire_threshold": "wildfire_threshold",
+        "use_dog_leg": "useDogLeg", "pose_guess_source": "pose_guess_source",
+        "mono_translation_scale_factor": "mono_translation_scale_factor"}),
+    "LcdParams.yaml": ("lcd", {
+        "use_nss": "use_nss", "alpha": "alpha", "min_temporal_matches": "min_temporal_matches",
+        "recent_frames_window": "recent_frames_window", "max_db_results": "max_db_results",
+        "min_nss_factor": "min_nss_factor", "min_matches_per_island": "min_matches_per_island",
+        "max_intraisland_gap": "max_intraisland_gap",
+        "max_nrFrames_between_islands": "max_nrFrames_between_islands",
+        "max_nrFrames_between_queries": "max_nrFrames_between_queries",
+        "geom_check": "geom_check", "min_correspondences": "min_correspondences",
+        "ransac_threshold_mono": "ransac_threshold_mono",
+        "ransac_inlier_threshold_mono": "ransac_inlier_threshold_mono",
+        "ransac_inlier_threshold_stereo": "ransac_inlier_threshold_stereo",
+        "pose_recovery_type": "pose_recovery_type", "refine_pose": "refine_pose",
+        "between_rotation_precision": "betweenRotationPrecision", "lowe_ratio": "lowe_ratio",
+        "matcher_type": "matcher_type", "nfeatures": "nfeatures", "scale_factor": "scale_factor",
+        "nlevels": "nlevels", "min_distance": "min_distance",
+        "pgo_rot_threshold": "pgo_rot_threshold", "pgo_trans_threshold": "pgo_trans_threshold",
+        "gnc_alpha": "gnc_alpha"}),
+    "DisplayParams.yaml": ("display", {k: k for k in (
+        "display_type", "hold_2d_display", "hold_3d_display")}),
+}
+
+
+def _yaml_value(key: str, v) -> str:
+    if isinstance(v, (bool, np.bool_)):
+        return f"{key}: {int(v)}"
+    if isinstance(v, np.ndarray) and v.ndim == 2:
+        rows = [", ".join(repr(float(x)) for x in r) for r in v]
+        data = (",\n         ").join(rows)
+        return (f"{key}: !!opencv-matrix\n  rows: {v.shape[0]}\n  cols: {v.shape[1]}\n"
+                f"  dt: d\n  data: [{data}]")
+    if isinstance(v, np.ndarray):
+        return f"{key}: [{', '.join(repr(float(x)) for x in v)}]"
+    if isinstance(v, float):
+        return f"{key}: {float(v)!r}"
+    return f"{key}: {v}"
+
+
+def write_params_folder(params: VioParams, folder: str) -> None:
+    """Write `params` as a reference-layout folder of OpenCV-FileStorage
+    YAML files (`%YAML:1.0`, comments, opencv-matrix nodes, multi-line
+    flow lists) that `VioParams.from_folder` reads back to equal values."""
+    os.makedirs(folder, exist_ok=True)
+    for name, (attr, keys) in YAML_KEYS.items():
+        sub = getattr(params, attr)
+        if sub is None:
+            continue
+        if keys is None:  # a camera
+            lines = [f"camera_id: {sub.camera_id}", _yaml_value("T_BS", sub.T_BS),
+                     _yaml_value("rate_hz", float(sub.rate_hz)),
+                     f"resolution: [{sub.width}, {sub.height}]",
+                     f"camera_model: {sub.camera_model}",
+                     _yaml_value("intrinsics", sub.intrinsics) + " # fu, fv, cu, cv",
+                     f"distortion_model: {sub.distortion_model}",
+                     _yaml_value("distortion_coefficients", sub.distortion_coeffs),
+                     _yaml_value("omni_distortion_center", sub.omni_distortion_center),
+                     _yaml_value("omni_affine", sub.omni_affine)]
+        else:
+            lines = [_yaml_value(key, getattr(sub, field)) for field, key in keys.items()]
+        with open(os.path.join(folder, name), "w") as f:
+            f.write("%YAML:1.0\n# " + name + ", written by chip_smoke.py\n" + "\n".join(lines) + "\n")
+
+
+@contextlib.contextmanager
+def recording_pipeline():
+    """Record, per pipeline run: the pipeline, its output and wall time,
+    and (run_chunked) every staged super-batch as the card holds it after
+    `_materialize`, with its codec."""
+    rec = {"runs": [], "batches": []}
+    orig = {n: getattr(StereoImuPipeline, n) for n in ("run", "run_chunked", "_materialize")}
+
+    def wrap_run(name):
+        def run(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig[name](self, *a, **kw)
+            torch.cuda.synchronize()
+            rec["runs"].append({"pipe": self, "out": out, "wall": time.perf_counter() - t0})
+            return out
+        return run
+
+    def materialize(self, staged):
+        frames, aux = orig["_materialize"](self, staged)
+        rec["batches"].append({"codec": staged.codec, "frames": frames.clone(), "aux": aux.clone(),
+                               "staged": staged if staged.codec == "delta4c" else None})
+        return frames, aux
+
+    StereoImuPipeline.run, StereoImuPipeline.run_chunked = wrap_run("run"), wrap_run("run_chunked")
+    StereoImuPipeline._materialize = materialize
+    try:
+        yield rec
+    finally:
+        for n, f in orig.items():
+            setattr(StereoImuPipeline, n, f)
+
+
+def check_cli_run(mode: str, rec: dict, rc: int, launches: int, gt, out_dir: str) -> dict:
+    """Gates every CLI run passes: one run, LK launches = tracked frames,
+    a finite trajectory within the ATE gate, traj_vio.csv with every
+    keyframe. Returns the run's numbers."""
+    if rc != 0 or len(rec["runs"]) != 1:
+        raise AssertionError(f"{mode}: main returned {rc} after {len(rec['runs'])} runs")
+    run = rec["runs"][0]
+    pipe, out = run["pipe"], run["out"]
+    tracked = out.n_frames - 1
+    est = np.stack(out.positions)
+    if launches != tracked:
+        raise AssertionError(f"{mode}: LK launches {launches} != {tracked} tracked frames")
+    if not np.isfinite(est).all():
+        raise AssertionError(f"{mode}: trajectory not finite")
+    ate = compute_ate(np.array(out.stamps_ns), est, gt.stamps_ns, gt.positions, align=False)
+    if not ate["rmse"] < 0.05:
+        raise AssertionError(f"{mode}: ATE rmse {ate['rmse']} m >= 0.05 m")
+    with open(os.path.join(out_dir, "traj_vio.csv")) as f:
+        if len(f.read().splitlines()) != out.n_keyframes + 1:
+            raise AssertionError(f"{mode}: traj_vio.csv does not hold every keyframe")
+    row = {"mode": mode, "frames": out.n_frames, "keyframes": out.n_keyframes,
+           "wall_s": run["wall"], "frames_per_s": out.n_frames / run["wall"],
+           "ate_rmse_m": ate["rmse"], "lk_launches": launches,
+           "parallel_run": pipe.parallel_run, "super_batches": len(rec["batches"]),
+           "codecs": sorted(set(b["codec"] for b in rec["batches"]))}
+    for tag in ("stage h2d [ms]", "stage wire [MB]", "stage encode [ms]", "readback [ms]"):
+        a = pipe.stats.get(tag)
+        row[tag] = a.total / a.count if a.count else None
+    row["stage wire total [MB]"] = pipe.stats.get("stage wire [MB]").total or None
+    return row
+
+
+def run_cli(mode: str, args: list, codec: str, gt, out_dir: str):
+    """`python -m kimera_vio_tpu_torch` in-process with the LK counter
+    set to 0 just before; returns (numbers, the output, the recording)."""
+    os.environ["KIMERA_STAGE_CODEC"] = codec
+    try:
+        with recording_pipeline() as rec:
+            lk.lk_pyramid_cuda.launches = 0
+            rc = cli.main(args + ["--log_output", "--output_path", out_dir])
+            launches = lk.lk_pyramid_cuda.launches
+    finally:
+        os.environ.pop("KIMERA_STAGE_CODEC", None)
+    return check_cli_run(mode, rec, rc, launches, gt, out_dir), rec["runs"][0]["out"], rec
+
+
+def write_folders(root: str, provider, params: VioParams) -> tuple[str, str, float]:
+    """The EuRoC folder and params folder of one sequence, with the exact
+    gates: params read back equal, every PNG decodes to the array written.
+    Returns (dataset, params folder, PNG decode ms per image)."""
+    data, pfolder = os.path.join(root, "euroc"), os.path.join(root, "params")
+    written = write_euroc(data, provider)
+    write_params_folder(params, pfolder)
+    back = VioParams.from_folder(pfolder)
+    # Capacities are no params-file keys; the CLI takes them as flags.
+    back.max_features, back.max_landmarks = params.max_features, params.max_landmarks
+    if not back.equals(params):
+        raise AssertionError("VioParams.from_folder differs from the params written")
+    reader = EurocDataProvider(data)
+    t0 = time.perf_counter()
+    for p, img in written:
+        if not np.array_equal(reader.load_image(p), img):
+            raise AssertionError(f"decoded PNG differs from the array written: {p}")
+    return data, pfolder, (time.perf_counter() - t0) * 1e3 / len(written)
+
+
+def cli_phase(dev, path: dict) -> dict:
+    params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+    params.pipeline.parallel_run = True  # the reference EuRoC default
+    caps = ["--max_features", "256", "--max_landmarks", "384", "--device", dev.type]
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="kimera_cli_") as tmp:
+        provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
+        data, pfolder, png_ms = write_folders(os.path.join(tmp, "path"), provider, params)
+        log(f"[cli] params folder and 160 PNGs exact; PNG decode {png_ms:.3f} ms per image")
+        base = ["--params_folder", pfolder, "--dataset_path", data] + caps
+        chunked = ["--chunked", "--chunk_size", "16"]
+        raw_frames = None
+        for mode, extra, codec in (("run", [], "raw"), ("chunked_raw", chunked, "raw"),
+                                   ("chunked_delta4c", chunked, "delta4c")):
+            row, out, rec = run_cli(mode, base + extra, codec, provider.ground_truth,
+                                    os.path.join(tmp, mode))
+            if mode == "run" and not row["parallel_run"]:
+                raise AssertionError("the default run is not the parallel run()")
+            if out.stamps_ns != path["stamps_ns"]:
+                raise AssertionError(f"{mode}: keyframe stamps differ from phase 2's")
+            row["max_abs_dpos_vs_path_m"] = float(np.abs(np.stack(out.positions) - path["positions"]).max())
+            if not row["max_abs_dpos_vs_path_m"] < 1e-3:
+                raise AssertionError(f"{mode}: positions differ from phase 2's by "
+                                     f"{row['max_abs_dpos_vs_path_m']} m")
+            frames = torch.cat([b["frames"] for b in rec["batches"]]) if rec["batches"] else None
+            if mode == "chunked_raw":
+                raw_frames = frames
+            elif mode == "chunked_delta4c" and not torch.equal(frames, raw_frames):
+                raise AssertionError("delta4c-mode frames differ from the raw-staged frames")
+            row["png_decode_ms_per_image"] = png_ms
+            row["delta4c_decode_ms"] = None  # the codec declined or was not asked for
+            res[mode] = row
+            log(f"[cli] {json.dumps(row)}")
+
+        # Phase 2's camera moves 2.25 px a frame: 81 % of its temporal deltas
+        # leave delta4c's [-7, 7], so the codec declines every super-batch
+        # and (c) stages raw. The codec runs on a hovering camera (5 cm/s,
+        # 0.225 px a frame, 1.2 % escapes): the same rig and configuration.
+        hover = SyntheticStereoProvider(n_frames=80, vx=0.05)
+        data, pfolder, _ = write_folders(os.path.join(tmp, "hover"), hover, params)
+        base = ["--params_folder", pfolder, "--dataset_path", data] + caps + chunked
+        row, out, rec = run_cli("hover_chunked_delta4c", base, "delta4c", hover.ground_truth,
+                                os.path.join(tmp, "hover_out"))
+        decoded = [b for b in rec["batches"] if b["codec"] == "delta4c"]
+        if not decoded or any(b["codec"] != "delta4c" and len(b["frames"]) > 1 for b in rec["batches"]):
+            raise AssertionError(f"hover: delta4c did not stage every super-batch: {row['codecs']}")
+        # Each decoded super-batch against the raw staging of the same
+        # frames, through the same pipeline's stager, on the card.
+        pipe = rec["runs"][0]["pipe"]
+        reader = EurocDataProvider(data, max_imu_per_frame=params.max_imu_per_frame)
+        packets = list(reader.frames())
+        t0_ns, rest, i = packets[0]["stamp_ns"], packets[1:], 0
+        for b in rec["batches"]:
+            batch = rest[i:i + len(b["frames"])]
+            i += len(batch)
+            frames, aux = pipe._materialize(pipe._stage(reader, batch, t0_ns, 0, "raw",
+                                                        torch.cuda.Stream(dev)))
+            if not (torch.equal(frames, b["frames"]) and torch.equal(aux, b["aux"])):
+                raise AssertionError("a delta4c super-batch differs from its raw staging")
+        torch.cuda.synchronize()
+        st = decoded[0]["staged"]
+        row["delta4c_decode_ms"] = time_ms(
+            lambda: frame_codec.decode_delta4c(st.buf, st.shape, st.layout, st.aux_shape), reps=10)
+        row["delta4c_super_batch_frames"] = st.shape[0]
+        row["raw_wire_MB_per_frame"] = 2 * 752 * 480 / 1e6
+        row["delta4c_wire_MB_per_frame"] = row["stage wire total [MB]"] / (out.n_frames - 1)
+        res["hover_chunked_delta4c"] = row
+        log(f"[cli] {json.dumps(row)}")
     return res
 
 
@@ -302,6 +723,9 @@ def main() -> int:
     t = time.perf_counter()
     path = path_phase(dev)
     log(f"[phase] path {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cli_res = cli_phase(dev, path)
+    log(f"[phase] cli {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -311,6 +735,7 @@ def main() -> int:
         "also_replaces": ["kimera_vio_tpu/ops/pallas/lk_kernel.py:68",
                           "kimera_vio_tpu/ops/optical_flow.py:92"],
         "launches": path["lk_launches"],
+        "launches_cli": {mode: r["lk_launches"] for mode, r in cli_res.items()},
         "max_abs_err": kern["max_abs_err"],
         "median_abs_err": kern["median_abs_err"],
         "ms": kern["ms"],
