@@ -40,13 +40,12 @@ Phases:
      first: `VioParams.from_folder` equals the params, and every decoded
      PNG equals the array written. Then `python -m kimera_vio_tpu_torch`
      in-process (`__main__.main`) in three modes: (a) the default, the
-     parallel `run()`; (b) `--chunked --chunk_size 16` with
-     KIMERA_STAGE_CODEC=raw; (c) the same with delta4c. Gates per mode: LK
+     parallel `run()`; (b) `--chunked --chunk_size 16`; (c)
+     `--parallel_run 0`, the sequential `run()`. Gates per mode: LK
      launches = tracked frames, ATE rmse < 0.05 m, phase 2's keyframe
-     stamps, positions within 1e-3 m of phase 2's; in (c), every frame the
-     delta4c decoder gives on the card equals the raw-staged frame of (b)
-     bit for bit. One `[cli]` line per mode: frames/s, wall, PNG decode ms
-     per image, stage h2d / wire, delta4c decode ms, readback.
+     stamps, positions within 1e-3 m of phase 2's. One `[cli]` line per
+     mode: frames/s, wall, PNG decode ms per image, stage h2d ms and wire
+     MB per super-batch, readback.
 """
 
 from __future__ import annotations
@@ -70,7 +69,6 @@ from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider
 from kimera_vio_tpu_torch.dataprovider.synthetic import SyntheticStereoProvider, synthetic_params
 from kimera_vio_tpu_torch.ops import corner_detection as det
-from kimera_vio_tpu_torch.ops import frame_codec
 from kimera_vio_tpu_torch.ops import lk_kernel as lk
 from kimera_vio_tpu_torch.ops import optical_flow as of
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
@@ -527,11 +525,9 @@ def write_params_folder(params: VioParams, folder: str) -> None:
 
 @contextlib.contextmanager
 def recording_pipeline():
-    """Record, per pipeline run: the pipeline, its output and wall time,
-    and (run_chunked) every staged super-batch as the card holds it after
-    `_materialize`, with its codec."""
-    rec = {"runs": [], "batches": []}
-    orig = {n: getattr(StereoImuPipeline, n) for n in ("run", "run_chunked", "_materialize")}
+    """Record, per pipeline run: the pipeline, its output and wall time."""
+    rec = {"runs": []}
+    orig = {n: getattr(StereoImuPipeline, n) for n in ("run", "run_chunked")}
 
     def wrap_run(name):
         def run(self, *a, **kw):
@@ -542,14 +538,7 @@ def recording_pipeline():
             return out
         return run
 
-    def materialize(self, staged):
-        frames, aux = orig["_materialize"](self, staged)
-        rec["batches"].append({"codec": staged.codec, "frames": frames.clone(), "aux": aux.clone(),
-                               "staged": staged if staged.codec == "delta4c" else None})
-        return frames, aux
-
     StereoImuPipeline.run, StereoImuPipeline.run_chunked = wrap_run("run"), wrap_run("run_chunked")
-    StereoImuPipeline._materialize = materialize
     try:
         yield rec
     finally:
@@ -580,27 +569,22 @@ def check_cli_run(mode: str, rec: dict, rc: int, launches: int, gt, out_dir: str
     row = {"mode": mode, "frames": out.n_frames, "keyframes": out.n_keyframes,
            "wall_s": run["wall"], "frames_per_s": out.n_frames / run["wall"],
            "ate_rmse_m": ate["rmse"], "lk_launches": launches,
-           "parallel_run": pipe.parallel_run, "super_batches": len(rec["batches"]),
-           "codecs": sorted(set(b["codec"] for b in rec["batches"]))}
+           "parallel_run": pipe.parallel_run}
     for tag in ("stage h2d [ms]", "stage wire [MB]", "stage encode [ms]", "readback [ms]"):
         a = pipe.stats.get(tag)
         row[tag] = a.total / a.count if a.count else None
-    row["stage wire total [MB]"] = pipe.stats.get("stage wire [MB]").total or None
+    row["super_batches"] = pipe.stats.get("stage wire [MB]").count
     return row
 
 
-def run_cli(mode: str, args: list, codec: str, gt, out_dir: str):
+def run_cli(mode: str, args: list, gt, out_dir: str):
     """`python -m kimera_vio_tpu_torch` in-process with the LK counter
-    set to 0 just before; returns (numbers, the output, the recording)."""
-    os.environ["KIMERA_STAGE_CODEC"] = codec
-    try:
-        with recording_pipeline() as rec:
-            lk.lk_pyramid_cuda.launches = 0
-            rc = cli.main(args + ["--log_output", "--output_path", out_dir])
-            launches = lk.lk_pyramid_cuda.launches
-    finally:
-        os.environ.pop("KIMERA_STAGE_CODEC", None)
-    return check_cli_run(mode, rec, rc, launches, gt, out_dir), rec["runs"][0]["out"], rec
+    set to 0 just before; returns (numbers, the output)."""
+    with recording_pipeline() as rec:
+        lk.lk_pyramid_cuda.launches = 0
+        rc = cli.main(args + ["--log_output", "--output_path", out_dir])
+        launches = lk.lk_pyramid_cuda.launches
+    return check_cli_run(mode, rec, rc, launches, gt, out_dir), rec["runs"][0]["out"]
 
 
 def write_folders(root: str, provider, params: VioParams) -> tuple[str, str, float]:
@@ -633,64 +617,20 @@ def cli_phase(dev, path: dict) -> dict:
         data, pfolder, png_ms = write_folders(os.path.join(tmp, "path"), provider, params)
         log(f"[cli] params folder and 160 PNGs exact; PNG decode {png_ms:.3f} ms per image")
         base = ["--params_folder", pfolder, "--dataset_path", data] + caps
-        chunked = ["--chunked", "--chunk_size", "16"]
-        raw_frames = None
-        for mode, extra, codec in (("run", [], "raw"), ("chunked_raw", chunked, "raw"),
-                                   ("chunked_delta4c", chunked, "delta4c")):
-            row, out, rec = run_cli(mode, base + extra, codec, provider.ground_truth,
-                                    os.path.join(tmp, mode))
-            if mode == "run" and not row["parallel_run"]:
-                raise AssertionError("the default run is not the parallel run()")
+        for mode, extra in (("run", []), ("chunked", ["--chunked", "--chunk_size", "16"]),
+                            ("sequential", ["--parallel_run", "0"])):
+            row, out = run_cli(mode, base + extra, provider.ground_truth, os.path.join(tmp, mode))
+            if mode != "chunked" and row["parallel_run"] != (mode == "run"):
+                raise AssertionError(f"{mode}: parallel_run is {row['parallel_run']}")
             if out.stamps_ns != path["stamps_ns"]:
                 raise AssertionError(f"{mode}: keyframe stamps differ from phase 2's")
             row["max_abs_dpos_vs_path_m"] = float(np.abs(np.stack(out.positions) - path["positions"]).max())
             if not row["max_abs_dpos_vs_path_m"] < 1e-3:
                 raise AssertionError(f"{mode}: positions differ from phase 2's by "
                                      f"{row['max_abs_dpos_vs_path_m']} m")
-            frames = torch.cat([b["frames"] for b in rec["batches"]]) if rec["batches"] else None
-            if mode == "chunked_raw":
-                raw_frames = frames
-            elif mode == "chunked_delta4c" and not torch.equal(frames, raw_frames):
-                raise AssertionError("delta4c-mode frames differ from the raw-staged frames")
             row["png_decode_ms_per_image"] = png_ms
-            row["delta4c_decode_ms"] = None  # the codec declined or was not asked for
             res[mode] = row
             log(f"[cli] {json.dumps(row)}")
-
-        # Phase 2's camera moves 2.25 px a frame: 81 % of its temporal deltas
-        # leave delta4c's [-7, 7], so the codec declines every super-batch
-        # and (c) stages raw. The codec runs on a hovering camera (5 cm/s,
-        # 0.225 px a frame, 1.2 % escapes): the same rig and configuration.
-        hover = SyntheticStereoProvider(n_frames=80, vx=0.05)
-        data, pfolder, _ = write_folders(os.path.join(tmp, "hover"), hover, params)
-        base = ["--params_folder", pfolder, "--dataset_path", data] + caps + chunked
-        row, out, rec = run_cli("hover_chunked_delta4c", base, "delta4c", hover.ground_truth,
-                                os.path.join(tmp, "hover_out"))
-        decoded = [b for b in rec["batches"] if b["codec"] == "delta4c"]
-        if not decoded or any(b["codec"] != "delta4c" and len(b["frames"]) > 1 for b in rec["batches"]):
-            raise AssertionError(f"hover: delta4c did not stage every super-batch: {row['codecs']}")
-        # Each decoded super-batch against the raw staging of the same
-        # frames, through the same pipeline's stager, on the card.
-        pipe = rec["runs"][0]["pipe"]
-        reader = EurocDataProvider(data, max_imu_per_frame=params.max_imu_per_frame)
-        packets = list(reader.frames())
-        t0_ns, rest, i = packets[0]["stamp_ns"], packets[1:], 0
-        for b in rec["batches"]:
-            batch = rest[i:i + len(b["frames"])]
-            i += len(batch)
-            frames, aux = pipe._materialize(pipe._stage(reader, batch, t0_ns, 0, "raw",
-                                                        torch.cuda.Stream(dev)))
-            if not (torch.equal(frames, b["frames"]) and torch.equal(aux, b["aux"])):
-                raise AssertionError("a delta4c super-batch differs from its raw staging")
-        torch.cuda.synchronize()
-        st = decoded[0]["staged"]
-        row["delta4c_decode_ms"] = time_ms(
-            lambda: frame_codec.decode_delta4c(st.buf, st.shape, st.layout, st.aux_shape), reps=10)
-        row["delta4c_super_batch_frames"] = st.shape[0]
-        row["raw_wire_MB_per_frame"] = 2 * 752 * 480 / 1e6
-        row["delta4c_wire_MB_per_frame"] = row["stage wire total [MB]"] / (out.n_frames - 1)
-        res["hover_chunked_delta4c"] = row
-        log(f"[cli] {json.dumps(row)}")
     return res
 
 

@@ -213,7 +213,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m == "kimera_vio_tpu" or m.startswith("kimera_vio_tpu.")]
 assert not bad, bad
 new = {"__main__", "config.flags", "config.params", "dataprovider.png", "dataprovider.euroc",
-       "native", "ops.frame_codec", "utils.prefetch", "pipeline.stereo_pipeline"}
+       "native", "utils.prefetch", "pipeline.stereo_pipeline"}
 missing = {n for n in new if "kimera_vio_tpu_torch." + n not in names}
 assert not missing, missing
 print(len(names))

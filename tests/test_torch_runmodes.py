@@ -1,8 +1,8 @@
 """The port's run modes on the CPU, on EuRoC-format folders: the parallel
-mode and `run_chunked` (raw and delta4c staging) against the sequential
-`run()`, the float32 time rebase, the delta4c codec against the JAX codec,
-and the backend-health stop. (`run()` against the JAX `run()` on the same
-folder is in tests/test_torch_cli.py, beside the JAX CLI run it shares.)
+mode and `run_chunked` against the sequential `run()`, the staged buffer
+of `run_chunked`, the float32 time rebase, and the backend-health stop.
+(`run()` against the JAX `run()` on the same folder is in
+tests/test_torch_cli.py, beside the JAX CLI run it shares.)
 
 Between the port's own modes the comparison is exact: they run the same
 frame step on the same frames, IMU blocks and float32 stamps. The rebase
@@ -20,14 +20,12 @@ import pytest
 import torch
 
 from kimera_vio_tpu.config import flags as jflags
-from kimera_vio_tpu.ops import frame_codec as jcodec
 from kimera_vio_tpu.pipeline.stereo_pipeline import StereoImuPipeline as JPipeline
 from kimera_vio_tpu_torch.backend import smoother as sm
 from kimera_vio_tpu_torch.config import flags
 from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider
 from kimera_vio_tpu_torch.dataprovider.synthetic import SyntheticStereoProvider, synthetic_params
-from kimera_vio_tpu_torch.ops import frame_codec
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,24 +49,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _write(root, vx):
-    params = synthetic_params(**SIZE, **CAP)
-    prov = SyntheticStereoProvider(n_frames=N_FRAMES, vx=vx, **SIZE)
-    chip_smoke.write_euroc(str(root), prov, lambda path, img: cv2.imwrite(path, img))
-    chip_smoke.write_params_folder(params, str(root / "params"))
-    return str(root), prov
-
-
 @pytest.fixture(scope="module")
 def moving(tmp_path_factory):
     """The test_torch_pipeline sequence (2.25 px a frame) as a EuRoC folder."""
-    return _write(tmp_path_factory.mktemp("moving"), 0.5)
-
-
-@pytest.fixture(scope="module")
-def hover(tmp_path_factory):
-    """A slow sequence (0.225 px a frame) on which delta4c applies."""
-    return _write(tmp_path_factory.mktemp("hover"), 0.05)
+    root = tmp_path_factory.mktemp("moving")
+    prov = SyntheticStereoProvider(n_frames=N_FRAMES, vx=0.5, **SIZE)
+    chip_smoke.write_euroc(str(root), prov, lambda path, img: cv2.imwrite(path, img))
+    chip_smoke.write_params_folder(synthetic_params(**SIZE, **CAP), str(root / "params"))
+    return str(root)
 
 
 def _params(root):
@@ -77,9 +65,9 @@ def _params(root):
     return params
 
 
-def _run(root, mode, **kw):
+def _run(root, mode, provider=None, **kw):
     pipe = StereoImuPipeline(_params(root), parallel_run=(mode == "parallel"), device="cpu")
-    provider = EurocDataProvider(root, max_imu_per_frame=32)
+    provider = provider or EurocDataProvider(root, max_imu_per_frame=32)
     if mode.startswith("chunked"):
         return pipe, pipe.run_chunked(provider, **kw)
     return pipe, pipe.run(provider)
@@ -92,44 +80,73 @@ def _same(a, b):
         np.testing.assert_array_equal(np.stack(getattr(a, f)), np.stack(getattr(b, f)), err_msg=f)
 
 
-@pytest.mark.parametrize("codec", ["raw", "delta4c"])
-def test_modes_give_the_sequential_trajectory(hover, monkeypatch, codec):
-    """Parallel run() and run_chunked (many super-batches) equal the
-    sequential run() exactly; delta4c stages every super-batch here."""
-    root, _ = hover
-    monkeypatch.setenv("KIMERA_STAGE_CODEC", codec)
-    _, seq = _run(root, "sequential")
-    assert seq.n_keyframes >= 3
-    _, par = _run(root, "parallel")
-    _same(par, seq)
-    pipe, chk = _run(root, "chunked", chunk_size=4, super_batch_bytes=1)
-    _same(chk, seq)
+@pytest.fixture(scope="module")
+def sequential(moving):
+    pipe, out = _run(moving, "sequential")
+    assert out.n_frames == N_FRAMES and out.n_keyframes >= 3
+    assert "readback [ms]" not in pipe.stats.tags()  # published at each keyframe
+    return out
+
+
+@pytest.mark.parametrize("mode", ["parallel", "chunked_many", "chunked_one"])
+def test_modes_give_the_sequential_trajectory(moving, sequential, mode):
+    """Parallel run() and run_chunked, in one 4-frame super-batch per copy
+    or in a single super-batch, equal the sequential run() exactly."""
+    kw = {"chunked_many": dict(chunk_size=4, super_batch_bytes=1),
+          "chunked_one": dict(chunk_size=4)}.get(mode, {})
+    pipe, out = _run(moving, mode, **kw)
+    _same(out, sequential)
+    if mode == "parallel":
+        assert "VioFrontend Frame Rate [ms]" not in pipe.stats.tags()
+        return
     wire = pipe.stats.get("stage wire [MB]")
-    assert wire.count == -(-(N_FRAMES - 1) // 4)  # one copy per 4-frame super-batch
-    raw_mb = (2 * 240 * 320 * 4 + 4 * (32 * 8 + 1) * 4) / 1e6
-    if codec == "raw":
-        assert wire.vmax == pytest.approx(raw_mb, rel=1e-3)
-    else:
-        assert wire.vmax < 0.8 * raw_mb  # delta4c applied
+    assert wire.count == (-(-(N_FRAMES - 1) // 4) if mode == "chunked_many" else 1)
+    raw_mb = (min(4, N_FRAMES - 1) * 2 * 240 * 320 + 4 * 32 * 8 * 4) / 1e6  # uint8 frames
+    if mode == "chunked_many":
+        assert wire.vmax == pytest.approx(raw_mb, rel=1e-6)
     assert pipe.stats.get("readback [ms]").count == 1
 
 
-def test_chunked_moving_falls_back_to_raw(moving, monkeypatch):
-    """At 2.25 px a frame most temporal deltas leave [-7, 7]: delta4c
-    declines and the super-batches go raw, with the same trajectory."""
-    root, _ = moving
-    monkeypatch.setenv("KIMERA_STAGE_CODEC", "delta4c")
-    _, seq = _run(root, "sequential")
-    pipe, chk = _run(root, "chunked", chunk_size=4, super_batch_bytes=1)
-    _same(chk, seq)
-    raw_mb = (2 * 240 * 320 * 4 + 4 * (32 * 8 + 1) * 4) / 1e6
-    assert pipe.stats.get("stage wire [MB]").vmax == pytest.approx(raw_mb, rel=1e-3)
+def test_stage_packs_frames_and_imu_blocks(moving):
+    """One staged super-batch holds the provider's frames and the packets'
+    IMU blocks bit for bit: frames, then the (F, B*8) IMU rows at a
+    16-byte aligned offset."""
+    pipe = StereoImuPipeline(_params(moving), device="cpu")
+    provider = EurocDataProvider(moving, max_imu_per_frame=32)
+    batch = list(provider.frames())[1:6]
+    staged = pipe._stage(provider, batch, None)
+    assert staged.aux_offset % 16 == 0 and staged.aux_shape == (5, 32 * 8)
+    frames, aux = pipe._materialize(staged)
+    assert frames.dtype == torch.uint8 and frames.shape == (5, 2, 240, 320)
+    for i, p in enumerate(batch):
+        np.testing.assert_array_equal(frames[i, 0].numpy(), provider.load_image(p["left_path"]))
+        np.testing.assert_array_equal(frames[i, 1].numpy(), provider.load_image(p["right_path"]))
+        blk = p["imu"]
+        want = np.concatenate([blk.acc.numpy().ravel(), blk.gyr.numpy().ravel(),
+                               blk.dt.numpy(), blk.mask.numpy().astype(np.float32)])
+        np.testing.assert_array_equal(aux[i].numpy(), want)
 
 
-def test_stage_codec_is_checked(hover, monkeypatch):
-    monkeypatch.setenv("KIMERA_STAGE_CODEC", "delta3")
-    with pytest.raises(ValueError, match="KIMERA_STAGE_CODEC"):
-        _run(hover[0], "chunked")
+class _FailingProvider(EurocDataProvider):
+    """Decoding the image of frame 6 fails."""
+
+    def load_image(self, path):
+        if path == self.frame_paths[6]:
+            raise OSError(f"cannot decode {path}")
+        return super().load_image(path)
+
+
+@pytest.mark.parametrize("mode", ["parallel", "chunked"])
+def test_decode_error_surfaces_and_threads_end(moving, mode):
+    """An image that fails to decode on the prefetch or stager thread
+    raises in the caller, and the thread ends."""
+    provider = _FailingProvider(moving, max_imu_per_frame=32)
+    provider.frame_paths = [p["left_path"] for p in provider.frames()]
+    before = set(threading.enumerate())
+    with pytest.raises(OSError, match="cannot decode"):
+        _run(moving, mode, provider=provider, **({"chunk_size": 2, "super_batch_bytes": 1}
+                                                 if mode == "chunked" else {}))
+    assert not [t for t in set(threading.enumerate()) - before if t.is_alive()]
 
 
 # ---------------------------------------------------------------------------
@@ -173,68 +190,20 @@ def test_rebase_is_output_neutral(rebase_rig, mode):
 
 
 # ---------------------------------------------------------------------------
-# delta4c against the JAX codec
-# ---------------------------------------------------------------------------
-
-
-def _codec_cases():
-    rng = np.random.default_rng(11)
-    F, H, W = 5, 24, 40
-    base = rng.integers(0, 256, (1, 2, H, W)).astype(np.uint8)
-    small = (base + rng.integers(-3, 4, (F, 2, H, W)).astype(np.uint8)).astype(np.uint8)
-    small[2, 0, :4, :6] = rng.integers(0, 256, (4, 6))  # a burst of escapes
-    sparse = np.repeat(rng.integers(0, 256, (1, 2, 200, 200)).astype(np.uint8), 3, 0)
-    sparse[1, 0, 0, 3] += 100  # escapes far apart: gap tokens need fillers
-    sparse[2, 1, 199, 190] += 100
-    noise = rng.integers(0, 256, (4, 2, 16, 16)).astype(np.uint8)  # declines
-    return {"small": small, "sparse": sparse, "noise": noise, "one_frame": small[:1]}
-
-
-@pytest.mark.parametrize("case", list(_codec_cases()))
-def test_delta4c_matches_jax(case, monkeypatch):
-    frames = _codec_cases()[case]
-    aux = np.random.default_rng(2).normal(size=(frames.shape[0], 33)).astype(np.float32)
-    monkeypatch.setenv("KIMERA_DELTA4_NATIVE", "0")  # the JAX numpy encoder
-    want = jcodec.encode_delta4c(frames, aux)
-    plain = frame_codec.encode_delta4c(frames, aux)
-    planes = [np.ascontiguousarray(frames[t, c]) for t in range(frames.shape[0]) for c in range(2)]
-    native = frame_codec.encode_delta4c_planes(planes, 2, frames.shape, aux)
-    if case in ("noise", "one_frame"):
-        assert want is None and plain is None and native is None
-        return
-    for enc in (plain, native):
-        np.testing.assert_array_equal(enc["buf"], want["buf"])
-        assert (enc["shape"], enc["n_tok"], enc["aux_shape"]) == \
-            (want["shape"], want["n_tok"], want["aux_shape"])
-    jf, ja = jcodec.decode_delta4c(want["buf"], want["shape"], want["n_tok"], want["aux_shape"])
-    tf, ta = frame_codec.decode_delta4c(torch.from_numpy(plain["buf"]), plain["shape"],
-                                        plain["n_tok"], plain["aux_shape"])
-    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
-    np.testing.assert_array_equal(tf.numpy(), frames)
-    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
-    np.testing.assert_array_equal(ta.numpy(), aux)
-    if case == "sparse":  # the second gap is over 65535: a filler token before it
-        S, E = frames[0].size, plain["n_tok"]
-        o = S + (frames.shape[0] - 1) * S // 2
-        buf = plain["buf"].astype(np.int64)
-        assert (buf[o:o + 3] | (buf[o + E:o + E + 3] << 8)).tolist()[:2] == [4, 0]
-
-
-# ---------------------------------------------------------------------------
 # Backend-health stop
 # ---------------------------------------------------------------------------
 
 RECOVERIES = [0, 1, 1, 0, 1, 1, 0, 1, 1, 1, 0, 1]
 
 
-def test_health_stop_matches_jax(monkeypatch, hover):
+def test_health_stop_matches_jax(monkeypatch, moving):
     monkeypatch.setenv("KIMERA_MAX_CONSECUTIVE_BACKEND_FAILURES", "3")
     assert jflags.get_flag("max_consecutive_backend_failures") == 3
     assert flags.get_flag("max_consecutive_backend_failures") == 3
     jparams = __import__("kimera_vio_tpu.config.params", fromlist=["VioParams"]).VioParams
-    jp = jparams.from_folder(os.path.join(hover[0], "params"))
+    jp = jparams.from_folder(os.path.join(moving, "params"))
     sides = {"jax": JPipeline(jp, parallel_run=False),
-             "port": StereoImuPipeline(_params(hover[0]), device="cpu")}
+             "port": StereoImuPipeline(_params(moving), device="cpu")}
     stops = {}
     for name, pipe in sides.items():
         for k, n in enumerate(RECOVERIES):
@@ -247,7 +216,7 @@ def test_health_stop_matches_jax(monkeypatch, hover):
 
 
 @pytest.mark.parametrize("mode", ["sequential", "parallel", "chunked"])
-def test_health_stop_ends_the_run(hover, monkeypatch, mode):
+def test_health_stop_ends_the_run(moving, monkeypatch, mode):
     """A backend that needs its recovery path on every keyframe stops the
     run after `max_consecutive_backend_failures` keyframes, and the
     prefetch / stager thread ends."""
@@ -260,7 +229,7 @@ def test_health_stop_ends_the_run(hover, monkeypatch, mode):
 
     monkeypatch.setattr(sm, "backend_step", failing)
     before = set(threading.enumerate())
-    pipe, out = _run(hover[0], mode, **({"chunk_size": 2, "super_batch_bytes": 1}
+    pipe, out = _run(moving, mode, **({"chunk_size": 2, "super_batch_bytes": 1}
                                         if mode == "chunked" else {}))
     assert not pipe.backend_healthy
     assert out.n_keyframes == 1 + 2  # the bootstrap, then two failing solves
