@@ -46,6 +46,33 @@ Phases:
      stamps, positions within 1e-3 m of phase 2's. One `[cli]` line per
      mode: frames/s, wall, PNG decode ms per image, stage h2d ms and wire
      MB per super-batch, readback.
+  4. lcd: loop closure at full width. The 6-DoF synthetic orbit of
+     tests/test_pipeline_e2e.py:336-392 (752x480, 240 frames, three laps
+     of 4 s, pixel and IMU noise; 10-keyframe horizon, 128 features, 192
+     landmarks; LcdParams defaults: 500 LCD features, the packaged
+     4096-leaf vocabulary tree) written as a EuRoC folder, then the CLI
+     with --use_lcd in three modes: (a) --parallel_run 0, the sequential
+     `run()`; (b) the parallel `run()`; (c) --chunked --chunk_size 16,
+     `run_chunked(collect_aux=True)`. Gates per run: LK launches = tracked
+     frames, at least one verified loop, ATE(PGO) <= 1.25 ATE(VIO) +
+     1e-4 m (tests/test_pipeline_e2e.py:391), traj_pgo.csv one row per
+     LCD keyframe, output_lcd_result.csv one row per loop; across runs:
+     the same loop pairs, PGO positions within 1e-3 m; and the card's
+     `orb_descriptors` on the first LCD keyframe against the port's CPU
+     run on the same image and keypoints: >= 99.5 % of bits equal. Before
+     the runs, one `[lcd]` line of the first and second call times of the
+     solvers and the sampler verification calls (the one-time cost of a
+     process's first verification). One `[lcd]` line per run: LCD extract
+     ms per keyframe (CUDA events around the keyframe branch's fused
+     front half), BoW + query ms per keyframe and verify ms per
+     candidate (host clock; verification ends in host reads; the mean,
+     the first candidate alone, the mean of the others, the median), PGO
+     ms and its node count K, frames/s beside phase 2's; then the card's
+     time of orb_descriptors and of its orientation moments. Then
+     a 300-keyframe LcdModule pass at 752x480 (the large-map harness of
+     tests/test_lcd_large_map.py, there at 320x240): recall, precision
+     and the PGO ms at K=300; gates: 300 keyframes in the database, at
+     least one loop.
 """
 
 from __future__ import annotations
@@ -65,12 +92,23 @@ import numpy as np
 import torch
 
 from kimera_vio_tpu_torch import __main__ as cli
+from kimera_vio_tpu_torch.common.geometry import quat_to_rot
 from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider
-from kimera_vio_tpu_torch.dataprovider.synthetic import SyntheticStereoProvider, synthetic_params
+from kimera_vio_tpu_torch.dataprovider.synthetic import (
+    SyntheticPlanar6DofProvider,
+    SyntheticStereoProvider,
+    _NoiseModel,
+    synthetic_params,
+)
+from kimera_vio_tpu_torch.frontend.camera import StereoCamera
+from kimera_vio_tpu_torch.frontend.vision_frontend import StereoFrontend
+from kimera_vio_tpu_torch.loopclosure import orb
+from kimera_vio_tpu_torch.loopclosure.lcd import LcdConfig
 from kimera_vio_tpu_torch.ops import corner_detection as det
 from kimera_vio_tpu_torch.ops import lk_kernel as lk
 from kimera_vio_tpu_torch.ops import optical_flow as of
+from kimera_vio_tpu_torch.pipeline.lcd_module import LcdModule
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 from kimera_vio_tpu_torch.utils.logger import compute_ate
 
@@ -634,6 +672,263 @@ def cli_phase(dev, path: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: loop closure and PGO
+# ---------------------------------------------------------------------------
+
+
+def orbit_provider(n_frames: int = 240) -> SyntheticPlanar6DofProvider:
+    """The loop fixture of tests/test_pipeline_e2e.py:336-392: 752x480,
+    one 4 s period on every axis (an exact orbit), three laps at 20 fps."""
+    w = 2 * np.pi / 4.0
+    noise = _NoiseModel(imu_rate=200.0, pixel_noise_std=0.3, acc_noise_density=2.0e-3,
+                        gyro_noise_density=1.6968e-4, seed=3)
+    return SyntheticPlanar6DofProvider(n_frames=n_frames, noise=noise, trans_amp=(0.8, 0.4, 0.2),
+                                       rot_amp=(0.05, 0.06, 0.08), trans_freq=(w, w, w),
+                                       rot_freq=(w, w, w))
+
+
+@contextlib.contextmanager
+def timed_lcd_extract():
+    """CUDA events around every call of the keyframe branch's fused LCD
+    front half; yields the (start, end) pairs."""
+    events = []
+    orig = StereoFrontend._lcd_extract
+
+    def timed(self, left_rect, right_rect):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(self, left_rect, right_rect)
+        end.record()
+        events.append((start, end))
+        return out
+
+    StereoFrontend._lcd_extract = timed
+    try:
+        yield events
+    finally:
+        StereoFrontend._lcd_extract = orig
+
+
+def _mean(pipe, tag):
+    a = pipe.stats.get(tag)
+    return a.total / a.count if a.count else None
+
+
+def _verify_split(pipe) -> dict:
+    """The per-candidate verification times split: the first candidate
+    of the run alone, the mean of the others and the median of all
+    (None where the statistics window no longer holds every sample)."""
+    a = pipe.stats.get("lcd verify [ms]")
+    if not a.count or a.count != len(a.samples):
+        return {"verify_ms_first": None, "verify_ms_mean_after_first": None,
+                "verify_ms_median": None}
+    s = a.samples
+    return {"verify_ms_first": s[0],
+            "verify_ms_mean_after_first": float(np.mean(s[1:])) if len(s) > 1 else None,
+            "verify_ms_median": float(np.median(s))}
+
+
+def linalg_first_use_ms(dev) -> dict:
+    """Host time, ending in a sync, of the first and the second call in
+    this process of each batched solver and sampler that loop
+    verification calls (ops/ransac.py: eigh, svd, det, multinomial on a
+    seeded generator) at verification's shapes: what a process pays once
+    on its first verification."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    a = torch.randn(128, 9, 9, device=dev)
+    calls = {"eigh_128x9x9": lambda: torch.linalg.eigh(a @ a.transpose(-1, -2)),
+             "eigh_9x9": lambda: torch.linalg.eigh(a[0] @ a[0].T),
+             "svd_128x3x3": lambda: torch.linalg.svd(a[:, :3, :3]),
+             "svd_3x3": lambda: torch.linalg.svd(a[0, :3, :3]),
+             "det_128x3x3": lambda: torch.linalg.det(a[:, :3, :3]),
+             "multinomial_generator": lambda: torch.multinomial(
+                 torch.ones(500, device=dev), 1024, replacement=True, generator=gen)}
+    out = {}
+    for name, fn in calls.items():
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - tic) * 1e3)
+        out[name] = times
+    return out
+
+
+def run_cli_lcd(mode: str, args: list, gt, out_dir: str, phase2_fps: float) -> tuple[dict, dict]:
+    """The CLI with --use_lcd, LK counter set to 0 just before; gates one
+    run. Returns (numbers, lcd_result)."""
+    with recording_pipeline() as rec, timed_lcd_extract() as events:
+        lk.lk_pyramid_cuda.launches = 0
+        rc = cli.main(args + ["--log_output", "--output_path", out_dir])
+        launches = lk.lk_pyramid_cuda.launches
+    if rc != 0 or len(rec["runs"]) != 1:
+        raise AssertionError(f"lcd {mode}: main returned {rc} after {len(rec['runs'])} runs")
+    run = rec["runs"][0]
+    pipe, out = run["pipe"], run["out"]
+    if launches != out.n_frames - 1:
+        raise AssertionError(f"lcd {mode}: LK launches {launches} != {out.n_frames - 1} tracked frames")
+    res = pipe.lcd_result
+    if res is None or not res["loops"]:
+        raise AssertionError(f"lcd {mode}: no loop verified")
+    est = np.stack(out.positions)
+    if not (np.isfinite(est).all() and np.isfinite(res["pos"]).all()):
+        raise AssertionError(f"lcd {mode}: trajectory not finite")
+    ate_vio = compute_ate(np.array(out.stamps_ns), est, gt.stamps_ns, gt.positions, align=False)["rmse"]
+    ate_pgo = compute_ate(np.array(res["stamps"]), res["pos"], gt.stamps_ns, gt.positions,
+                          align=False)["rmse"]
+    if not ate_pgo <= 1.25 * ate_vio + 1e-4:
+        raise AssertionError(f"lcd {mode}: ATE(PGO) {ate_pgo} m > 1.25 ATE(VIO) {ate_vio} m + 1e-4")
+    with open(os.path.join(out_dir, "traj_pgo.csv")) as f:
+        n_pgo = len(f.read().splitlines()) - 1
+    with open(os.path.join(out_dir, "output_lcd_result.csv")) as f:
+        n_loops = len(f.read().splitlines()) - 1
+    if n_pgo != len(res["stamps"]) or n_pgo != out.n_keyframes - 1:
+        raise AssertionError(f"lcd {mode}: traj_pgo.csv has {n_pgo} rows for "
+                             f"{out.n_keyframes - 1} LCD keyframes")
+    if n_loops != len(res["loops"]):
+        raise AssertionError(f"lcd {mode}: output_lcd_result.csv has {n_loops} rows for "
+                             f"{len(res['loops'])} loops")
+    extract_ms = [a.elapsed_time(b) for a, b in events]
+    if len(extract_ms) != out.n_keyframes - 1:
+        raise AssertionError(f"lcd {mode}: {len(extract_ms)} LCD extractions for "
+                             f"{out.n_keyframes - 1} keyframes")
+    row = {"mode": mode, "frames": out.n_frames, "keyframes": out.n_keyframes,
+           "loops": len(res["loops"]), "wall_s": run["wall"],
+           "frames_per_s": out.n_frames / run["wall"], "phase2_frames_per_s_without_lcd": phase2_fps,
+           "ate_vio_m": ate_vio, "ate_pgo_m": ate_pgo, "lk_launches": launches,
+           "lcd_extract_ms_per_keyframe": float(np.mean(extract_ms)),
+           "lcd_extract_ms_max": float(np.max(extract_ms)),
+           "bow_query_ms_per_keyframe": _mean(pipe, "lcd bow+query [ms]"),
+           "verify_ms_per_candidate": _mean(pipe, "lcd verify [ms]"), **_verify_split(pipe),
+           "verify_ms_max": pipe.stats.get("lcd verify [ms]").vmax,
+           "candidates": pipe.stats.get("lcd verify [ms]").count,
+           "pgo_ms": _mean(pipe, "lcd pgo [ms]"), "pgo_K": len(res["stamps"]),
+           "parallel_run": pipe.parallel_run}
+    log(f"[lcd] {json.dumps(row)}")
+    return row, res
+
+
+def orb_card_vs_cpu(data: str, stamp_ns: int) -> dict:
+    """Share of equal descriptor bits between the card's orb_descriptors
+    and the port's CPU run on the same image (the first LCD keyframe's
+    left PNG; the synthetic rig needs no rectification) and keypoints;
+    and the card's time of orb_descriptors and of its orientation
+    moments (`centroid_moments`, one add per patch pixel) on them."""
+    img = EurocDataProvider(data).load_image(os.path.join(data, "mav0", "cam0", "data",
+                                                          f"{stamp_ns}.png"))
+    dev = torch.device("cuda")
+    left = torch.from_numpy(img).to(dev, torch.float32)
+    uv, ok = det.detect_features(left, torch.zeros((8, 2), device=dev),
+                                 torch.zeros(8, dtype=torch.bool, device=dev), 500,
+                                 min_distance=12.0, do_subpixel=False)
+    d_card, _, ok_card = orb.orb_descriptors(left, uv, ok)
+    d_cpu, _, ok_cpu = orb.orb_descriptors(left.cpu(), uv.cpu(), ok.cpu())
+    if not torch.equal(ok_card.cpu(), ok_cpu):
+        raise AssertionError("ORB ok masks differ between the card and the CPU")
+    keep = ok_cpu.numpy()
+    bits = [np.unpackbits(d.cpu().numpy()[keep].view(np.uint8), axis=1) for d in (d_card, d_cpu)]
+    patch = orb.patches(left, uv)
+    return {"orb_bits_equal_card_vs_cpu": float((bits[0] == bits[1]).mean()),
+            "orb_keypoints": int(ok.shape[0]),
+            "orb_descriptors_ms": time_ms(lambda: orb.orb_descriptors(left, uv, ok), 20),
+            "orb_centroid_moments_ms": time_ms(lambda: orb.centroid_moments(patch), 20)}
+
+
+def large_map_pass(dev) -> dict:
+    """300 keyframes of a three-lap 6-DoF orbit through LcdModule at
+    752x480 (tests/test_lcd_large_map.py at full width): recall and
+    precision against the analytic poses, the PGO at K=300."""
+    n_kf, period, fps = 300, 100, 20.0
+    f = 2.0 * np.pi * fps / period
+    prov = SyntheticPlanar6DofProvider(
+        n_frames=n_kf, fps=fps, plane_z=3.0, trans_amp=(0.8, 0.4, 0.2), rot_amp=(0.05, 0.07, 0.3),
+        trans_freq=(f, 2 * f, 3 * f), rot_freq=(f, 2 * f, f), trans_phase=(0.0, 1.0, 0.4),
+        rot_phase=(0.3, 0.0, 0.7))
+    params = synthetic_params()
+    stereo = StereoCamera.from_params(params.left_cam, params.right_cam, dev)
+    cfg = LcdConfig(recent_frames_window=30, min_temporal_matches=1, alpha=0.1, min_inliers=20,
+                    arun_threshold_m=0.10, n_features=256)
+    mod = LcdModule(stereo, cfg=cfg, device=dev)
+    gt = prov.ground_truth
+    rots = [quat_to_rot(torch.as_tensor(q, dtype=torch.float64)).numpy() for q in gt.quats_wxyz]
+    fired = []
+    t0 = time.perf_counter()
+    for k in range(n_kf):
+        res = mod.add_keyframe(prov.load_image(("left", k)), prov.load_image(("right", k)),
+                               rots[k].astype(np.float32), gt.positions[k].astype(np.float32),
+                               int(gt.stamps_ns[k]))
+        if res is not None:
+            fired.append(res)
+    wall = time.perf_counter() - t0
+    if mod.lcd.n_kf != n_kf:
+        raise AssertionError(f"large map: {mod.lcd.n_kf} keyframes in the database, not {n_kf}")
+    if not fired:
+        raise AssertionError("large map: no loop fired")
+    t1 = time.perf_counter()
+    result = mod.finish()
+    finish_ms = (time.perf_counter() - t1) * 1e3
+
+    def pose_err(r):
+        q, m = r.query_id, r.match_id
+        best = (np.inf, np.inf)
+        for Rgt, tgt in ((rots[q].T @ rots[m], rots[q].T @ (gt.positions[m] - gt.positions[q])),
+                         (rots[m].T @ rots[q], rots[m].T @ (gt.positions[q] - gt.positions[m]))):
+            ang = np.arccos(np.clip((np.trace(Rgt.T @ r.R_match_query) - 1) / 2, -1, 1))
+            best = min(best, (ang, np.linalg.norm(r.t_match_query - tgt)))
+        return best
+
+    # A loop is right when its pose is (0.10 rad, 0.15 m); recall counts the
+    # revisit queries (laps 2-3) that fired a right loop.
+    right = [e[0] < 0.10 and e[1] < 0.15 for e in map(pose_err, fired)]
+    hit = {r.query_id for r, ok in zip(fired, right) if ok}
+    row = {"keyframes": n_kf, "fired": len(fired), "precision": sum(right) / len(fired),
+           "recall": len([q for q in range(period, n_kf) if q in hit]) / (n_kf - period),
+           "pgo_ms_K300": finish_ms, "pgo_K": len(result["stamps"]),
+           "wall_s": wall, "ms_per_keyframe": wall * 1e3 / n_kf}
+    log(f"[lcd] {json.dumps(row)}")
+    return row
+
+
+def lcd_phase(dev, path: dict) -> dict:
+    params = synthetic_params(nr_states=10, max_features=128, max_landmarks=192)
+    params.pipeline.parallel_run = True  # the reference EuRoC default
+    caps = ["--max_features", "128", "--max_landmarks", "192", "--device", dev.type, "--use_lcd"]
+    res = {"runs": {}}
+    with tempfile.TemporaryDirectory(prefix="kimera_lcd_") as tmp:
+        provider = orbit_provider()
+        data, pfolder, png_ms = write_folders(os.path.join(tmp, "orbit"), provider, params)
+        log(f"[lcd] params folder and 480 PNGs exact; PNG decode {png_ms:.3f} ms per image")
+        base = ["--params_folder", pfolder, "--dataset_path", data] + caps
+        first_use = linalg_first_use_ms(dev)
+        log(f"[lcd] {json.dumps({'linalg_first_use_ms_first_second': first_use})}")
+        results = {}
+        for mode, extra in (("sequential", ["--parallel_run", "0"]), ("run", []),
+                            ("chunked", ["--chunked", "--chunk_size", "16"])):
+            row, results[mode] = run_cli_lcd(mode, base + extra, provider.ground_truth,
+                                             os.path.join(tmp, mode), path["frames_per_s"])
+            res["runs"][mode] = row
+        ref = results["sequential"]
+        pairs = [(l.query_id, l.match_id) for l in ref["loops"]]
+        dpgo = {}
+        for mode, r in results.items():
+            if [(l.query_id, l.match_id) for l in r["loops"]] != pairs:
+                raise AssertionError(f"lcd {mode}: loop pairs differ from the sequential run's")
+            dpgo[mode] = float(np.abs(r["pos"] - ref["pos"]).max())
+            if not dpgo[mode] < 1e-3:
+                raise AssertionError(f"lcd {mode}: PGO positions differ from the sequential run's "
+                                     f"by {dpgo[mode]} m")
+        orb_row = orb_card_vs_cpu(data, ref["stamps"][0])
+        log(f"[lcd] {json.dumps({'max_abs_dpgo_vs_sequential_m': dpgo, **orb_row, 'loop_pairs': pairs})}")
+        if not orb_row["orb_bits_equal_card_vs_cpu"] >= 0.995:
+            raise AssertionError(f"ORB bits card vs CPU: {orb_row['orb_bits_equal_card_vs_cpu']} < 0.995")
+    res["large_map"] = large_map_pass(dev)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -666,6 +961,9 @@ def main() -> int:
     t = time.perf_counter()
     cli_res = cli_phase(dev, path)
     log(f"[phase] cli {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    lcd_res = lcd_phase(dev, path)
+    log(f"[phase] lcd {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -676,6 +974,7 @@ def main() -> int:
                           "kimera_vio_tpu/ops/optical_flow.py:92"],
         "launches": path["lk_launches"],
         "launches_cli": {mode: r["lk_launches"] for mode, r in cli_res.items()},
+        "launches_lcd": {mode: r["lk_launches"] for mode, r in lcd_res["runs"].items()},
         "max_abs_err": kern["max_abs_err"],
         "median_abs_err": kern["median_abs_err"],
         "ms": kern["ms"],

@@ -7,11 +7,14 @@ flags of `python -m kimera_vio_tpu` and `--device`:
         --dataset_path /path/to/EuRoC/V1_01_easy \
         [--initial_k 0] [--final_k -1] [--log_output] \
         [--output_path ./output_logs] [--parallel_run 1] \
-        [--chunked] [--chunk_size 16] [--equalize_image] [--device cuda]
+        [--chunked] [--chunk_size 16] [--equalize_image] [--use_lcd] \
+        [--device cuda]
 
 It runs on the card unless `--device cpu` is given. Values set here land
 in the port's flag registry (config/flags.py), as env-var-set flags do.
-Options whose modules are not ported (mono params, --use_lcd,
+`--use_lcd` (or `--gflag use_lcd=1`) adds loop closure and PGO
+(traj_pgo.csv, output_lcd_result.csv); `--chunked` then collects the
+LCD's keyframe rows. Options whose modules are not ported (mono params,
 --enable_mesher, --visualize, --do_fine_imu_camera_temporal_sync) raise
 NotImplementedError.
 """
@@ -76,8 +79,8 @@ def main(argv=None) -> int:
     if args.enable_mesher:
         raise NotImplementedError("--enable_mesher: the mesher is not ported yet")
     device = resolve_device(args.device)
-    # The pipeline's constructor refuses the flags of unported modules
-    # (use_lcd, visualize, do_fine_imu_camera_temporal_sync).
+    # The pipeline's constructor reads use_lcd and refuses the flags of
+    # unported modules (visualize, do_fine_imu_camera_temporal_sync).
     for name in ("use_lcd", "visualize", "log_output", "log_euroc_gt_data",
                  "do_fine_imu_camera_temporal_sync"):
         if getattr(args, name):
@@ -130,7 +133,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     if args.chunked:
-        out = pipe.run_chunked(provider, chunk_size=args.chunk_size, verbose=args.verbose)
+        out = pipe.run_chunked(provider, chunk_size=args.chunk_size, verbose=args.verbose,
+                               collect_aux=pipe.enable_lcd)
     else:
         out = pipe.run(provider, verbose=args.verbose)
     wall = time.perf_counter() - t0

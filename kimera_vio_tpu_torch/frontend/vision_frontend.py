@@ -17,8 +17,12 @@ matching, 1-pt stereo voting, measurements for the backend. RANSAC
 hypotheses come from a `torch.Generator` seeded with the frame count
 (the reference folds the frame count into PRNGKey(0)).
 
-Stereo, non-RGB-D only; the mono / RGB-D variants, the 5-pt and 3-pt
-solvers and the fused LCD extraction are not ported.
+With `lcd_features > 0` the keyframe branch also runs the loop-closure
+feature front half on the rectified pair (`extract_lcd_features`: GFTT,
+ORB, sparse stereo) and returns its `lcd_*` fields on the device.
+
+Stereo, non-RGB-D only; the mono / RGB-D variants and the 5-pt / 3-pt
+solvers in the frontend are not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from kimera_vio_tpu_torch.frontend.camera import (
     remap_bilinear,
     undistort_to_normalized,
 )
+from kimera_vio_tpu_torch.loopclosure import orb as orb_mod
 from kimera_vio_tpu_torch.ops import corner_detection as det
 from kimera_vio_tpu_torch.ops import optical_flow as of
 from kimera_vio_tpu_torch.ops import ransac
@@ -93,6 +98,10 @@ class FrontendConfig:
     max_point_dist: float = 10.0
     templ_tolerance: float = _f32(0.15)
     pixel_sigma: float = 1.0
+    # > 0: the keyframe branch extracts this many loop-closure features
+    # (LcdParams.nfeatures, spaced by lcd_min_distance) on the device.
+    lcd_features: int = 0
+    lcd_min_distance: float = 12.0
 
     @classmethod
     def from_params(cls, fp, max_features=384) -> "FrontendConfig":
@@ -153,6 +162,26 @@ class FrontendState:
     frame_count: int
     kf_count: int
     last_status: int = TRACKING_VALID
+
+
+def extract_lcd_features(stereo, left_rect: torch.Tensor, right_rect: torch.Tensor,
+                         n_features: int, min_distance: float) -> dict:
+    """The LCD's feature front half on the device: GFTT keypoints (no
+    sub-pixel step), ORB descriptors, sparse stereo with a 31x11
+    template, and the stereo backprojections. Returns the reference's
+    `lcd_*` fields (uv, ok, desc, versors, pts3)."""
+    dev = left_rect.device
+    uv, ok = det.detect_features(
+        left_rect, torch.zeros((8, 2), device=dev), torch.zeros(8, dtype=torch.bool, device=dev),
+        n_features, min_distance=min_distance, do_subpixel=False)
+    desc, _, dok = orb_mod.orb_descriptors(left_rect, uv, ok)
+    uvr, _, sok = match_stereo(left_rect, right_rect, uv, ok, fx=stereo.fx,
+                               baseline=stereo.baseline, templ_cols=31, templ_rows=11,
+                               max_disparity=128)
+    pts3 = stereo.backproject_rect(torch.stack([uv[:, 0], uvr[:, 0], uv[:, 1]], -1))
+    versors = pts3 / torch.clamp(torch.linalg.norm(pts3, dim=-1, keepdim=True), min=1e-9)
+    return {"lcd_uv": uv.to(torch.float32), "lcd_ok": dok & sok, "lcd_desc": desc,
+            "lcd_versors": versors.to(torch.float32), "lcd_pts3": pts3.to(torch.float32)}
 
 
 def _nanmedian_linear(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
@@ -440,7 +469,15 @@ class StereoFrontend:
             "t_stereo_vote": t_vote,
             "t_mono": t_mono,
         }
+        if cfg.lcd_features > 0:
+            extras.update(self._lcd_extract(left_rect, right_rect))
         return kf_state, meas_out, extras
+
+    def _lcd_extract(self, left_rect, right_rect) -> dict:
+        """The loop-closure feature front half on this keyframe's
+        rectified pair, already on the device."""
+        return extract_lcd_features(self.stereo, left_rect, right_rect, self.cfg.lcd_features,
+                                    self.cfg.lcd_min_distance)
 
     # ------------------------------------------------------------------
     def _merge_detections(self, feats, uv_new, new_valid, next_id: int):

@@ -3,7 +3,8 @@
 Port of the main-path loggers of kimera_vio_tpu/utils/logger.py: the key
 artifact is `traj_vio.csv` with the reference's 17-column header
 (src/logging/Logger.cpp:148-151), so evo / kimera_eval read the port's
-output unchanged. Plain numpy + file IO.
+output unchanged; with loop closure, `traj_pgo.csv` and
+`output_lcd_result.csv`. Numpy and file IO.
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
+
+from kimera_vio_tpu_torch.common.geometry import rot_to_quat
 
 
 class BackendLogger:
@@ -58,6 +62,35 @@ class FrontendLogger:
 
     def close(self):
         self._f.close()
+
+
+class LcdLogger:
+    """Loop-closure / PGO CSVs (reference LoopClosureDetectorLogger,
+    src/logging/Logger.cpp:589-595): `traj_pgo.csv`, the PGO-optimized
+    keyframe trajectory in the schema evo reads, and
+    `output_lcd_result.csv`, one row per accepted loop."""
+
+    TRAJ_HEADER = "#timestamp,x,y,z,qw,qx,qy,qz"
+
+    def __init__(self, output_path: str):
+        os.makedirs(output_path, exist_ok=True)
+        self._traj = open(os.path.join(output_path, "traj_pgo.csv"), "w")
+        self._traj.write(self.TRAJ_HEADER + "\n")
+        self._result = open(os.path.join(output_path, "output_lcd_result.csv"), "w")
+        self._result.write("#query_kf,match_kf,isLoop\n")
+
+    def log_pgo_trajectory(self, stamps_ns, rots, positions):
+        quats = rot_to_quat(torch.as_tensor(np.asarray(rots, np.float32))).numpy()
+        for s, p, q in zip(stamps_ns, np.asarray(positions), quats):
+            row = [int(s), *p, *q]
+            self._traj.write(",".join(f"{x:.9g}" if i else str(x) for i, x in enumerate(row)) + "\n")
+
+    def log_loop(self, query_kf: int, match_kf: int, is_loop: bool = True):
+        self._result.write(f"{query_kf},{match_kf},{int(is_loop)}\n")
+
+    def close(self):
+        self._traj.close()
+        self._result.close()
 
 
 class PipelineLogger:

@@ -139,8 +139,27 @@ def test_cli_frame_window(folders, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--use_lcd"], ["--enable_mesher"], ["--visualize"], ["--do_fine_imu_camera_temporal_sync"],
-    ["--gflag", "use_lcd=1"], ["--gflag", "visualize=true"], ["mono"],
+    ["--use_lcd"], ["--gflag", "use_lcd=1"], ["--use_lcd", "--chunked", "--chunk_size", "4"],
+], ids=["use_lcd", "gflag_use_lcd", "use_lcd_chunked"])
+def test_cli_use_lcd_writes_the_pgo_logs(folders, tmp_path, extra):
+    """Loop closure through the CLI (the default parallel run(), or
+    --chunked, which collects the LCD rows): traj_pgo.csv holds every
+    keyframe after the bootstrap, output_lcd_result.csv its header (this
+    short straight sequence closes no loop)."""
+    assert tcli.main(["--params_folder", folders["params"], "--dataset_path", folders["data"],
+                      "--device", "cpu", "--log_output", "--output_path", str(tmp_path)]
+                     + CAPS + extra) == 0
+    stamps, _, _ = _read_traj(tmp_path / "traj_vio.csv")
+    assert len(stamps) >= 3  # LcdModule.finish needs two keyframes after the bootstrap
+    pgo_stamps, pgo_pos, _ = _read_traj(tmp_path / "traj_pgo.csv")
+    assert pgo_stamps == stamps[1:]
+    assert np.isfinite(pgo_pos).all()
+    assert (tmp_path / "output_lcd_result.csv").read_text().splitlines()[0] == "#query_kf,match_kf,isLoop"
+
+
+@pytest.mark.parametrize("extra", [
+    ["--enable_mesher"], ["--visualize"], ["--do_fine_imu_camera_temporal_sync"],
+    ["--gflag", "visualize=true"], ["mono"],
 ], ids=lambda e: e[-1])
 def test_unported_options_raise(folders, extra):
     params = folders["mono"] if extra == ["mono"] else folders["params"]
