@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the hand-written CUDA kernel from csrc/ (nvcc, sm_90a), holds it
 against its plain PyTorch version on the card, drives the port's
 stereo-inertial `StereoImuPipeline.run()` on the synthetic 752x480
-sequence (80 frames), and checks the result. Every failure ends the run
+sequence (80 frames), its CLI, loop closure and its variants (mono,
+RGB-D, online initialization, pose sources, time alignment), and checks
+the results. Every failure ends the run
 with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
 path, one JSON line with the kernel table, and last the JSON result line.
@@ -73,6 +75,29 @@ Phases:
      tests/test_lcd_large_map.py, there at 320x240): recall, precision
      and the PGO ms at K=300; gates: 300 keyframes in the database, at
      least one loop.
+  5. variants: the other frontends, initializations and pose sources at
+     phase 2's configuration, each run sequentially with the LK counter
+     set to 0 just before, gated on LK launches == tracked frames (frames
+     fed minus bootstraps) and a finite trajectory; one `[variants]` line
+     each (frames fed and published, frames/s beside phase 2's, keyframe
+     step ms, ATE). (a) Mono: phase 2's sequence as a EuRoC folder and a
+     mono params folder (no RightCameraParams.yaml), the CLI in three
+     modes (--parallel_run 0, the parallel run(), --chunked); gates: the
+     MonoImuPipeline ran, ATE < 0.05 m (tests/test_pipeline_e2e.py:201),
+     the same keyframe stamps and positions within 1e-3 m across modes.
+     (b) RGB-D: phase 2's left images and a 16-bit depth stream (5 m in
+     mm, a 60 m hole) through RgbdDataProvider (depth PNGs decoded exact)
+     and RgbdImuPipeline.run(); ATE < 0.05 m (:232). (c) autoInitialize
+     2: fewer frames published than fed, the final velocity within 0.1
+     m/s of the truth (tests/test_pipeline_wiring.py:140). (d)
+     between-stereo factors with the STEREO guess, (e) PnP tracking with
+     the PnP guess (accepted guesses counted), (f) external odometry from
+     the ground truth (its factors in the window): ATE < 0.06 m
+     (tests/test_pipeline_wiring.py:62, :73, :85, :203). (g)
+     --do_fine_imu_camera_temporal_sync on phase 4's orbit (120 frames):
+     with the reference's variance gate no estimate lands and every frame
+     is published; with the gate scaled to 1 an estimate lands, within
+     TIME_SYNC_GATE_S, and the estimator restarts.
 """
 
 from __future__ import annotations
@@ -93,6 +118,7 @@ import torch
 
 from kimera_vio_tpu_torch import __main__ as cli
 from kimera_vio_tpu_torch.common.geometry import quat_to_rot
+from kimera_vio_tpu_torch.config import flags as cli_flags
 from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider
 from kimera_vio_tpu_torch.dataprovider.synthetic import (
@@ -342,17 +368,20 @@ def path_phase(dev) -> dict:
 
 
 def png_bytes(img: np.ndarray, filter_type: int | None = None) -> bytes:
-    """An 8-bit grayscale PNG of `img`. Row y is filtered with
-    `filter_type`, or, when it is None, with type y % 5, so a decoder meets
-    None, Sub, Up, Average and Paeth rows in turn."""
+    """A grayscale PNG of a uint8 (8-bit) or uint16 (16-bit, big-endian
+    samples) `img`. Row y is filtered with `filter_type`, or, when it is
+    None, with type y % 5, so a decoder meets None, Sub, Up, Average and
+    Paeth rows in turn."""
     H, W = img.shape
-    x = img.astype(np.int16)
+    bpp = img.dtype.itemsize
+    x = np.ascontiguousarray(img.astype(">u2") if bpp == 2 else img).view(np.uint8)
+    x = x.reshape(H, W * bpp).astype(np.int16)
     a = np.zeros_like(x)
-    a[:, 1:] = x[:, :-1]
+    a[:, bpp:] = x[:, :-bpp]
     b = np.zeros_like(x)
     b[1:] = x[:-1]
     c = np.zeros_like(x)
-    c[1:, 1:] = x[:-1, :-1]
+    c[1:, bpp:] = x[:-1, :-bpp]
     p = a + b - c
     pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
     paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
@@ -365,7 +394,8 @@ def png_bytes(img: np.ndarray, filter_type: int | None = None) -> bytes:
     def chunk(kind: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+    ihdr = struct.pack(">IIBBBBB", W, H, 8 * bpp, 0, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
 
 
@@ -375,27 +405,28 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
-def write_euroc(root: str, provider, write_png=None) -> list:
-    """Write `provider`'s sequence as a EuRoC `mav0` folder under `root`:
-    cam0/cam1 PNGs and data.csv, imu0/data.csv and the ground truth, floats
-    as repr. Returns the uint8 images written, as (path, array) pairs."""
-    if write_png is None:
-        def write_png(path, img):
-            with open(path, "wb") as f:
-                f.write(png_bytes(img))
+def _png_writer(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(png_bytes(img))
 
-    mav0 = os.path.join(root, "mav0")
+
+def _write_cam(mav0: str, cam: str, stamps, images, write_png) -> list:
+    """One EuRoC camera folder (data.csv and PNGs); returns (path, array)
+    pairs."""
+    os.makedirs(os.path.join(mav0, cam, "data"), exist_ok=True)
     written = []
-    for cam, kind in (("cam0", "left"), ("cam1", "right")):
-        os.makedirs(os.path.join(mav0, cam, "data"), exist_ok=True)
-        with open(os.path.join(mav0, cam, "data.csv"), "w") as f:
-            f.write("#timestamp [ns],filename\n")
-            for k, stamp in enumerate(provider.left_stamps):
-                img = to_uint8(provider.load_image((kind, k)))
-                path = os.path.join(mav0, cam, "data", f"{stamp}.png")
-                write_png(path, img)
-                written.append((path, img))
-                f.write(f"{stamp},{stamp}.png\n")
+    with open(os.path.join(mav0, cam, "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        for stamp, img in zip(stamps, images):
+            path = os.path.join(mav0, cam, "data", f"{stamp}.png")
+            write_png(path, img)
+            written.append((path, img))
+            f.write(f"{stamp},{stamp}.png\n")
+    return written
+
+
+def _write_imu_gt(mav0: str, provider) -> None:
+    """imu0/data.csv and the ground truth of `provider`, floats as repr."""
     sync = provider.imu_sync
     os.makedirs(os.path.join(mav0, "imu0"))
     with open(os.path.join(mav0, "imu0", "data.csv"), "w") as f:
@@ -412,6 +443,36 @@ def write_euroc(root: str, provider, write_png=None) -> list:
             vals = (*gt.positions[i], *gt.quats_wxyz[i], *gt.velocities[i], *gt.gyro_bias[i],
                     *gt.accel_bias[i])
             f.write(",".join([str(int(t))] + [repr(float(v)) for v in vals]) + "\n")
+
+
+def write_euroc(root: str, provider, write_png=None) -> list:
+    """Write `provider`'s sequence as a EuRoC `mav0` folder under `root`:
+    cam0/cam1 PNGs and data.csv, imu0/data.csv and the ground truth, floats
+    as repr. Returns the uint8 images written, as (path, array) pairs."""
+    mav0 = os.path.join(root, "mav0")
+    written = []
+    for cam, kind in (("cam0", "left"), ("cam1", "right")):
+        images = (to_uint8(provider.load_image((kind, k))) for k in range(len(provider.left_stamps)))
+        written += _write_cam(mav0, cam, provider.left_stamps, images, write_png or _png_writer)
+    _write_imu_gt(mav0, provider)
+    return written
+
+
+def write_rgbd(root: str, provider) -> list:
+    """`provider`'s sequence as an RGB-D tree under `root`
+    (dataprovider/rgbd.py): cam0 8-bit PNGs, depth0 16-bit PNGs of the
+    scene's constant depth in millimetres with a 10x10 hole of 60 m in the
+    top-left corner (beyond any range gate), imu0 and the ground truth.
+    Returns the images written, as (path, array) pairs."""
+    mav0 = os.path.join(root, "mav0")
+    n = len(provider.left_stamps)
+    written = _write_cam(mav0, "cam0", provider.left_stamps,
+                         (to_uint8(provider.load_image(("left", k))) for k in range(n)), _png_writer)
+    depth_mm = np.full((provider.height, provider.width), round(provider.depth * 1000.0), np.uint16)
+    depth_mm[:10, :10] = 60000
+    written += _write_cam(mav0, "depth0", provider.left_stamps, (depth_mm for _ in range(n)),
+                          _png_writer)
+    _write_imu_gt(mav0, provider)
     return written
 
 
@@ -929,6 +990,256 @@ def lcd_phase(dev, path: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the variants (mono, RGB-D, online init, pose sources, time sync)
+# ---------------------------------------------------------------------------
+
+#: Time sync on phase 4's orbit (IMU and camera on one clock: true offset
+#: 0). With the reference's variance gate (scaling 30) the noisy gyro
+#: signal never clears it and no estimate lands, as in a CPU rehearsal of
+#: the JAX package on the orbit (scripts/rehearse_time_sync.py); with the gate scaled to 1
+#: an estimate lands once half the 10 s window is full and the estimator
+#: restarts. The estimate's gate: one keyframe interval, the resolution of
+#: a visual rotation signal sampled at keyframes.
+TIME_SYNC_GATE_S = 0.25
+TIME_SYNC_FRAMES = 120  # the aligner first tries at 5 s (100 frames)
+
+
+class Prerendered:
+    """A synthetic provider with every image rendered before the run, so
+    that a run's wall time holds no host rendering (the 6-DoF provider
+    renders each image by ray-plane intersection on the host)."""
+
+    def __init__(self, provider):
+        self.ground_truth, self.imu_sync = provider.ground_truth, provider.imu_sync
+        self.packets = list(provider.frames())
+        self.images = {p[k]: provider.load_image(p[k]) for p in self.packets
+                       for k in ("left_path", "right_path")}
+
+    def frames(self):
+        return iter(self.packets)
+
+    def load_image(self, key):
+        return self.images[key]
+
+
+@contextlib.contextmanager
+def counted_steps():
+    """Count the frames a run feeds the pipeline: those it tracks (calls
+    of `_step`, each one LK launch) and those that bootstrap it (one, or
+    two after a time-alignment restart)."""
+    rec = {"steps": 0, "bootstraps": 0}
+    orig_step, orig_boot = StereoImuPipeline._step, StereoImuPipeline._bootstrap
+
+    def step(self, *a, **kw):
+        rec["steps"] += 1
+        return orig_step(self, *a, **kw)
+
+    def boot(self, *a, **kw):
+        rec["bootstraps"] += 1
+        return orig_boot(self, *a, **kw)
+
+    StereoImuPipeline._step, StereoImuPipeline._bootstrap = step, boot
+    try:
+        yield rec
+    finally:
+        StereoImuPipeline._step, StereoImuPipeline._bootstrap = orig_step, orig_boot
+
+
+def run_variant(name: str, make_pipe, provider, gt, phase2_fps: float, ate_gate: float | None,
+                extra=None) -> tuple[dict, object, object]:
+    """One sequential run() of a variant, the LK counter set to 0 just
+    before; gates LK launches == tracked frames, a finite trajectory and
+    the ATE gate. Returns (numbers, output, pipeline)."""
+    pipe = make_pipe()
+    with counted_steps() as rec:
+        torch.cuda.synchronize()
+        lk.lk_pyramid_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = pipe.run(provider)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lk.lk_pyramid_cuda.launches
+    if launches != rec["steps"]:
+        raise AssertionError(f"{name}: LK launches {launches} != {rec['steps']} tracked frames")
+    est = np.stack(out.positions)
+    if not np.isfinite(est).all():
+        raise AssertionError(f"{name}: trajectory not finite")
+    ate = compute_ate(np.array(out.stamps_ns), est, gt.stamps_ns, gt.positions, align=False)["rmse"]
+    if ate_gate is not None and not ate < ate_gate:
+        raise AssertionError(f"{name}: ATE rmse {ate} m >= {ate_gate} m")
+    kf = pipe.stats.get("VioFrontend Keyframe Rate [ms]")
+    fed = rec["steps"] + rec["bootstraps"]
+    row = {"variant": name, "frames_fed": fed, "frames": out.n_frames, "bootstraps": rec["bootstraps"],
+           "keyframes": out.n_keyframes, "wall_s": wall, "frames_per_s": fed / wall,
+           "path_frames_per_s": phase2_fps, "keyframe_step_ms": kf.total / kf.count if kf.count else None,
+           "ate_rmse_m": ate, "ate_gate_m": ate_gate, "lk_launches": launches, **(extra or {})}
+    return row, out, pipe
+
+
+def variants_phase(dev, path: dict) -> dict:
+    """Phase 5 (see the module docstring)."""
+    from kimera_vio_tpu_torch.dataprovider.odometry import OdometryBuffer
+    from kimera_vio_tpu_torch.dataprovider.rgbd import RgbdDataProvider
+    from kimera_vio_tpu_torch.pipeline.rgbd_pipeline import RgbdImuPipeline
+
+    fps2 = path["frames_per_s"]
+    res = {}
+
+    def params(**backend):
+        p = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+        for k, v in backend.items():
+            setattr(p.backend if hasattr(p.backend, k) else p.frontend, k, v)
+        return p
+
+    def emit(row):
+        res[row["variant"]] = row
+        log(f"[variants] {json.dumps(row)}")
+
+    with tempfile.TemporaryDirectory(prefix="kimera_variants_") as tmp:
+        # Mono through the CLI, three modes, on phase 2's sequence as a
+        # EuRoC folder and a mono params folder (no RightCameraParams.yaml).
+        provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
+        p = params()
+        p.pipeline.parallel_run = True
+        data, pfolder, png_ms = write_folders(os.path.join(tmp, "mono"), provider, p)
+        os.remove(os.path.join(pfolder, "RightCameraParams.yaml"))
+        if VioParams.from_folder(pfolder).right_cam is not None:
+            raise AssertionError("mono params folder still holds a right camera")
+        base = ["--params_folder", pfolder, "--dataset_path", data, "--max_features", "256",
+                "--max_landmarks", "384", "--device", dev.type]
+        outs = {}
+        for mode, extra in (("sequential", ["--parallel_run", "0"]), ("run", []),
+                            ("chunked", ["--chunked", "--chunk_size", "16"])):
+            with recording_pipeline() as rec:
+                lk.lk_pyramid_cuda.launches = 0
+                rc = cli.main(base + extra + ["--log_output", "--output_path", os.path.join(tmp, mode)])
+                launches = lk.lk_pyramid_cuda.launches
+            row = check_cli_run(f"mono {mode}", rec, rc, launches, provider.ground_truth,
+                                os.path.join(tmp, mode))
+            if type(rec["runs"][0]["pipe"]).__name__ != "MonoImuPipeline":
+                raise AssertionError(f"mono {mode}: the CLI ran {type(rec['runs'][0]['pipe']).__name__}")
+            outs[mode] = rec["runs"][0]["out"]
+            kf = rec["runs"][0]["pipe"].stats.get("VioFrontend Keyframe Rate [ms]")
+            emit({"variant": f"mono_cli_{mode}", **row, "path_frames_per_s": fps2,
+                  "keyframe_step_ms": kf.total / kf.count if kf.count else None,
+                  "ate_gate_m": 0.05, "png_decode_ms_per_image": png_ms})
+        ref = outs["sequential"]
+        for mode, out in outs.items():
+            d = float(np.abs(np.stack(out.positions) - np.stack(ref.positions)).max()) \
+                if out.stamps_ns == ref.stamps_ns else None
+            if d is None or not d < 1e-3:
+                raise AssertionError(f"mono {mode}: keyframes differ from the sequential run's ({d})")
+            res[f"mono_cli_{mode}"]["max_abs_dpos_vs_sequential_m"] = d
+        log(f"[variants] {json.dumps({m: res[f'mono_cli_{m}']['max_abs_dpos_vs_sequential_m'] for m in outs})}")
+
+        # RGB-D: phase 2's left images and a 16-bit depth stream (5 m in mm,
+        # a 60 m hole) through RgbdDataProvider.
+        written = write_rgbd(os.path.join(tmp, "rgbd"), provider)
+        rgbd = RgbdDataProvider(os.path.join(tmp, "rgbd"), depth_factor=1e-3, max_depth=20.0)
+        for path_, img in written[-2:]:
+            if not np.array_equal(rgbd.load_image(path_), img.astype(np.float32) * np.float32(1e-3)
+                                  * (img < 20000)):
+                raise AssertionError(f"depth PNG decodes differently: {path_}")
+        row, _, _ = run_variant("rgbd", lambda: RgbdImuPipeline(params(), parallel_run=False, device=dev),
+                                rgbd, provider.ground_truth, fps2, 0.05)
+        emit(row)
+
+    gt = SyntheticStereoProvider(n_frames=80, vx=0.5).ground_truth
+    # Online initialization (autoInitialize: 2, num_frames_vio_init 8).
+    row, out, _ = run_variant(
+        "online_init", lambda: StereoImuPipeline(params(auto_initialize=2), parallel_run=False, device=dev),
+        SyntheticStereoProvider(n_frames=80, vx=0.5), gt, fps2, None)
+    v_err = float(np.abs(np.asarray(out.velocities[-1]) - gt.velocities[-1]).max())
+    row.update(init_frames=row["frames_fed"] - out.n_frames + 1, final_velocity_err_m_s=v_err)
+    if not (1 < out.n_frames < row["frames_fed"] and v_err < 0.1):
+        raise AssertionError(f"online init: {out.n_frames} of {row['frames_fed']} frames published, "
+                             f"final velocity off by {v_err} m/s")
+    emit(row)
+    # Between-stereo factors with the STEREO guess; PnP tracking with the
+    # PnP guess; external odometry from the ground truth.
+    row, _, _ = run_variant(
+        "between_stereo_guess", lambda: StereoImuPipeline(params(
+            add_between_stereo_factors=True, between_translation_precision=100.0, pose_guess_source=2),
+            parallel_run=False, device=dev),
+        SyntheticStereoProvider(n_frames=80, vx=0.5), gt, fps2, 0.06)
+    emit(row)
+    accepted = []
+    orig = StereoImuPipeline._pnp_pose
+
+    def pnp(self, *a):
+        R, t, ok = orig(self, *a)
+        accepted.append(ok)
+        return R, t, ok
+    StereoImuPipeline._pnp_pose = pnp
+    try:
+        row, _, _ = run_variant(
+            "pnp_guess", lambda: StereoImuPipeline(params(
+                use_pnp_tracking=True, min_pnp_inliers=10, pose_guess_source=3),
+                parallel_run=False, device=dev),
+            SyntheticStereoProvider(n_frames=80, vx=0.5), gt, fps2, 0.06)
+    finally:
+        StereoImuPipeline._pnp_pose = orig
+    row["pnp_guesses_accepted"] = int(sum(bool(a) for a in accepted))
+    row["pnp_keyframes"] = len(accepted)
+    emit(row)
+    odo_prov = SyntheticStereoProvider(n_frames=80, vx=0.5)
+    buf = OdometryBuffer()
+    for i, t in enumerate(gt.stamps_ns):
+        buf.add(int(t), quat_to_rot(torch.as_tensor(np.asarray(gt.quats_wxyz[i], np.float32))).numpy(),
+                gt.positions[i])
+    odo_prov.odometry = buf
+    row, _, pipe = run_variant(
+        "ext_odometry", lambda: StereoImuPipeline(params(), parallel_run=False, device=dev),
+        odo_prov, gt, fps2, 0.06)
+    if not bool(pipe._last_win.ext_valid.any()):
+        raise AssertionError("ext_odometry: no odometry factor in the window")
+    emit(row)
+    # Fine IMU-camera time alignment on phase 4's orbit (3-pt stereo): the
+    # reference's variance gate, then the gate scaled to 1.
+    orbit = Prerendered(orbit_provider(n_frames=TIME_SYNC_FRAMES))
+    aligner_ms = []
+    orig_feed = StereoImuPipeline._feed_aligner
+
+    def feed(self, *a):
+        tic = time.perf_counter()
+        try:
+            return orig_feed(self, *a)
+        finally:
+            aligner_ms.append((time.perf_counter() - tic) * 1e3)
+    for name, scaling in (("time_sync_orbit", None), ("time_sync_orbit_gate1", 1.0)):
+        p = synthetic_params(nr_states=10, max_features=128, max_landmarks=192)
+        if scaling is not None:
+            p.imu.time_alignment_variance_threshold_scaling = scaling
+        cli_flags.set_flag("do_fine_imu_camera_temporal_sync", True)
+        StereoImuPipeline._feed_aligner = feed
+        aligner_ms.clear()
+        try:
+            row, out, pipe = run_variant(
+                name, lambda: StereoImuPipeline(p, parallel_run=False, device=dev),
+                orbit, orbit.ground_truth, fps2, None)
+        finally:
+            cli_flags.set_flag("do_fine_imu_camera_temporal_sync", False)
+            StereoImuPipeline._feed_aligner = orig_feed
+        est = pipe.time_shift_estimate_s
+        row.update(variance_threshold_scaling=p.imu.time_alignment_variance_threshold_scaling,
+                   time_shift_estimate_s=est, time_shift_gate_s=TIME_SYNC_GATE_S,
+                   three_point_stereo=not pipe.frontend_cfg.use_1point_stereo,
+                   aligner_feed_ms_total=float(np.sum(aligner_ms)),
+                   aligner_feed_ms_max=float(np.max(aligner_ms)))
+        emit(row)
+        if not row["three_point_stereo"]:
+            raise AssertionError(f"{name}: the 3-pt stereo solver was not forced")
+        if scaling is None and (est is not None or out.n_frames != TIME_SYNC_FRAMES):
+            raise AssertionError(f"{name}: estimate {est} s, {out.n_frames} frames published; the "
+                                 "variance gate should withhold it on this orbit")
+        if scaling is not None and (est is None or not abs(est) <= TIME_SYNC_GATE_S
+                                    or not 1 < out.n_frames < TIME_SYNC_FRAMES):
+            raise AssertionError(f"{name}: estimate {est} s (gate +-{TIME_SYNC_GATE_S} s), "
+                                 f"{out.n_frames} frames published after the restart")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -964,6 +1275,9 @@ def main() -> int:
     t = time.perf_counter()
     lcd_res = lcd_phase(dev, path)
     log(f"[phase] lcd {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    var_res = variants_phase(dev, path)
+    log(f"[phase] variants {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -975,6 +1289,7 @@ def main() -> int:
         "launches": path["lk_launches"],
         "launches_cli": {mode: r["lk_launches"] for mode, r in cli_res.items()},
         "launches_lcd": {mode: r["lk_launches"] for mode, r in lcd_res["runs"].items()},
+        "launches_variants": {name: r["lk_launches"] for name, r in var_res.items()},
         "max_abs_err": kern["max_abs_err"],
         "median_abs_err": kern["median_abs_err"],
         "ms": kern["ms"],

@@ -12,11 +12,13 @@ flags of `python -m kimera_vio_tpu` and `--device`:
 
 It runs on the card unless `--device cpu` is given. Values set here land
 in the port's flag registry (config/flags.py), as env-var-set flags do.
-`--use_lcd` (or `--gflag use_lcd=1`) adds loop closure and PGO
-(traj_pgo.csv, output_lcd_result.csv); `--chunked` then collects the
-LCD's keyframe rows. Options whose modules are not ported (mono params,
---enable_mesher, --visualize, --do_fine_imu_camera_temporal_sync) raise
-NotImplementedError.
+A params folder with `frontend_type: 0` or no RightCameraParams.yaml runs
+the mono pipeline (MonoImuPipeline, cam0 only). `--use_lcd` (or `--gflag
+use_lcd=1`) adds loop closure and PGO (traj_pgo.csv,
+output_lcd_result.csv); `--chunked` then collects the LCD's keyframe
+rows. `--do_fine_imu_camera_temporal_sync` runs the IMU-camera time
+aligner first (not with `--chunked`). The options whose modules are not
+ported, --enable_mesher and --visualize, raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -74,13 +76,14 @@ def main(argv=None) -> int:
     from kimera_vio_tpu_torch.config import flags
     from kimera_vio_tpu_torch.config.params import VioParams
     from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider
+    from kimera_vio_tpu_torch.pipeline.mono_pipeline import MonoImuPipeline
     from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 
     if args.enable_mesher:
         raise NotImplementedError("--enable_mesher: the mesher is not ported yet")
     device = resolve_device(args.device)
-    # The pipeline's constructor reads use_lcd and refuses the flags of
-    # unported modules (visualize, do_fine_imu_camera_temporal_sync).
+    # The pipeline's constructor reads use_lcd and
+    # do_fine_imu_camera_temporal_sync and refuses visualize.
     for name in ("use_lcd", "visualize", "log_output", "log_euroc_gt_data",
                  "do_fine_imu_camera_temporal_sync"):
         if getattr(args, name):
@@ -98,8 +101,7 @@ def main(argv=None) -> int:
         flags.set_flag(name, raw.lower() in ("1", "true", "yes") if typ is bool else typ(raw))
 
     params = VioParams.from_folder(args.params_folder)
-    if params.pipeline.frontend_type == 0 or params.right_cam is None:
-        raise NotImplementedError("mono params folder (MonoImuPipeline): not ported yet")
+    mono = params.pipeline.frontend_type == 0 or params.right_cam is None
     if args.max_features:
         params.max_features = args.max_features
     if args.max_landmarks:
@@ -122,9 +124,9 @@ def main(argv=None) -> int:
     provider = EurocDataProvider(
         args.dataset_path, initial_k=initial_k, final_k=final_k,
         max_imu_per_frame=params.max_imu_per_frame, equalize=equalize,
-        do_coarse_imu_camera_temporal_sync=args.do_coarse_imu_camera_temporal_sync,
+        do_coarse_imu_camera_temporal_sync=args.do_coarse_imu_camera_temporal_sync, mono=mono,
     )
-    pipe = StereoImuPipeline(
+    pipe = (MonoImuPipeline if mono else StereoImuPipeline)(
         params,
         output_path=args.output_path if flags.get_flag("log_output") else None,
         parallel_run=bool(args.parallel_run) if args.parallel_run is not None else None,

@@ -7,9 +7,13 @@ states of 15 DoF [dtheta, dp, dv, dba, dbg]; smart stereo landmarks
 triangulated in closed form and Schur-eliminated onto the poses; IMU
 preintegration + bias random-walk factors (Jacobians by forward-mode
 autodiff, `torch.func.jacfwd` under `vmap`); zero-velocity / no-motion
-factors on LOW_DISPARITY keyframes; a Jacobi-equilibrated Cholesky solve
-with the reference's recovery branch; marginalization of the oldest state
-into a dense prior.
+factors on LOW_DISPARITY keyframes; relative-pose between factors from
+external odometry and from the tracker's stereo RANSAC, and the
+constant-velocity factor (analytic Jacobians); a Jacobi-equilibrated
+Cholesky solve with the reference's recovery branch; marginalization of
+the oldest state into a dense prior. `backend_step` also takes a pose
+guess from another source than the IMU (MONO, STEREO, PnP) and absolute
+external-odometry poses, which it turns into keyframe-relative ones.
 
 Where the JAX code branches on device values with `lax.cond`, the port
 branches on the host (`Window.n` is a Python int). Block additions go
@@ -19,10 +23,8 @@ on a matrix that is not positive definite where `jnp.linalg.cholesky`
 returns NaN; `cholesky_ex` with `info != 0` maps to the same non-finite
 step, so the recovery branch fires where it fires in JAX.
 
-Not ported yet (off in the main-path configuration, and refused by the
-pipeline): external-odometry and between-stereo factors, the
-constant-velocity factor, pose-guess sources other than the IMU, the
-Combined IMU factor, `state_covariance`.
+Not ported yet: the Combined IMU factor (refused by `from_params`) and
+`state_covariance`.
 """
 
 from __future__ import annotations
@@ -52,6 +54,11 @@ def _f32(x, device):
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+def _sigma(precision: float) -> float:
+    """1/sqrt(precision); inf (factor off) for a precision of 0."""
+    return 1.0 / np.sqrt(precision) if precision > 0 else np.inf
+
+
 @dataclass
 class BackendConfig:
     """Solver configuration: static ints, float32 0-d tensors for the
@@ -74,6 +81,13 @@ class BackendConfig:
     zero_velocity_sigma: torch.Tensor
     no_motion_pos_sigma: torch.Tensor
     no_motion_rot_sigma: torch.Tensor
+    # Between factors: an infinite sigma switches that residual class off
+    # (the reference's precision 0).
+    ext_odom_rot_sigma: torch.Tensor
+    ext_odom_pos_sigma: torch.Tensor
+    between_rot_sigma: torch.Tensor
+    between_pos_sigma: torch.Tensor
+    constant_vel_sigma: torch.Tensor  # inf = no constant-velocity factor
     init_pos_sigma: torch.Tensor
     init_rp_sigma: torch.Tensor
     init_yaw_sigma: torch.Tensor
@@ -115,6 +129,13 @@ class BackendConfig:
             zero_velocity_sigma=f(1.0 / np.sqrt(bp.zero_velocity_precision)),
             no_motion_pos_sigma=f(1.0 / np.sqrt(bp.no_motion_position_precision)),
             no_motion_rot_sigma=f(1.0 / np.sqrt(bp.no_motion_rotation_precision)),
+            ext_odom_rot_sigma=f(0.05),
+            ext_odom_pos_sigma=f(0.1),
+            between_rot_sigma=f(_sigma(bp.between_rotation_precision)),
+            between_pos_sigma=f(_sigma(bp.between_translation_precision)),
+            constant_vel_sigma=f(_sigma(bp.constant_vel_precision)
+                                 if getattr(bp, "use_constant_velocity_factor", False)
+                                 else np.inf),
             init_pos_sigma=f(bp.initial_position_sigma),
             init_rp_sigma=f(bp.initial_roll_pitch_sigma),
             init_yaw_sigma=f(bp.initial_yaw_sigma),
@@ -147,8 +168,21 @@ class Window:
     pim: Pim  # stacked (K, ...); pim[i] connects state i-1 -> i
     pim_valid: torch.Tensor  # (K,)
     status: torch.Tensor  # (K,) int32
+    # External-odometry relative poses (slot k: k-1 -> k, body frame).
+    ext_R: torch.Tensor  # (K,3,3)
+    ext_t: torch.Tensor  # (K,3)
+    ext_valid: torch.Tensor  # (K,)
+    # Stereo-RANSAC between measurements (slot k: k-1 -> k, body frame).
+    btw_R: torch.Tensor  # (K,3,3)
+    btw_t: torch.Tensor  # (K,3)
+    btw_valid: torch.Tensor  # (K,)
     out_rot: torch.Tensor  # (3,3) increment-chained published pose
     out_pos: torch.Tensor  # (3,)
+    # Last keyframe's absolute external-odometry pose, from which the next
+    # keyframe's relative one is formed (VisionImuFrontend.cpp:240-302).
+    odom_R: torch.Tensor  # (3,3)
+    odom_t: torch.Tensor  # (3,)
+    odom_valid: torch.Tensor  # () bool
     prior_H: torch.Tensor  # (D,D)
     prior_g: torch.Tensor  # (D,)
     prior_rot: torch.Tensor  # (K,3,3) prior linearization point
@@ -177,8 +211,17 @@ class Window:
             pim=pim,
             pim_valid=torch.zeros((K,), dtype=torch.bool, device=device),
             status=torch.zeros((K,), dtype=torch.int32, device=device),
+            ext_R=eye.clone(),
+            ext_t=z3.clone(),
+            ext_valid=torch.zeros((K,), dtype=torch.bool, device=device),
+            btw_R=eye.clone(),
+            btw_t=z3.clone(),
+            btw_valid=torch.zeros((K,), dtype=torch.bool, device=device),
             out_rot=torch.eye(3, dtype=dtype, device=device),
             out_pos=torch.zeros(3, dtype=dtype, device=device),
+            odom_R=torch.eye(3, dtype=dtype, device=device),
+            odom_t=torch.zeros(3, dtype=dtype, device=device),
+            odom_valid=torch.zeros((), dtype=torch.bool, device=device),
             prior_H=torch.zeros((D, D), dtype=dtype, device=device),
             prior_g=torch.zeros((D,), dtype=dtype, device=device),
             prior_rot=eye.clone(),
@@ -359,6 +402,88 @@ def _no_motion_blocks(cfg: BackendConfig, win: Window, ks=None):
     return Ji * active[:, None, None], Jj * active[:, None, None], r * active[:, None]
 
 
+def _pair_ks(cfg: BackendConfig, win: Window, ks):
+    dev = win.pos.device
+    ks = torch.arange(1, cfg.nr_states, device=dev) if ks is None else torch.as_tensor(ks, device=dev)
+    return ks, ks - 1
+
+
+def _between_blocks(cfg: BackendConfig, win: Window, mR, mt, mvalid, rot_sigma, pos_sigma,
+                    ks=None):
+    """Relative-pose between factors on consecutive keyframes: a 6-dim
+    residual [Log(mR^T Ri^T Rj), Ri^T (pj - pi) - mt], each class whitened
+    by its sigma (inf switches it off). Shared by the external-odometry
+    factors (VioBackend.cpp:402-420) and the stereo-RANSAC between factors
+    (addBetweenStereoFactors, :324-336). Analytic Jacobians under the
+    retraction R <- R Exp(dth), p <- p + dp."""
+    ks, km = _pair_ks(cfg, win, ks)
+    dt = win.pos.dtype
+    active = (mvalid[ks] & win.mask[ks] & win.mask[km]).to(dt)
+    zero = torch.zeros((), dtype=dt, device=win.pos.device)
+    w_rot = torch.where(torch.isfinite(rot_sigma), 1.0 / rot_sigma, zero)
+    w_pos = torch.where(torch.isfinite(pos_sigma), 1.0 / pos_sigma, zero)
+    Ri, Rj = win.rot[km], win.rot[ks]
+    dR = Ri.transpose(-1, -2) @ Rj
+    xi = geo.so3_log(mR[ks].transpose(-1, -2) @ dR)
+    r_rot = xi * w_rot
+    t_rel = torch.einsum("kji,kj->ki", Ri, win.pos[ks] - win.pos[km])
+    r_pos = (t_rel - mt[ks]) * w_pos
+    Jr = geo.so3_right_jacobian_inv(xi)
+    RiT = Ri.transpose(-1, -2)
+    n = ks.shape[0]
+    Ji = torch.zeros((n, 6, S_DOF), dtype=dt, device=win.pos.device)
+    Jj = torch.zeros((n, 6, S_DOF), dtype=dt, device=win.pos.device)
+    Ji[:, 0:3, _TH] = -(Jr @ dR.transpose(-1, -2)) * w_rot
+    Jj[:, 0:3, _TH] = Jr * w_rot
+    Ji[:, 3:6, _TH] = geo.hat(t_rel) * w_pos
+    Ji[:, 3:6, _P] = -RiT * w_pos
+    Jj[:, 3:6, _P] = RiT * w_pos
+    r = torch.cat([r_rot, r_pos], dim=-1)
+    return Ji * active[:, None, None], Jj * active[:, None, None], r * active[:, None]
+
+
+def _ext_odom_blocks(cfg: BackendConfig, win: Window, ks=None):
+    return _between_blocks(cfg, win, win.ext_R, win.ext_t, win.ext_valid,
+                           cfg.ext_odom_rot_sigma, cfg.ext_odom_pos_sigma, ks=ks)
+
+
+def _between_stereo_blocks(cfg: BackendConfig, win: Window, ks=None):
+    return _between_blocks(cfg, win, win.btw_R, win.btw_t, win.btw_valid,
+                           cfg.between_rot_sigma, cfg.between_pos_sigma, ks=ks)
+
+
+def _const_vel_blocks(cfg: BackendConfig, win: Window, ks=None):
+    """Constant-velocity factor v_k ~ v_{k-1}
+    (VioBackend::addConstantVelocityFactor, :1322-1330); off when
+    constant_vel_sigma is inf."""
+    ks, km = _pair_ks(cfg, win, ks)
+    dt = win.pos.dtype
+    zero = torch.zeros((), dtype=dt, device=win.pos.device)
+    w = torch.where(torch.isfinite(cfg.constant_vel_sigma), 1.0 / cfg.constant_vel_sigma, zero)
+    active = (win.mask[ks] & win.mask[km]).to(dt) * w
+    n = ks.shape[0]
+    eye = torch.eye(3, dtype=dt, device=win.pos.device)
+    Ji = torch.zeros((n, 3, S_DOF), dtype=dt, device=win.pos.device)
+    Jj = torch.zeros((n, 3, S_DOF), dtype=dt, device=win.pos.device)
+    Ji[:, :, _V] = -eye
+    Jj[:, :, _V] = eye
+    r = win.vel[ks] - win.vel[km]
+    return Ji * active[:, None, None], Jj * active[:, None, None], r * active[:, None]
+
+
+def _pair_factor_blocks(cfg: BackendConfig, win: Window, ks=None):
+    """Every factor on the consecutive-pair layout, in the reference's
+    order: IMU + bias, no-motion, external odometry, between-stereo,
+    constant velocity."""
+    return (
+        _imu_factor_blocks(cfg, win, ks),
+        _no_motion_blocks(cfg, win, ks),
+        _ext_odom_blocks(cfg, win, ks),
+        _between_stereo_blocks(cfg, win, ks),
+        _const_vel_blocks(cfg, win, ks),
+    )
+
+
 def _smart_factor_blocks(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pts_fixed=None):
     """Linearize + Schur-eliminate all smart stereo landmarks. Returns
     (H_pose (K,6,K,6), g_pose (K,6), lmk_points (L,3), lmk_ok (L,))."""
@@ -513,7 +638,7 @@ def _assemble(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pts_fixed=Non
     H_pose, g_pose, pts, lmk_ok = _smart_factor_blocks(cfg, win, lmk, pts_fixed)
     H[:, 0:6, :, 0:6] += H_pose
     g[:, 0:6] += g_pose
-    for Ji, Jj, r in (_imu_factor_blocks(cfg, win), _no_motion_blocks(cfg, win)):
+    for Ji, Jj, r in _pair_factor_blocks(cfg, win):
         _add_pair_blocks(H, g, Ji, Jj, r)
     H = H.reshape(D, D)
     g = g.reshape(D)
@@ -583,7 +708,7 @@ def _marginalize_oldest(cfg: BackendConfig, win: Window) -> Window:
     dev, dt = win.pos.device, win.pos.dtype
     H = torch.zeros((K, S_DOF, K, S_DOF), dtype=dt, device=dev)
     g = torch.zeros((K, S_DOF), dtype=dt, device=dev)
-    for Ji, Jj, r in (_imu_factor_blocks(cfg, win, ks=[1]), _no_motion_blocks(cfg, win, ks=[1])):
+    for Ji, Jj, r in _pair_factor_blocks(cfg, win, ks=[1]):
         Ji0, Jj0, r0 = Ji[0], Jj[0], r[0]
         H[0, :, 0, :] += Ji0.T @ Ji0
         H[1, :, 1, :] += Jj0.T @ Jj0
@@ -631,6 +756,12 @@ def _marginalize_oldest(cfg: BackendConfig, win: Window) -> Window:
         stamp=shift(win.stamp),
         mask=shift_clear(win.mask),
         status=shift(win.status),
+        ext_R=shift(win.ext_R),
+        ext_t=shift(win.ext_t),
+        ext_valid=shift_clear(win.ext_valid),
+        btw_R=shift(win.btw_R),
+        btw_t=shift(win.btw_t),
+        btw_valid=shift_clear(win.btw_valid),
         pim=tree_map(shift, win.pim),
         pim_valid=shift_clear(win.pim_valid),
         n=win.n - 1,
@@ -748,11 +879,26 @@ def bootstrap(cfg: BackendConfig, win: Window, nav: NavState, bias, stamp: float
 
 
 def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable, *, pim: Pim,
-                 stamp: float, meas_ids, meas_uvd, meas_mask, status: int):
+                 stamp: float, meas_ids, meas_uvd, meas_mask, status: int,
+                 ext_R_rel=None, ext_t_rel=None, ext_valid=None,
+                 btw_R_rel=None, btw_t_rel=None, btw_valid=None,
+                 guess_R=None, guess_t=None, guess_valid=None,
+                 odom_R_abs=None, odom_t_abs=None, odom_valid_abs=None):
     """One keyframe update: marginalize if the window is full, insert the
-    IMU-predicted state, add the measurements, optimize. Returns
-    (win, lmk, outputs)."""
+    predicted state, add the measurements, optimize. Returns (win, lmk,
+    outputs).
+
+    Optional inputs, each a relative pose from the last keyframe to this
+    one or an absolute pose, with a validity flag (a 0-d bool tensor or a
+    Python bool): `ext_*` an external-odometry relative pose, `btw_*` the
+    tracker's stereo-RANSAC relative pose (between-stereo factor),
+    `guess_*` a pose guess that replaces the IMU-predicted pose where
+    valid (pose_guess_source MONO / STEREO / PnP, VioBackend.cpp:797-891;
+    the velocity stays IMU-predicted), `odom_*` an absolute
+    external-odometry pose, turned into the relative one against the
+    previous keyframe's (VisionImuFrontend.cpp:240-302)."""
     K = cfg.nr_states
+    dev = win.pos.device
     if win.n >= K:
         win = _marginalize_oldest(cfg, win)
         lmk = shift_landmarks(lmk)
@@ -762,10 +908,29 @@ def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable, *, pim: Pi
     prev_bias = ImuBias(accel=win.bias[prev, 0:3], gyro=win.bias[prev, 3:6])
     guess = pim_predict(pim, prev_nav, prev_bias, cfg.n_gravity)
 
+    def flag(v):
+        return torch.as_tensor(True if v is None else v, dtype=torch.bool, device=dev)
+
+    if guess_R is not None:
+        use = flag(guess_valid)
+        guess = replace(guess, rot=torch.where(use, guess_R, guess.rot),
+                        pos=torch.where(use, guess_t, guess.pos))
+    if odom_R_abs is not None:
+        ov = flag(odom_valid_abs)
+        ext_R_rel = win.odom_R.T @ odom_R_abs
+        ext_t_rel = win.odom_R.T @ (odom_t_abs - win.odom_t)
+        ext_valid = win.odom_valid & ov
+        win = replace(win, odom_R=torch.where(ov, odom_R_abs, win.odom_R),
+                      odom_t=torch.where(ov, odom_t_abs, win.odom_t),
+                      odom_valid=win.odom_valid | ov)
+
     def put(table, value):
         out = table.clone()
         out[slot] = value
         return out
+
+    def put_valid(table, value):
+        return put(table, flag(value) & (slot > 0) if value is not None else False)
 
     win = replace(
         win,
@@ -778,6 +943,12 @@ def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable, *, pim: Pi
         status=put(win.status, status),
         pim=tree_map2(put, win.pim, pim),
         pim_valid=put(win.pim_valid, slot > 0),
+        ext_R=win.ext_R if ext_R_rel is None else put(win.ext_R, ext_R_rel),
+        ext_t=win.ext_t if ext_t_rel is None else put(win.ext_t, ext_t_rel),
+        ext_valid=put_valid(win.ext_valid, ext_valid),
+        btw_R=win.btw_R if btw_R_rel is None else put(win.btw_R, btw_R_rel),
+        btw_t=win.btw_t if btw_t_rel is None else put(win.btw_t, btw_t_rel),
+        btw_valid=put_valid(win.btw_valid, btw_valid),
         n=min(win.n + 1, K),
     )
     lmk = update_landmarks(lmk, meas_ids, meas_uvd, meas_mask, slot)

@@ -72,18 +72,15 @@ def state_from_numpy(window: dict, landmarks: dict, frontend: dict | None = None
     dicts of numpy arrays -> (Window, LandmarkTable, FrontendState | None)
     of the port on `device`.
 
-    Refuses state the port cannot carry: a window that uses
-    external-odometry or between-stereo factors, and a frontend state of
-    the matmul tracker (which keeps LK templates instead of the keyframe
+    Every window field is carried, the external-odometry and
+    between-stereo factor data included. Refuses a frontend state of the
+    matmul tracker (which keeps LK templates instead of the keyframe
     pyramid the port tracks from)."""
     dev = resolve_device(device)
 
     def t(x):
         return torch.as_tensor(np.array(x), device=dev)
 
-    for k in ("ext_valid", "btw_valid", "odom_valid"):
-        if k in window and np.any(window[k]):
-            raise NotImplementedError(f"window uses {k}: factor not ported")
     win = Window(
         **{
             f.name: t(window[f.name])

@@ -1,17 +1,20 @@
-"""PNG decoding for EuRoC images, without OpenCV.
+"""PNG decoding for EuRoC images and RGB-D depth images, without OpenCV.
 
 The JAX package reads EuRoC frames with `cv2.imread(path,
-IMREAD_GRAYSCALE)` and equalizes them with `cv2.equalizeHist`
-(kimera_vio_tpu/dataprovider/euroc.py:204-213); the card's machine has no
-OpenCV. EuRoC ships 8-bit grayscale, non-interlaced PNGs, and this module
-decodes exactly that: it walks the chunks (checking each CRC), inflates
-the concatenated IDAT stream with `zlib` and undoes the five row filters.
-Any other PNG (colour, palette, 16-bit, interlaced) raises, naming the
-file.
+IMREAD_GRAYSCALE)`, RGB-D depth images with `cv2.imread(path,
+IMREAD_UNCHANGED)`, and equalizes with `cv2.equalizeHist`
+(kimera_vio_tpu/dataprovider/euroc.py:204-213, rgbd.py:58-80); the card's
+machine has no OpenCV. EuRoC ships 8-bit grayscale, non-interlaced PNGs
+and depth streams 16-bit grayscale ones (big-endian samples), and this
+module decodes exactly those: it walks the chunks (checking each CRC),
+inflates the concatenated IDAT stream with `zlib` and undoes the five
+row filters. Any other PNG (colour, palette, other bit depths,
+interlaced) raises, naming the file.
 
 The unfilter runs in C++ (`native/png_unfilter.cpp`): the Average and
-Paeth filters chain each pixel to the one decoded left of it, which numpy
-cannot vectorise. `unfilter_plain` is its plain version for the tests.
+Paeth filters chain each byte to the one decoded a pixel to its left,
+which numpy cannot vectorise. `unfilter_plain` is its plain version for
+the tests.
 `equalize_hist` is `cv2.equalizeHist` as a numpy look-up table, bit for
 bit.
 """
@@ -31,11 +34,13 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 class PngFormatError(ValueError):
-    """The file is not an 8-bit grayscale, non-interlaced PNG."""
+    """The file is not a grayscale, non-interlaced PNG of the bit depth
+    asked for."""
 
 
-def read_png_stream(path: str) -> tuple[int, int, bytes]:
-    """(H, W, inflated IDAT bytes) of an 8-bit grayscale PNG."""
+def read_png_stream(path: str, bit_depths: tuple = (8,)) -> tuple[int, int, bytes]:
+    """(H, W, inflated IDAT bytes) of a grayscale PNG whose bit depth is
+    one of `bit_depths` (8 or 16); a 16-bit image holds 2 W bytes a row."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
@@ -66,44 +71,48 @@ def read_png_stream(path: str) -> tuple[int, int, bytes]:
     if ihdr is None:
         raise PngFormatError(f"{path}: no IHDR chunk")
     W, H, depth, color, comp, filt, interlace = ihdr
-    if (depth, color, comp, filt, interlace) != (8, 0, 0, 0, 0) or W == 0 or H == 0:
+    if depth not in bit_depths or (color, comp, filt, interlace) != (0, 0, 0, 0) or W == 0 or H == 0:
+        wanted = " or ".join(f"{d}-bit" for d in bit_depths)
         raise PngFormatError(
-            f"{path}: only 8-bit grayscale non-interlaced PNGs are read (bit depth "
+            f"{path}: only {wanted} grayscale non-interlaced PNGs are read here (bit depth "
             f"{depth}, colour type {color}, interlace {interlace})")
     raw = zlib.decompress(b"".join(idat))
-    if len(raw) != H * (W + 1):
-        raise PngFormatError(f"{path}: image data holds {len(raw)} bytes, not {H * (W + 1)}")
+    row = W * depth // 8 + 1
+    if len(raw) != H * row:
+        raise PngFormatError(f"{path}: image data holds {len(raw)} bytes, not {H * row}")
     return H, W, raw
 
 
-def unfilter_plain(raw: bytes, H: int, W: int) -> np.ndarray:
-    """Plain version of native/png_unfilter.cpp: None, Sub and Up in numpy,
-    Average and Paeth pixel by pixel. Returns (H, W) uint8."""
-    rows = np.frombuffer(raw, np.uint8).reshape(H, W + 1)
-    out = np.zeros((H, W), np.uint8)
-    zero = np.zeros(W, np.int32)
+def unfilter_plain(raw: bytes, H: int, W: int, bpp: int = 1) -> np.ndarray:
+    """Plain version of native/png_unfilter.cpp for W pixels of `bpp`
+    bytes a row: None, Sub and Up in numpy, Average and Paeth byte by
+    byte. Returns the (H, W * bpp) uint8 bytes."""
+    Wb = W * bpp
+    rows = np.frombuffer(raw, np.uint8).reshape(H, Wb + 1)
+    out = np.zeros((H, Wb), np.uint8)
+    zero = np.zeros(Wb, np.int32)
     for y in range(H):
         ft, src = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
         up = out[y - 1].astype(np.int32) if y else zero
         if ft == 0:
             out[y] = src
         elif ft == 1:
-            out[y] = np.cumsum(src) & 0xFF
+            for k in range(bpp):  # each byte lane is its own running sum
+                out[y, k::bpp] = np.cumsum(src[k::bpp]) & 0xFF
         elif ft == 2:
             out[y] = (src + up) & 0xFF
         elif ft in (3, 4):
-            a = 0
-            for x in range(W):
+            for x in range(Wb):
+                a = int(out[y, x - bpp]) if x >= bpp else 0
                 b = int(up[x])
                 if ft == 3:
                     pred = (a + b) >> 1
                 else:
-                    c = int(up[x - 1]) if x else 0
+                    c = int(up[x - bpp]) if x >= bpp else 0
                     p = a + b - c
                     pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
                     pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                a = (int(src[x]) + pred) & 0xFF
-                out[y, x] = a
+                out[y, x] = (int(src[x]) + pred) & 0xFF
         else:
             raise PngFormatError(f"row {y}: filter type {ft} is not 0..4")
     return out
@@ -111,16 +120,17 @@ def unfilter_plain(raw: bytes, H: int, W: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _unfilter_fn():
-    fn = native.load("png_unfilter").png_unfilter_gray8
-    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+    fn = native.load("png_unfilter").png_unfilter
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_longlong]
     fn.restype = ctypes.c_longlong
     return fn
 
 
-def _unfilter_native(raw: bytes, H: int, W: int, path: str) -> np.ndarray:
+def _unfilter_native(raw: bytes, H: int, W: int, path: str, bpp: int = 1) -> np.ndarray:
     fn = _unfilter_fn()
-    out = np.empty((H, W), np.uint8)
-    bad = fn(raw, out.ctypes.data, H, W)
+    out = np.empty((H, W * bpp), np.uint8)
+    bad = fn(raw, out.ctypes.data, H, W * bpp, bpp)
     if bad:
         raise PngFormatError(f"{path}: row {bad - 1} has a filter type outside 0..4")
     return out
@@ -131,6 +141,16 @@ def decode_png_gray8(path: str) -> np.ndarray:
     `cv2.imread(path, cv2.IMREAD_GRAYSCALE)` does for such a file."""
     H, W, raw = read_png_stream(path)
     return _unfilter_native(raw, H, W, path)
+
+
+def decode_png_gray(path: str) -> np.ndarray:
+    """Decode an 8- or 16-bit grayscale PNG into an (H, W) uint8 or uint16
+    array, as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` does for such a
+    file (16-bit samples are big-endian in the file)."""
+    H, W, raw = read_png_stream(path, bit_depths=(8, 16))
+    if len(raw) == H * (W + 1):
+        return _unfilter_native(raw, H, W, path)
+    return _unfilter_native(raw, H, W, path, bpp=2).view(">u2").astype(np.uint16)
 
 
 def equalize_hist(img: np.ndarray) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Stereo vision frontend: per-frame tracking, per-keyframe geometry.
+"""Vision frontend (stereo, mono, RGB-D): per-frame tracking, per-keyframe
+geometry.
 
 Port of kimera_vio_tpu/frontend/vision_frontend.py::StereoFrontend in the
 form the reference takes with `lk_impl="pallas"`: the last keyframe's
@@ -12,17 +13,23 @@ reference gates the keyframe branch with `lax.cond` on the device; here it
 is a host `if` on the decision, which needs the tracked count and the
 median disparity on the host (one small copy per frame).
 
-Per keyframe: 2-pt mono RANSAC, re-detection (GFTT + binning ANMS), stereo
-matching, 1-pt stereo voting, measurements for the backend. RANSAC
-hypotheses come from a `torch.Generator` seeded with the frame count
-(the reference folds the frame count into PRNGKey(0)).
+Per keyframe: mono RANSAC (2-pt given the gyro rotation, or 5-pt),
+re-detection (GFTT + binning ANMS), stereo matching, stereo RANSAC (1-pt
+voting given the rotation, or 3-pt Arun), measurements for the backend.
+RANSAC hypotheses come from a `torch.Generator` seeded with the frame
+count (the reference folds the frame count into PRNGKey(0)).
+
+`mono`: no stereo matching or stereo RANSAC; measurements carry uR = NaN
+(MonoVisionImuFrontend). `rgbd`: the right image is a metric depth image;
+each keypoint's bilinear depth becomes a virtual-stereo disparity
+fx * b / z, gated to (depth_min, depth_max) (RgbdVisionImuFrontend).
+Every mode exports the mono and stereo RANSAC poses (`R_mono`, `t_mono`,
+`R_stereo`, `t_stereo_vote`) for the pipeline's pose guesses, between
+factors, online initialization and time alignment.
 
 With `lcd_features > 0` the keyframe branch also runs the loop-closure
 feature front half on the rectified pair (`extract_lcd_features`: GFTT,
 ORB, sparse stereo) and returns its `lcd_*` fields on the device.
-
-Stereo, non-RGB-D only; the mono / RGB-D variants and the 5-pt / 3-pt
-solvers in the frontend are not ported.
 """
 
 from __future__ import annotations
@@ -98,6 +105,12 @@ class FrontendConfig:
     max_point_dist: float = 10.0
     templ_tolerance: float = _f32(0.15)
     pixel_sigma: float = 1.0
+    mono: bool = False
+    rgbd: bool = False
+    depth_min: float = _f32(0.1)  # RGB-D depth gate (m)
+    depth_max: float = 10.0
+    use_2point_mono: bool = True  # else 5-pt
+    use_1point_stereo: bool = True  # else 3-pt Arun
     # > 0: the keyframe branch extracts this many loop-closure features
     # (LcdParams.nfeatures, spaced by lcd_min_distance) on the device.
     lcd_features: int = 0
@@ -106,14 +119,10 @@ class FrontendConfig:
     @classmethod
     def from_params(cls, fp, max_features=384) -> "FrontendConfig":
         """From a FrontendParams, as the reference's `from_params`; refuses
-        the options this port does not have."""
+        the detectors this port does not have."""
         if fp.feature_detector_type != 3 or not fp.enable_non_max_suppression \
                 or fp.non_max_suppression_type != 6 or fp.use_harris_detector:
             raise NotImplementedError("only GFTT with binning ANMS (type 6) is ported")
-        if not (fp.ransac_use_2point_mono and fp.ransac_use_1point_stereo):
-            raise NotImplementedError("only 2-pt mono / 1-pt stereo RANSAC are ported")
-        if fp.use_pnp_tracking:
-            raise NotImplementedError("PnP tracking is not ported")
         return cls(
             max_features=max_features,
             klt_win=fp.klt_win_size,
@@ -141,6 +150,8 @@ class FrontendConfig:
             max_point_dist=_f32(fp.max_point_dist),
             templ_tolerance=_f32(fp.tolerance_template_matching),
             n_hyp_mono=max(64, min(512, (fp.ransac_max_iterations + 63) // 64 * 64)),
+            use_2point_mono=bool(fp.ransac_use_2point_mono),
+            use_1point_stereo=bool(fp.ransac_use_1point_stereo),
         )
 
 
@@ -238,6 +249,11 @@ class StereoFrontend:
     def _remap_right(self, img):
         return img if self.identity_rect else remap_bilinear(img, self.map_right)
 
+    def _right_rect(self, img):
+        """The rectified right image; an RGB-D depth image is used as it
+        is, and a mono frontend has none."""
+        return img if self.cfg.rgbd or self.cfg.mono else self._remap_right(img)
+
     def _rect_and_versors(self, uv_raw):
         """(uv_rect, versors) from one shared undistortion."""
         xy = undistort_to_normalized(self.left, uv_raw, iters=10)
@@ -282,9 +298,7 @@ class StereoFrontend:
             uv=uv, uv_rect=uv_rect0, versors=versors0, ids=ids,
             ages=torch.zeros(cfg.max_features, dtype=torch.int32, device=dev), mask=valid,
         )
-        meas = self._stereo_measurements(
-            self._remap_left(left_img), self._remap_right(right_img), feats
-        )
+        meas = self._stereo_measurements(self._remap_left(left_img), self._right_rect(right_img), feats)
         state = FrontendState(
             features=feats,
             lkf_features=feats,
@@ -302,7 +316,28 @@ class StereoFrontend:
         return state, meas
 
     def _stereo_measurements(self, left_rect, right_rect, feats) -> StereoMeasurements:
+        """Measurements (uL, uR, v) of the current features: by stereo
+        matching; in RGB-D mode from the depth image `right_rect` (bilinear
+        depth -> uR = uL - fx b / z, RgbdFrame::fillStereoFrame); in mono
+        mode with uR = NaN."""
         cfg = self.cfg
+        u, v = feats.uv_rect[:, 0], feats.uv_rect[:, 1]
+        if cfg.rgbd:
+            H, W = right_rect.shape
+            x0 = torch.clamp(torch.floor(u).to(torch.int64), 0, W - 2)
+            y0 = torch.clamp(torch.floor(v).to(torch.int64), 0, H - 2)
+            ax = torch.clamp(u - x0, 0.0, 1.0)
+            ay = torch.clamp(v - y0, 0.0, 1.0)
+            d = right_rect
+            z = (d[y0, x0] * (1 - ax) * (1 - ay) + d[y0, x0 + 1] * ax * (1 - ay)
+                 + d[y0 + 1, x0] * (1 - ax) * ay + d[y0 + 1, x0 + 1] * ax * ay)
+            ok = feats.mask & (z > cfg.depth_min) & (z < cfg.depth_max) & torch.isfinite(z)
+            disparity = self.stereo.fx * self.stereo.baseline / torch.clamp(z, min=1e-3)
+            uvd = torch.stack([u, u - disparity, v], -1)
+            return StereoMeasurements(ids=feats.ids, uvs=uvd, mask=ok)
+        if cfg.mono:
+            uvd = torch.stack([u, torch.full_like(u, torch.nan), v], -1)
+            return StereoMeasurements(ids=feats.ids, uvs=uvd, mask=feats.mask)
         uv_right, _, ok = match_stereo(
             left_rect, right_rect, feats.uv_rect, feats.mask,
             fx=self.stereo.fx, baseline=self.stereo.baseline,
@@ -373,8 +408,8 @@ class StereoFrontend:
             state, meas, extras = self._keyframe_branch(
                 state, cur_feats, cur_pyr, left_img, right_img, pim, R_cam, stamp
             )
-            ransac_few = extras["n_mono_inliers"] < cfg.min_mono_inliers or \
-                extras["n_stereo_inliers"] < cfg.min_stereo_inliers
+            ransac_few = extras["n_mono_inliers"] < cfg.min_mono_inliers or (
+                not (cfg.mono or cfg.rgbd) and extras["n_stereo_inliers"] < cfg.min_stereo_inliers)
             if ransac_few and status == TRACKING_VALID:
                 status = TRACKING_FEW_MATCHES
         else:
@@ -399,16 +434,26 @@ class StereoFrontend:
         cfg = self.cfg
         dev = self.device
         left_rect = self._remap_left(left_img)
-        right_rect = self._remap_right(right_img)
+        right_rect = self._right_rect(right_img)
+        eye = torch.eye(3, dtype=torch.float32, device=dev)
 
-        # 5. Mono RANSAC on lkf <-> cur bearings, rotation from the gyro.
+        # 5. Mono RANSAC on lkf <-> cur bearings: 2-pt with the gyro
+        # rotation, or 5-pt (StereoVisionImuFrontend.cpp:353-360).
+        f_ref, f_cur = state.lkf_features.versors, cur_feats.versors
         pair_mask = cur_feats.mask & state.lkf_features.mask
         gen = torch.Generator(device=dev)
         gen.manual_seed(state.frame_count)
-        t_mono, mono_inl, n_mono_t = ransac.ransac_2pt_mono(
-            state.lkf_features.versors, cur_feats.versors, pair_mask, R_cam, gen,
-            n_hyp=cfg.n_hyp_mono, threshold=cfg.ransac_threshold_mono,
-        )
+        if cfg.use_2point_mono:
+            t_mono, mono_inl, n_mono_t = ransac.ransac_2pt_mono(
+                f_ref, f_cur, pair_mask, R_cam, gen,
+                n_hyp=cfg.n_hyp_mono, threshold=cfg.ransac_threshold_mono,
+            )
+            R_mono = R_cam
+        else:
+            R_mono, t_mono, mono_inl, n_mono_t = ransac.ransac_5pt_mono(
+                f_ref, f_cur, pair_mask, gen,
+                n_hyp=cfg.n_hyp_mono, threshold=cfg.ransac_threshold_mono,
+            )
         n_mono = int(n_mono_t)
         mono_trust = n_mono >= cfg.min_mono_inliers
         feats_inl = replace(
@@ -416,37 +461,50 @@ class StereoFrontend:
             mask=cur_feats.mask & (mono_inl | ~pair_mask | (not mono_trust)),
         )
 
-        # 6+8: re-detect, merge, one stereo match for the merged set.
+        # 6+8: re-detect, merge, one stereo match (or depth lookup) for the
+        # merged set.
         uv_new, new_valid = self._detect(left_img, feats_inl)
         feats_full, next_id = self._merge_detections(feats_inl, uv_new, new_valid, state.next_id)
         meas_full = self._stereo_measurements(left_rect, right_rect, feats_full)
 
-        # 7. Stereo 1-pt voting on lkf <-> cur 3D points.
-        tracked_mask = meas_full.mask & feats_inl.mask
-        st = self.stereo
-        p_cur = st.backproject_rect(meas_full.uvs)
-        p_ref = st.backproject_rect(state.lkf_uvd)
-        both = tracked_mask & state.lkf_uvd_mask
-        cov_cur = ransac.stereo_point_cov_from_rect(
-            st.fx, st.fy, st.cx, st.cy, st.baseline, meas_full.uvs, cfg.pixel_sigma)
-        cov_ref = ransac.stereo_point_cov_from_rect(
-            st.fx, st.fy, st.cx, st.cy, st.baseline, state.lkf_uvd, cfg.pixel_sigma)
-        t_vote, stereo_inl, n_stereo_t = ransac.voting_1pt_stereo(
-            p_ref, p_cur, cov_ref, cov_cur, both, R_cam,
-            threshold=cfg.ransac_threshold_stereo,
-        )
-        n_stereo = int(n_stereo_t)
-        if n_stereo >= cfg.min_stereo_inliers:
-            kill = both & ~stereo_inl
-            feats_full = replace(
-                feats_full,
-                mask=feats_full.mask & ~kill,
-                ids=torch.where(kill, torch.full_like(feats_full.ids, -1), feats_full.ids),
-            )
-            meas_out = StereoMeasurements(
-                ids=feats_full.ids, uvs=meas_full.uvs, mask=meas_full.mask & ~kill)
+        if cfg.mono:
+            # No stereo RANSAC: NaN-uR measurements of the refilled set.
+            meas_out = meas_full
+            n_stereo, R_stereo, t_vote = 0, eye, torch.zeros(3, device=dev)
         else:
-            meas_out = replace(meas_full, ids=feats_full.ids)
+            # 7. Stereo RANSAC on lkf <-> cur 3D points: 1-pt voting given
+            # the rotation (Tracker.cpp:497-596) or 3-pt Arun (:667-742).
+            tracked_mask = meas_full.mask & feats_inl.mask
+            st = self.stereo
+            p_cur = st.backproject_rect(meas_full.uvs)
+            p_ref = st.backproject_rect(state.lkf_uvd)
+            both = tracked_mask & state.lkf_uvd_mask
+            if cfg.use_1point_stereo:
+                cov_cur = ransac.stereo_point_cov_from_rect(
+                    st.fx, st.fy, st.cx, st.cy, st.baseline, meas_full.uvs, cfg.pixel_sigma)
+                cov_ref = ransac.stereo_point_cov_from_rect(
+                    st.fx, st.fy, st.cx, st.cy, st.baseline, state.lkf_uvd, cfg.pixel_sigma)
+                t_vote, stereo_inl, n_stereo_t = ransac.voting_1pt_stereo(
+                    p_ref, p_cur, cov_ref, cov_cur, both, R_cam,
+                    threshold=cfg.ransac_threshold_stereo,
+                )
+                R_stereo = R_cam
+            else:
+                R_stereo, t_vote, stereo_inl, n_stereo_t = ransac.ransac_3pt_arun(
+                    p_ref, p_cur, both, gen, threshold=0.1)
+            n_stereo = int(n_stereo_t)
+            if n_stereo >= cfg.min_stereo_inliers:
+                # Stereo-RANSAC outliers lose their track (Tracker.cpp:856-917).
+                kill = both & ~stereo_inl
+                feats_full = replace(
+                    feats_full,
+                    mask=feats_full.mask & ~kill,
+                    ids=torch.where(kill, torch.full_like(feats_full.ids, -1), feats_full.ids),
+                )
+                meas_out = StereoMeasurements(
+                    ids=feats_full.ids, uvs=meas_full.uvs, mask=meas_full.mask & ~kill)
+            else:
+                meas_out = replace(meas_full, ids=feats_full.ids)
 
         pyr, grads = tuple(cur_pyr), tuple(of._grad(p) for p in cur_pyr)
         kf_state = replace(
@@ -467,10 +525,12 @@ class StereoFrontend:
             "n_mono_inliers": n_mono,
             "n_stereo_inliers": n_stereo,
             "t_stereo_vote": t_vote,
+            "R_stereo": R_stereo,
             "t_mono": t_mono,
+            "R_mono": R_mono,
         }
         if cfg.lcd_features > 0:
-            extras.update(self._lcd_extract(left_rect, right_rect))
+            extras.update(self._lcd_extract(left_rect, left_rect if cfg.mono else right_rect))
         return kf_state, meas_out, extras
 
     def _lcd_extract(self, left_rect, right_rect) -> dict:

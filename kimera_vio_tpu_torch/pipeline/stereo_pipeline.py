@@ -36,10 +36,26 @@ loops. At the end it runs PCM (+ GNC) pose-graph optimization:
 `lcd_result`, and with an output path traj_pgo.csv and
 output_lcd_result.csv.
 
-Not ported yet: the mesher, visualizer, time alignment, online
-initialization and external odometry; the constructor refuses
-configurations that need them. `run_chunked` stages raw frames only (the
-JAX package's KIMERA_STAGE_CODEC codecs are not ported).
+Pose sources and extra factors (BackendParams): `pose_guess_source`
+IMU (0), MONO (1), STEREO (2) or PnP (3, against the backend's landmark
+map); `addBetweenStereoFactors`; and
+external odometry from a provider that carries an `OdometryBuffer` as
+`.odometry` (EXT_ODOM). Initialization (`autoInitialize`): 0 from ground
+truth, 1 from the IMU attitude, 2 online — a crude IMU bootstrap, then a
+window of keyframes whose stereo-RANSAC poses and PIMs solve the
+visual-inertial alignment (initial/initializer.py), then a re-bootstrap
+at the aligned state; nothing is published before. With
+`do_fine_imu_camera_temporal_sync` the 3-pt stereo solver's rotations
+feed a cross-correlation time aligner (initial/time_alignment.py) until
+it finds the IMU-camera offset; the estimator then restarts
+(`time_shift_estimate_s`). Both read one keyframe's pose on the host per
+keyframe while they collect, and never after. MonoImuPipeline and
+RgbdImuPipeline (pipeline/mono_pipeline.py, rgbd_pipeline.py) swap the
+rig and the frontend mode.
+
+Not ported yet: the mesher and the visualizer (the constructor refuses
+`visualize`). `run_chunked` stages raw frames only (the JAX package's
+KIMERA_STAGE_CODEC codecs are not ported).
 """
 
 from __future__ import annotations
@@ -64,6 +80,9 @@ from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.frontend import imu_frontend as imu
 from kimera_vio_tpu_torch.frontend.camera import StereoCamera
 from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendConfig, StereoFrontend
+from kimera_vio_tpu_torch.initial.initializer import OnlineInitializer
+from kimera_vio_tpu_torch.initial.time_alignment import CrossCorrTimeAligner
+from kimera_vio_tpu_torch.ops import ransac
 from kimera_vio_tpu_torch.pipeline.lcd_module import LcdModule
 from kimera_vio_tpu_torch.utils.logger import BackendLogger, FrontendLogger, LcdLogger, PipelineLogger
 from kimera_vio_tpu_torch.utils.prefetch import PrefetchIterator
@@ -96,19 +115,12 @@ class PipelineOutput:
 
 
 def _check_supported(params: VioParams):
-    bp = params.backend
-    unsupported = {
-        "autoInitialize != 0": bp.auto_initialize != 0,
-        "add_between_stereo_factors": bool(bp.add_between_stereo_factors),
-        "pose_guess_source != IMU": bp.pose_guess_source != 0,
-        "external odometry": params.odometry is not None,
-        "mono / RGB-D frontend": params.pipeline.frontend_type != 1,
-        "visualize": bool(flags.get_flag("visualize")),
-        "do_fine_imu_camera_temporal_sync": bool(flags.get_flag("do_fine_imu_camera_temporal_sync")),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if flags.get_flag("visualize"):
+        raise NotImplementedError("not ported yet: visualize")
+
+
+#: pose_guess_source values (BackendParams poseGuessSource)
+GUESS_IMU, GUESS_MONO, GUESS_STEREO, GUESS_PNP = 0, 1, 2, 3
 
 
 #: frames between a keyframe and the feed of its LCD row in `run()`
@@ -129,8 +141,14 @@ class StereoImuPipeline:
         if output_path is None and flags.get_flag("log_output"):
             output_path = flags.get_flag("output_path")
         dev = self.device
-        self.stereo = StereoCamera.from_params(params.left_cam, params.right_cam, dev)
-        self.frontend_cfg = FrontendConfig.from_params(params.frontend, max_features=params.max_features)
+        self.stereo = self._build_rig(params)
+        self.frontend_cfg = self._build_frontend_cfg(params)
+        # Fine IMU-camera time alignment needs rotations estimated by
+        # vision: the 3-pt stereo solver instead of the gyro's.
+        self._do_time_align = bool(flags.get_flag("do_fine_imu_camera_temporal_sync"))
+        if self._do_time_align:
+            self.frontend_cfg.use_1point_stereo = False
+        self.time_shift_estimate_s = None
         if self.enable_lcd:
             # The keyframe branch extracts the LCD features with LcdParams'
             # budget and spacing, LcdModule's own, in the runs that feed
@@ -144,6 +162,12 @@ class StereoImuPipeline:
         self.backend_cfg = sm.BackendConfig.from_params(
             params.backend, params.imu, self.stereo, max_landmarks=params.max_landmarks, device=dev,
         )
+        if params.odometry is not None:
+            # ExternalOdometryParams precisions -> between-factor sigmas.
+            self.backend_cfg.ext_odom_rot_sigma = sm._f32(
+                1.0 / np.sqrt(max(params.odometry.rotation_precision, 1e-12)), dev)
+            self.backend_cfg.ext_odom_pos_sigma = sm._f32(
+                1.0 / np.sqrt(max(params.odometry.position_precision, 1e-12)), dev)
         # f32 time-origin rebase for long missions (as the reference): stamps
         # in the state are f32 seconds after a host-owned t0 that advances by
         # whole intervals, keeping their resolution bounded.
@@ -158,6 +182,13 @@ class StereoImuPipeline:
         # Module-failure propagation state (reference is_backend_ok_).
         self.backend_healthy = True
         self._consecutive_recoveries = 0
+
+    # Construction hooks (MonoImuPipeline and RgbdImuPipeline swap them).
+    def _build_rig(self, params) -> StereoCamera:
+        return StereoCamera.from_params(params.left_cam, params.right_cam, self.device)
+
+    def _build_frontend_cfg(self, params) -> FrontendConfig:
+        return FrontendConfig.from_params(params.frontend, max_features=params.max_features)
 
     def _build_lcd(self):
         """LcdModule with the packaged vocabulary, LcdParams from the YAML
@@ -239,10 +270,10 @@ class StereoImuPipeline:
             self.backend_healthy = False
 
     def _bootstrap_state(self, provider, stamp_ns: int, first_imu):
-        """Initial nav state + bias: ground truth when available
-        (autoInitialize: 0), else the IMU attitude."""
+        """Initial nav state + bias: ground truth when available and
+        autoInitialize is 0, else the IMU attitude."""
         dev = self.device
-        if provider.ground_truth is not None:
+        if provider.ground_truth is not None and not self.params.backend.auto_initialize:
             gt = provider.ground_truth.state_at(stamp_ns)
             R = geo.quat_to_rot(torch.as_tensor(np.asarray(gt["quat_wxyz"], np.float32)))
             nav = NavState(
@@ -313,33 +344,170 @@ class StereoImuPipeline:
                     logger.log_timing(stamp_ns, 0.0)
 
     # ------------------------------------------------------------------
-    def _step(self, fe_state, win, lmk, left, right, imu_block, stamp_s):
-        """One frame: frontend, then on keyframes the backend and the bias
-        feedback."""
+    def _body_rel(self, R_cam, t_cam):
+        """A keyframe-relative pose in the rectified-camera frame -> the
+        body frame (B_T = C_T cam_T C_T^-1)."""
+        C_R, C_t = self.stereo.R_b_rect, self.stereo.t_b_rect
+        R_b = C_R @ R_cam @ C_R.T
+        return R_b, C_R @ t_cam + C_t - R_b @ C_t
+
+    def _pnp_pose(self, fe_state, lmk, meas):
+        """PnP of this keyframe's measurements against the backend's
+        landmark map (Tracker::pnp, Tracker.cpp:1163-1270): the body pose
+        in the world and whether enough inliers support it."""
+        st = self.stereo
+        eq = (meas.ids[:, None] == lmk.ids[None, :]) & meas.mask[:, None] & (lmk.ids >= 0)[None, :]
+        row = torch.argmax(eq.to(torch.uint8), dim=1)
+        has3d = eq.any(dim=1) & lmk.pts_ok[row]
+        xy = torch.stack([(meas.uvs[:, 0] - st.cx) / st.fx, (meas.uvs[:, 2] - st.cy) / st.fy], -1)
+        rays = torch.cat([xy, torch.ones_like(xy[:, :1])], -1)
+        bearings = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(7 * 1_000_003 + fe_state.frame_count)
+        focal = float(st.fx)
+        R_cw, t_cw, _, n_pnp = ransac.ransac_pnp(lmk.pts[row], bearings, has3d, gen, focal=focal)
+        # The guess must keep its inliers under the refit pose as well: on
+        # a planar map the 6-point DLT refit is degenerate and can leave its
+        # best hypothesis far behind, which the hypothesis' count alone (the
+        # JAX package's gate) does not see.
+        cam = lmk.pts[row] @ R_cw.T + t_cw
+        cos = torch.clamp(torch.sum(cam * bearings, -1)
+                          / torch.clamp(torch.linalg.norm(cam, dim=-1), min=1e-12), -1.0, 1.0)
+        refit_inl = has3d & (cos > 0) & (focal * torch.sqrt(torch.clamp(1.0 - cos**2, min=0.0)) < 1.0)
+        n_pnp = torch.minimum(n_pnp, refit_inl.sum())
+        R_wc = R_cw.T
+        p_wc = -R_wc @ t_cw
+        R_wb = R_wc @ st.R_b_rect.T
+        return R_wb, p_wc - R_wb @ st.t_b_rect, n_pnp >= self.params.frontend.min_pnp_inliers
+
+    def _step(self, fe_state, win, lmk, left, right, imu_block, stamp_s, ext_odom=None):
+        """One frame: frontend, then on keyframes the pose guess, the
+        backend and the bias feedback. `ext_odom` is the frame's nearest
+        external-odometry pose (R, t, valid) on the host, or None.
+
+        The frontend's outputs gain, on keyframes, `stereo_rel`: the
+        stereo-RANSAC relative pose in the body frame (R, t, enough
+        inliers), which the between-stereo factor, the STEREO guess and the
+        online initializer use (stereo and RGB-D only)."""
         fe_state, fe_out = self.frontend.process_frame(fe_state, left, right, imu_block, stamp_s)
         if not fe_out["is_keyframe"]:
             return fe_state, win, lmk, fe_out, None
+        bp, fp = self.params.backend, self.params.frontend
+        dev = self.device
         meas = fe_out["measurements"]
+        kw = {}
+        if (bp.add_between_stereo_factors or bp.pose_guess_source == GUESS_STEREO
+                or bp.auto_initialize == 2) and not self.frontend_cfg.mono:
+            R_b, t_b = self._body_rel(fe_out["R_stereo"], fe_out["t_stereo_vote"])
+            fe_out["stereo_rel"] = (R_b, t_b, fe_out["n_stereo_inliers"] >= self.frontend_cfg.min_stereo_inliers)
+            if bp.add_between_stereo_factors:
+                kw.update(btw_R_rel=R_b, btw_t_rel=t_b, btw_valid=fe_out["stereo_rel"][2])
+        prev = max(win.n - 1, 0)
+        src = bp.pose_guess_source
+        if src == GUESS_PNP:
+            # PnP tracking against the map. The JAX package also solves it
+            # for use_pnp_tracking alone, and drops the pose: nothing else
+            # reads it, so the port solves it only for the guess.
+            R_wb, p_wb, pnp_ok = self._pnp_pose(fe_state, lmk, meas)
+            kw.update(guess_R=R_wb, guess_t=p_wb, guess_valid=pnp_ok)
+        if src == GUESS_MONO:
+            # The previous smoothed pose composed with the mono-RANSAC
+            # relative pose (a unit translation), the world translation
+            # then scaled by mono_translation_scale_factor: the reference's
+            # literal formula (VioBackend.cpp:817-835).
+            R_mb, t_mb = self._body_rel(fe_out["R_mono"], fe_out["t_mono"])
+            scale = np.float32(bp.mono_translation_scale_factor)
+            kw.update(guess_R=win.rot[prev] @ R_mb,
+                      guess_t=(win.pos[prev] + win.rot[prev] @ t_mb) * scale,
+                      guess_valid=fe_out["n_mono_inliers"] >= fp.min_nr_mono_inliers)
+        if src == GUESS_STEREO and "stereo_rel" in fe_out:
+            R_rel, t_rel, rel_ok = fe_out["stereo_rel"]
+            kw.update(guess_R=win.rot[prev] @ R_rel,
+                      guess_t=win.pos[prev] + win.rot[prev] @ t_rel, guess_valid=rel_ok)
+        if ext_odom is not None:
+            R_o, t_o, ok_o = ext_odom
+            kw.update(odom_R_abs=torch.as_tensor(np.asarray(R_o, np.float32), device=dev),
+                      odom_t_abs=torch.as_tensor(np.asarray(t_o, np.float32), device=dev),
+                      odom_valid_abs=ok_o)
         win, lmk, bout = sm.backend_step(
             self.backend_cfg, win, lmk, pim=fe_out["pim"], stamp=stamp_s,
             meas_ids=meas.ids, meas_uvd=meas.uvs, meas_mask=meas.mask,
-            status=fe_out["status"],
+            status=fe_out["status"], **kw,
         )
         new_bias = ImuBias(accel=bout["bias"][0:3], gyro=bout["bias"][3:6])
         fe_state = replace(fe_state, imu_bias=new_bias, pim=imu.Pim.zero(new_bias))
         return fe_state, win, lmk, fe_out, bout
 
-    def _bootstrap(self, provider, packet, left, right, stamp_s):
-        """First frame: frontend state, window and landmark table from
-        ground truth or the IMU. Returns (fe_state, win, lmk)."""
+    def _bootstrap(self, provider, packet, left, right, stamp_s, vel_sigma=None):
+        """First frame (or the first after a time-alignment restart):
+        frontend state, window and landmark table from ground truth or the
+        IMU. Returns (fe_state, win, lmk, nav0)."""
         K, L = self.backend_cfg.nr_states, self.backend_cfg.max_landmarks
         fe_state, meas0 = self.frontend.init_state(left, right, stamp_s)
         nav0, bias0 = self._bootstrap_state(provider, packet["stamp_ns"], packet["imu"])
         fe_state = replace(fe_state, imu_bias=ImuBias(accel=bias0[0:3], gyro=bias0[3:6]))
-        win = sm.bootstrap(self.backend_cfg, sm.Window.empty(K, self.device), nav0, bias0, stamp_s)
+        win = sm.bootstrap(self.backend_cfg, sm.Window.empty(K, self.device), nav0, bias0, stamp_s,
+                           vel_sigma=vel_sigma)
         lmk = sm.update_landmarks(sm.LandmarkTable.empty(L, K, self.device),
                                   meas0.ids, meas0.uvs, meas0.mask, 0)
-        return fe_state, win, lmk
+        return fe_state, win, lmk, nav0
+
+    def _reinit_from_alignment(self, sol: dict, stamp_s: float, fe_state):
+        """Online initialization solved: a fresh window bootstrapped at the
+        aligned state (attitude, position, velocity, gyro bias) and an
+        empty landmark table; the frontend keeps its tracks and takes the
+        bias. Returns (fe_state, win, lmk)."""
+        dev = self.device
+        K, L = self.backend_cfg.nr_states, self.backend_cfg.max_landmarks
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+        nav = NavState(rot=t(sol["R0"]), pos=t(sol["pos0"]), vel=t(sol["vel"]))
+        bias0 = torch.cat([torch.zeros(3, device=dev), t(sol["gyro_bias"])])
+        win = sm.bootstrap(self.backend_cfg, sm.Window.empty(K, dev), nav, bias0, stamp_s)
+        b = ImuBias(accel=bias0[0:3], gyro=bias0[3:6])
+        fe_state = replace(fe_state, imu_bias=b, pim=imu.Pim.zero(b))
+        return fe_state, win, sm.LandmarkTable.empty(L, K, dev)
+
+    def _init_extras(self, fe_out) -> dict:
+        """A keyframe's inputs to the online initializer on the host, in
+        one transfer: the stereo-RANSAC body-frame relative pose and the
+        keyframe PIM's deltas."""
+        R, t, _ = fe_out["stereo_rel"]
+        p = fe_out["pim"]
+        parts = (R, t, p.delta_R, p.delta_v, p.delta_p, p.dR_dbg)
+        flat = torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
+        names = ("init_R_rel_body", "init_t_rel_body", "init_pim_delta_R", "init_pim_delta_v",
+                 "init_pim_delta_p", "init_pim_dR_dbg")
+        out, o = {}, 0
+        for name, x in zip(names, parts):
+            n = x.numel()
+            out[name] = flat[o:o + n].reshape(tuple(x.shape))
+            o += n
+        return out
+
+    def _feed_aligner(self, aligner, provider, packet, fe_out, bout, stamp_ns) -> bool:
+        """Feed the time aligner this frame's gyro samples and, on a
+        keyframe, the visual rotation since the last keyframe spread over
+        the IMU samples since then. True when an offset estimate landed
+        (applied to the provider's IMU stamps when it has them)."""
+        blk = packet["imu"]
+        gyr, dts, msk = blk.gyr.numpy(), blk.dt.numpy(), blk.mask.numpy()
+        self._aligner_imu_since_kf += int(msk.sum())
+        for i in range(len(dts)):
+            if msk[i]:
+                aligner.add_imu(stamp_ns, gyr[i], float(dts[i]))
+        if bout is None:
+            return False
+        n_imu = max(self._aligner_imu_since_kf, 1)
+        self._aligner_imu_since_kf = 0
+        angle = float(torch.linalg.norm(geo.so3_log(fe_out["R_stereo"])))
+        aligner.add_frame_rotation(stamp_ns, angle, n_imu)
+        est = aligner.attempt_estimation()
+        if est is None:
+            return False
+        self.time_shift_estimate_s = est
+        if hasattr(provider, "imu_time_shift_ns"):
+            provider.imu_time_shift_ns = int(est * 1e9)
+        return True
 
     def _open_loggers(self, provider):
         if not self.output_path:
@@ -388,23 +556,50 @@ class StereoImuPipeline:
         With loop closure and `lcd_drain = (every, lag)`, every keyframe
         after the bootstrap leaves its LCD row on the device; every
         `every` frames the rows of keyframes at least `lag` frames old are
-        read back in one transfer and fed to the LCD; PGO runs at the end."""
+        read back in one transfer and fed to the LCD; PGO runs at the end.
+
+        Online initialization (autoInitialize: 2, not mono) and fine time
+        alignment read each keyframe's inputs on the host while they
+        collect and hold the keyframe states unpublished; on success the
+        estimator restarts (online init: at the aligned state; time
+        alignment: a fresh bootstrap at the next frame) and what was held
+        is dropped, as the reference publishes nothing before."""
         out = PipelineOutput()
         self.backend_healthy = True
         self._consecutive_recoveries = 0
         self.lcd_result = None
+        self.time_shift_estimate_s = None
+        bp = self.params.backend
         fe_state = win = lmk = None
         keyframes = []  # (stamp_ns, state row) not yet published
         lcd_module = self._build_lcd() if self.enable_lcd and lcd_drain else None
         self.frontend_cfg.lcd_features = self._lcd_features if lcd_module is not None else 0
         lcd_pending = []  # (frame number, stamp_ns, LCD row) not yet fed
+        use_init = bp.auto_initialize == 2 and not self.frontend_cfg.mono
+        initializer = None
+        aligner = None
+        if self._do_time_align:
+            aligner = CrossCorrTimeAligner(
+                window_size_s=self.params.imu.time_alignment_window_size_s,
+                variance_threshold_scaling=self.params.imu.time_alignment_variance_threshold_scaling,
+                device=self.device)
+            self._aligner_imu_since_kf = 0
+        odom_buf = getattr(provider, "odometry", None)
         logger, fe_logger = self._open_loggers(provider)
         try:
             for packet, left, right, imu_block, origin_ns in frames:
                 stamp_ns = packet["stamp_ns"]
                 if fe_state is None:
                     tic = time.perf_counter()
-                    fe_state, win, lmk = self._bootstrap(provider, packet, left, right, 0.0)
+                    stamp_s = (stamp_ns - origin_ns) * 1e-9
+                    fe_state, win, lmk, nav0 = self._bootstrap(
+                        provider, packet, left, right, stamp_s,
+                        vel_sigma=1.0 if use_init else None)
+                    if use_init:
+                        # Collection phase: velocity is a zero guess until
+                        # the alignment solves for it (loose prior).
+                        initializer = OnlineInitializer(self.params.imu.n_gravity, nav0.rot.cpu().numpy(),
+                                                        device=self.device)
                     keyframes.append((stamp_ns, torch.cat(
                         [win.rot[0].reshape(-1), win.pos[0], win.vel[0], win.bias[0]])))
                     out.n_keyframes += 1
@@ -417,10 +612,17 @@ class StereoImuPipeline:
                             (origin_ns - applied_ns) * 1e-9, win, fe_state)
                         applied_ns = origin_ns
                     stamp_s = (stamp_ns - origin_ns) * 1e-9
+                    ext = None
+                    if odom_buf is not None:
+                        # Nearest external-odometry pose of this frame
+                        # (ThreadsafeOdometryBuffer::getNearest).
+                        near = odom_buf.get_nearest(stamp_ns, tolerance_ns=10**8)
+                        ext = (np.eye(3), np.zeros(3), False) if near is None else \
+                            (near["R"], near["t"], True)
 
                     tic = time.perf_counter()
                     fe_state, win, lmk, fe_out, bout = self._step(
-                        fe_state, win, lmk, left, right, imu_block, stamp_s)
+                        fe_state, win, lmk, left, right, imu_block, stamp_s, ext)
                     if sync_each and self.device.type == "cuda":
                         # Sequential mode: block every frame (reference
                         # parallel_run=0, Pipeline.cpp:197-215).
@@ -436,6 +638,33 @@ class StereoImuPipeline:
                         fe_logger.log(stamp_ns, bout is not None, fe_out["n_tracked"],
                                       fe_out["median_disparity"], fe_out["n_mono_inliers"],
                                       fe_out["n_stereo_inliers"], 0.0)
+                    if aligner is not None and self._feed_aligner(
+                            aligner, provider, packet, fe_out, bout, stamp_ns):
+                        # Offset found: restart the estimator from the next
+                        # frame (TimeAlignment -> Bootstrap).
+                        aligner = None
+                        fe_state = None
+                        keyframes = []
+                        out = PipelineOutput()
+                        continue
+                    if bout is not None and initializer is not None and not initializer.done:
+                        if initializer.add_keyframe(self._init_extras(fe_out), stamp_s):
+                            sol = initializer.solve()
+                            if not sol["ok"]:
+                                # Gyro residual above gyroscope_residuals:
+                                # re-collect from the current attitude.
+                                self.stats.add("init window rejected [resid rad]",
+                                               sol["gyro_residual"])
+                                initializer = OnlineInitializer(self.params.imu.n_gravity,
+                                                                initializer.R_chain[-1],
+                                                                device=self.device)
+                            else:
+                                fe_state, win, lmk = self._reinit_from_alignment(
+                                    sol, stamp_s, fe_state)
+                                out = PipelineOutput(n_keyframes=1, n_frames=1)
+                                keyframes = [(stamp_ns, torch.cat(
+                                    [win.rot[0].reshape(-1), win.pos[0], win.vel[0], win.bias[0]]))]
+                                continue
                     if bout is not None:
                         out.n_keyframes += 1
                         keyframes.append((stamp_ns, torch.cat(
@@ -446,7 +675,8 @@ class StereoImuPipeline:
                     if lcd_module is not None and (out.n_frames - 1) % lcd_drain[0] == 0:
                         lcd_pending = self._drain_lcd(lcd_module, lcd_pending,
                                                       out.n_frames - lcd_drain[1])
-                if not defer_readback and keyframes:
+                collecting = aligner is not None or (initializer is not None and not initializer.done)
+                if not (defer_readback or collecting) and keyframes:
                     self._publish(out, keyframes, self._host_rows(keyframes), logger)
                     keyframes = []
                 if verbose and out.n_frames % 50 == 0:
@@ -526,10 +756,11 @@ class StereoImuPipeline:
                       if "right_path" in batch[0] else left_imgs)
         H, W = left_imgs[0].shape[:2]
         shape = (F, 2, H, W)
-        dtype = left_imgs[0].dtype
+        # uint8 frames; float32 from the synthetic provider or where the
+        # right image is an RGB-D depth image (the left one is widened).
+        dtype = np.result_type(left_imgs[0].dtype, right_imgs[0].dtype)
         B = batch[0]["imu"].acc.shape[0]
-        # Frames (uint8, or float32 from the synthetic provider), then the
-        # IMU rows at a 16-byte aligned offset.
+        # Frames, then the IMU rows at a 16-byte aligned offset.
         n_img = F * 2 * H * W * dtype.itemsize
         offset = -(-n_img // 16) * 16
         host = torch.empty(offset + F * B * 8 * 4, dtype=torch.uint8,
@@ -599,7 +830,9 @@ class StereoImuPipeline:
         C = chunk_size
         super_frames = C
         if rest:
-            frame_bytes = 2 * provider.load_image(rest[0]["left_path"]).nbytes
+            left0 = provider.load_image(rest[0]["left_path"])
+            right0 = provider.load_image(rest[0]["right_path"]) if "right_path" in rest[0] else left0
+            frame_bytes = 2 * left0.size * np.result_type(left0.dtype, right0.dtype).itemsize
             super_frames = max(C, super_batch_bytes // frame_bytes // C * C)
         supers = [rest[i:i + super_frames] for i in range(0, len(rest), super_frames)]
         # Rebase origin per super-batch, a function of the stamps alone.

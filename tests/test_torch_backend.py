@@ -181,9 +181,13 @@ def test_state_from_numpy_refuses_matmul_frontend_state():
     fe = {"lkf_pyramid": ()}
     with pytest.raises(ValueError, match="pyramid"):
         state_from_numpy(win, lmk, fe, device="cpu")
+    # The between-stereo, external-odometry and odometry fields are carried.
     win["btw_valid"][1] = True
-    with pytest.raises(NotImplementedError):
-        state_from_numpy(win, lmk, device="cpu")
+    win["ext_t"][2] = [1.0, 2.0, 3.0]
+    win["odom_valid"] = np.bool_(True)
+    twin, _, _ = state_from_numpy(win, lmk, device="cpu")
+    assert twin.btw_valid.tolist() == [False, True, False, False]
+    assert twin.ext_t[2].tolist() == [1.0, 2.0, 3.0] and bool(twin.odom_valid)
 
 
 def test_vio_params_roundtrip():

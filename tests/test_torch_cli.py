@@ -1,13 +1,21 @@
 """`python -m kimera_vio_tpu_torch` against `python -m kimera_vio_tpu` on
-the same EuRoC-format folder and params folder, on the CPU; the port's
-`run()` on that folder against the JAX run the JAX CLI made; and the
-options the port refuses.
+the same EuRoC-format folder and params folder, on the CPU — the stereo
+params folder and a mono one (no RightCameraParams.yaml: the mono
+pipeline; the JAX CLI's mono route raises before it runs, so there the
+port's CLI is held against that route's pipeline run directly); the port's `run()` on that folder against the JAX run the JAX
+CLI made; the options the port refuses; and the options `run_chunked`
+refuses, as the JAX one does.
 
 The JAX side tracks with its gather LK (`KIMERA_LK_IMPL=gather`), as
 tests/test_torch_pipeline.py explains, and so does its tolerance: the same
-keyframe stamps, positions within 1e-3 m, rotations within 1e-3 rad.
+keyframe stamps, positions within 1e-3 m, rotations within 1e-3 rad. The
+mono runs, whose only geometry is the 2-pt mono RANSAC, have the port
+track with the gather tracker's level plan and draw the JAX package's
+hypotheses (tests/test_torch_variants.py::_jax_draws).
 """
 
+import dataclasses
+import functools
 import importlib.util
 import os
 
@@ -18,18 +26,33 @@ import torch
 
 from kimera_vio_tpu import __main__ as jcli
 from kimera_vio_tpu.config import flags as jflags
+from kimera_vio_tpu.config.params import VioParams as JVioParams
+from kimera_vio_tpu.dataprovider.euroc import EurocDataProvider as JEurocDataProvider
+from kimera_vio_tpu.dataprovider.synthetic import SyntheticStereoProvider as JProvider
+from kimera_vio_tpu.dataprovider.synthetic import synthetic_params as j_synthetic_params
+from kimera_vio_tpu.pipeline.mono_pipeline import MonoImuPipeline as JMonoPipeline
+from kimera_vio_tpu.pipeline.stereo_pipeline import StereoImuPipeline as JPipeline
 from kimera_vio_tpu_torch import __main__ as tcli
 from kimera_vio_tpu_torch.common.geometry import quat_to_rot, so3_log
 from kimera_vio_tpu_torch.config import flags
 from kimera_vio_tpu_torch.config.params import VioParams
+from kimera_vio_tpu_torch.convert import vio_params_from_dict
+from kimera_vio_tpu_torch.dataprovider.odometry import OdometryBuffer
 from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider
 from kimera_vio_tpu_torch.dataprovider.synthetic import SyntheticStereoProvider, synthetic_params
+from kimera_vio_tpu_torch.frontend import vision_frontend
+from kimera_vio_tpu_torch.ops import ransac as transac
+from kimera_vio_tpu_torch.ops.lk_kernel import klt_track_lk
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
+_spec = importlib.util.spec_from_file_location(
+    "torch_variants", os.path.join(REPO, "tests", "test_torch_variants.py"))
+_tv = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_tv)
 
 SIZE = dict(width=320, height=240)
 CAPS = ["--max_features", "64", "--max_landmarks", "96"]
@@ -158,14 +181,97 @@ def test_cli_use_lcd_writes_the_pgo_logs(folders, tmp_path, extra):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--enable_mesher"], ["--visualize"], ["--do_fine_imu_camera_temporal_sync"],
-    ["--gflag", "visualize=true"], ["mono"],
+    ["--enable_mesher"], ["--visualize"], ["--gflag", "visualize=true"],
 ], ids=lambda e: e[-1])
 def test_unported_options_raise(folders, extra):
-    params = folders["mono"] if extra == ["mono"] else folders["params"]
-    args = ["--params_folder", params, "--dataset_path", folders["data"], "--device", "cpu"]
+    args = ["--params_folder", folders["params"], "--dataset_path", folders["data"], "--device", "cpu"]
     with pytest.raises(NotImplementedError):
-        tcli.main(args + ([] if extra == ["mono"] else extra))
+        tcli.main(args + extra)
+
+
+@pytest.fixture(scope="module")
+def jax_mono_traj(folders):
+    """The JAX mono route on the mono params folder (traj_vio.csv). The JAX
+    CLI picks MonoImuPipeline for it but passes `enable_mesher`, which that
+    class does not take (kimera_vio_tpu/__main__.py:145, a TypeError), so
+    the reference is the route's params, provider and pipeline built as
+    the CLI builds them, run sequentially."""
+    out = str(folders["root"] / "jax_mono_out")
+    params = JVioParams.from_folder(folders["mono"])
+    params.max_features, params.max_landmarks = 64, 96
+    assert params.right_cam is None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KIMERA_LK_IMPL", "gather")
+        JMonoPipeline(params, output_path=out, parallel_run=False).run(JEurocDataProvider(
+            folders["data"], max_imu_per_frame=params.max_imu_per_frame,
+            equalize=params.frontend.equalize_image))
+    return _read_traj(os.path.join(out, "traj_vio.csv"))
+
+
+@pytest.mark.parametrize("mode", ["sequential", "parallel", "chunked"])
+def test_mono_cli_matches_jax_cli(folders, jax_mono_traj, tmp_path, mode, capsys, monkeypatch):
+    monkeypatch.setattr(vision_frontend, "klt_track_lk",
+                        functools.partial(klt_track_lk, search_rows=None))
+    monkeypatch.setattr(transac, "_sample_indices", _tv._jax_draws)
+    runs = []
+    orig = StereoImuPipeline._drive
+    monkeypatch.setattr(StereoImuPipeline, "_drive",
+                        lambda self, *a, **k: runs.append(type(self).__name__) or orig(self, *a, **k))
+    extra = {"sequential": ["--parallel_run", "0"], "parallel": [],
+             "chunked": ["--chunked", "--chunk_size", "4"]}[mode]
+    assert tcli.main(["--params_folder", folders["mono"], "--dataset_path", folders["data"],
+                      "--device", "cpu", "--log_output", "--output_path", str(tmp_path)]
+                     + CAPS + extra) == 0
+    assert runs == ["MonoImuPipeline"]
+    assert f"frames={N_FRAMES} keyframes={len(jax_mono_traj[0])} wall=" in capsys.readouterr().out
+    _close(*_read_traj(tmp_path / "traj_vio.csv"), jax_mono_traj)
+
+
+def test_cli_fine_time_alignment_runs(folders, capsys):
+    """--do_fine_imu_camera_temporal_sync: the aligner runs with the 3-pt
+    solver; this rotation-free sequence gives it no excitation, so no
+    estimate lands and every frame is published (the JAX smoke,
+    tests/test_pipeline_wiring.py:164)."""
+    made = []
+    orig = StereoImuPipeline.__init__
+
+    def init(self, *a, **k):
+        orig(self, *a, **k)
+        made.append(self)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(StereoImuPipeline, "__init__", init)
+        assert tcli.main(["--params_folder", folders["params"], "--dataset_path", folders["data"],
+                          "--device", "cpu", "--do_fine_imu_camera_temporal_sync"] + CAPS) == 0
+    assert f"frames={N_FRAMES} " in capsys.readouterr().out
+    assert not made[0].frontend_cfg.use_1point_stereo
+    assert made[0].time_shift_estimate_s is None
+
+
+def _refused_setup(option):
+    jp = j_synthetic_params(**SIZE, max_features=64, max_landmarks=96, nr_states=5)
+    if option == "online_init":
+        jp.backend.auto_initialize = 2
+    tp = vio_params_from_dict(dataclasses.asdict(jp))
+    jprov, tprov = JProvider(n_frames=4, **SIZE), SyntheticStereoProvider(n_frames=4, **SIZE)
+    if option == "ext_odometry":
+        jprov.odometry, tprov.odometry = object(), OdometryBuffer()
+    return jp, tp, jprov, tprov
+
+
+@pytest.mark.parametrize("option", ["fine_time_alignment", "online_init", "ext_odometry"])
+def test_run_chunked_refuses_as_jax(option):
+    """run_chunked refuses fine time alignment, online initialization and
+    external odometry, with the JAX package's messages' subject."""
+    jp, tp, jprov, tprov = _refused_setup(option)
+    flag = option == "fine_time_alignment"
+    jflags.set_flag("do_fine_imu_camera_temporal_sync", flag)
+    flags.set_flag("do_fine_imu_camera_temporal_sync", flag)
+    words = {"fine_time_alignment": "time alignment", "online_init": "online initialization",
+             "ext_odometry": "external odometry"}[option]
+    with pytest.raises(NotImplementedError, match=words):
+        JPipeline(jp, parallel_run=False).run_chunked(jprov)
+    with pytest.raises(NotImplementedError, match=words):
+        StereoImuPipeline(tp, device="cpu").run_chunked(tprov)
 
 
 def test_unknown_gflag_exits(folders):

@@ -235,6 +235,92 @@ def test_png_decoder_refuses_other_pngs(tmp_path):
         png.decode_png_gray8(str(tmp_path / "crc.png"))
 
 
+def _images16():
+    rng = np.random.default_rng(4)
+    return {
+        "noise": rng.integers(0, 65536, (29, 41)).astype(np.uint16),
+        "depth_mm": (5000 + rng.integers(-400, 400, (37, 53))).astype(np.uint16),
+        "ramp": (np.add.outer(np.arange(40), np.arange(60)) * 1021 % 65536).astype(np.uint16),
+        "one_row": rng.integers(0, 65536, (1, 17)).astype(np.uint16),
+        "one_col": rng.integers(0, 65536, (13, 1)).astype(np.uint16),
+    }
+
+
+@pytest.mark.parametrize("writer", ["cv2", "filter0", "filter1", "filter2", "filter3", "filter4",
+                                    "cycling"])
+def test_png16_decoder_matches_opencv(tmp_path, writer):
+    """16-bit grayscale PNGs (RGB-D depth streams): `decode_png_gray` and
+    the plain unfilter exactly as `cv2.imread(path, IMREAD_UNCHANGED)`,
+    the filters working bytewise across the two bytes of a sample."""
+    for name, img in _images16().items():
+        path = str(tmp_path / f"{name}.png")
+        if writer == "cv2":
+            assert cv2.imwrite(path, img)
+        else:
+            ft = None if writer == "cycling" else int(writer[-1])
+            with open(path, "wb") as f:
+                f.write(chip_smoke.png_bytes(img, ft))
+        want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        assert want.dtype == np.uint16
+        np.testing.assert_array_equal(want, img)
+        got = png.decode_png_gray(path)
+        assert got.dtype == np.uint16 and got.shape == img.shape
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        H, W, raw = png.read_png_stream(path, bit_depths=(16,))
+        plain = png.unfilter_plain(raw, H, W, bpp=2).view(">u2").astype(np.uint16)
+        np.testing.assert_array_equal(plain, want, err_msg=f"plain {name}")
+        # 8-bit images through the same entry point.
+        img8 = (img >> 8).astype(np.uint8)
+        assert cv2.imwrite(path, img8)
+        np.testing.assert_array_equal(png.decode_png_gray(path), img8)
+
+
+def test_png_gray_decoder_refuses_colour(tmp_path):
+    path = str(tmp_path / "color16.png")
+    assert cv2.imwrite(path, np.zeros((4, 5, 3), np.uint16))
+    with pytest.raises(png.PngFormatError, match="color16.png"):
+        png.decode_png_gray(path)
+
+
+@pytest.fixture(scope="module")
+def rgbd_tree(tmp_path_factory):
+    """tests/test_rgbd_provider.py's on-disk RGB-D tree (160x120, 16
+    frames, constant 5 m depth in mm with a 60 m hole), written with this
+    repository's own PNG encoder (chip_smoke.write_rgbd)."""
+    base = SyntheticStereoProvider(n_frames=16, vx=0.5, width=160, height=120, fx=120.0, depth=5.0)
+    root = tmp_path_factory.mktemp("rgbd_ds")
+    return str(root), chip_smoke.write_rgbd(str(root), base), base
+
+
+def test_rgbd_provider_matches_jax(rgbd_tree):
+    """The port's RgbdDataProvider against the JAX one (cv2-decoded) on the
+    same tree: the same packets and nearest-stamp depth pairing, depth
+    images in metres equal to the last bit (raw * depth_factor, range
+    gate to 0), cam0 images equal; and the JAX test's decode contract
+    (tests/test_rgbd_provider.py:70-84)."""
+    from kimera_vio_tpu.dataprovider.rgbd import RgbdDataProvider as JRgbd
+    from kimera_vio_tpu_torch.dataprovider.rgbd import RgbdDataProvider
+
+    root, _, base = rgbd_tree
+    jprov = JRgbd(root, depth_factor=1e-3, max_depth=20.0)
+    tprov = RgbdDataProvider(root, depth_factor=1e-3, max_depth=20.0)
+    jp, tp = list(jprov.frames()), list(tprov.frames())
+    assert len(tp) == len(jp) >= 14
+    for a, b in zip(jp, tp):
+        assert (a["stamp_ns"], a["left_path"], a["right_path"]) == (b["stamp_ns"], b["left_path"],
+                                                                   b["right_path"])
+        assert (a["imu"] is None) == (b["imu"] is None)
+    for k in (0, 1, len(tp) - 1):
+        dj, dt = jprov.load_image(jp[k]["right_path"]), tprov.load_image(tp[k]["right_path"])
+        assert dt.dtype == np.float32
+        np.testing.assert_array_equal(dt, dj)
+        np.testing.assert_array_equal(tprov.load_image(tp[k]["left_path"]),
+                                      jprov.load_image(jp[k]["left_path"]))
+    depth = tprov.load_image(tp[1]["right_path"])
+    assert abs(float(depth[60, 80]) - base.depth) < 1e-3
+    assert float(depth[5, 5]) == 0.0
+
+
 def test_equalize_hist_matches_opencv():
     rng = np.random.default_rng(5)
     imgs = list(_images().values()) + [

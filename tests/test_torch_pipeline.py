@@ -99,7 +99,16 @@ def test_public_constructors_default_to_the_card(name):
 
 
 def test_pipeline_refuses_unported_options():
+    """The visualizer is the one option the pipeline still refuses (every
+    frontend type, pose source and initialization mode runs)."""
+    from kimera_vio_tpu_torch.config import flags
+
     params = synthetic_params(**SIZE, **CAP)
     params.backend.auto_initialize = 2
-    with pytest.raises(NotImplementedError, match="autoInitialize"):
-        StereoImuPipeline(params, device="cpu")
+    StereoImuPipeline(params, device="cpu")
+    flags.set_flag("visualize", True)
+    try:
+        with pytest.raises(NotImplementedError, match="visualize"):
+            StereoImuPipeline(params, device="cpu")
+    finally:
+        flags.set_flag("visualize", False)
