@@ -8,12 +8,13 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the hand-written CUDA kernel from csrc/ (nvcc, sm_90a), holds it
 against its plain PyTorch version on the card, drives the port's
 stereo-inertial `StereoImuPipeline.run()` on the synthetic 752x480
-sequence (80 frames), its CLI, loop closure and its variants (mono,
-RGB-D, online initialization, pose sources, time alignment), and checks
-the results. Every failure ends the run
+sequence (80 frames), its CLI, loop closure, its variants (mono,
+RGB-D, online initialization, pose sources, time alignment) and the
+mesher with RegularVIO, and checks the results. Every failure ends the run
 with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
-path, one JSON line with the kernel table, and last the JSON result line.
+path, the phases' lines, one JSON line with the kernel table, and last
+the JSON result line.
 
 Phases:
   1. kernel: the LK pyramid kernel (`lk_pyramid_cuda`, one launch per
@@ -98,6 +99,33 @@ Phases:
      with the reference's variance gate no estimate lands and every frame
      is published; with the gate scaled to 1 an estimate lands, within
      TIME_SYNC_GATE_S, and the estimator restarts.
+  6. mesher: the mesher and RegularVIO at phase 2's width (256 features,
+     10-keyframe horizon, 384 landmarks) on the noisy near plane of
+     tests/test_regular_vio.py:240-252 (752x480, 80 frames, vx 0.25 m/s,
+     a plane 1.8 m ahead, pixel and IMU noise; minPointDist 0.3), its
+     images rounded to uint8 as the EuRoC folder of (b) holds them. First
+     one `[mesher]` line of the first and second call times of a batched
+     3x3 `torch.linalg.inv` and of the closed-form inverse RegularVIO
+     uses (relative difference gated at 1e-4). (a) Sequential `run()`
+     with backend_type 0 and no mesher, then backend_type 1 with the
+     mesher and an output path; gates: LK launches == tracked frames,
+     ATE < 0.05 m, a plane slot hit on >= 5 keyframes, ATE(regular) <=
+     1.2 ATE(plain) + 5e-4 m (tests/test_regular_vio.py:274), one PLY per
+     keyframe after the bootstrap, each parsed back. (b) The scene as a
+     EuRoC folder and a params folder with backend_type 1, the CLI with
+     --enable_mesher in three modes (parallel, --parallel_run 0,
+     --chunked --chunk_size 16); gates: LK launches == tracked frames,
+     the PLYs, (a)'s keyframe stamps and positions within 1e-3 m
+     (parallel and sequential), (a)'s keyframe count and ATE <= 1.3
+     ATE(run) + 1e-3 m (chunked, tests/test_regular_vio.py:324). (c)
+     Sequential `run()` with use_dense_depth_mesh_refinement; gates: ATE
+     < 0.05 m, and the first keyframe's dense depth on the card against
+     the same function on the CPU: valid masks equal on >= 99.5 % of the
+     pixels, depth within 1e-3 m where both are valid. One `[mesher]`
+     line per run: frames/s beside phase 2's, keyframe step ms, per
+     keyframe mesher / RegularVIO refine / dense depth ms (host clock
+     around work that ends in `torch.cuda.synchronize`), triangles and
+     active planes at the end, plane hits.
 """
 
 from __future__ import annotations
@@ -127,7 +155,7 @@ from kimera_vio_tpu_torch.dataprovider.synthetic import (
     _NoiseModel,
     synthetic_params,
 )
-from kimera_vio_tpu_torch.frontend.camera import StereoCamera
+from kimera_vio_tpu_torch.frontend.camera import StereoCamera, remap_bilinear
 from kimera_vio_tpu_torch.frontend.vision_frontend import StereoFrontend
 from kimera_vio_tpu_torch.loopclosure import orb
 from kimera_vio_tpu_torch.loopclosure.lcd import LcdConfig
@@ -645,6 +673,17 @@ def recording_pipeline():
             setattr(StereoImuPipeline, n, f)
 
 
+def cli_main(args: list) -> int:
+    """`python -m kimera_vio_tpu_torch` in-process. The CLI sets flags in
+    the process-wide registry (use_lcd, log_output, output_path, ...);
+    they are restored afterwards, so that no later phase runs with them."""
+    saved = {name: f.value for name, f in cli_flags._REGISTRY.items()}
+    try:
+        return cli.main(args)
+    finally:
+        for name, value in saved.items():
+            cli_flags._REGISTRY[name].value = value
+
 def check_cli_run(mode: str, rec: dict, rc: int, launches: int, gt, out_dir: str) -> dict:
     """Gates every CLI run passes: one run, LK launches = tracked frames,
     a finite trajectory within the ATE gate, traj_vio.csv with every
@@ -681,7 +720,7 @@ def run_cli(mode: str, args: list, gt, out_dir: str):
     set to 0 just before; returns (numbers, the output)."""
     with recording_pipeline() as rec:
         lk.lk_pyramid_cuda.launches = 0
-        rc = cli.main(args + ["--log_output", "--output_path", out_dir])
+        rc = cli_main(args + ["--log_output", "--output_path", out_dir])
         launches = lk.lk_pyramid_cuda.launches
     return check_cli_run(mode, rec, rc, launches, gt, out_dir), rec["runs"][0]["out"]
 
@@ -824,7 +863,7 @@ def run_cli_lcd(mode: str, args: list, gt, out_dir: str, phase2_fps: float) -> t
     run. Returns (numbers, lcd_result)."""
     with recording_pipeline() as rec, timed_lcd_extract() as events:
         lk.lk_pyramid_cuda.launches = 0
-        rc = cli.main(args + ["--log_output", "--output_path", out_dir])
+        rc = cli_main(args + ["--log_output", "--output_path", out_dir])
         launches = lk.lk_pyramid_cuda.launches
     if rc != 0 or len(rec["runs"]) != 1:
         raise AssertionError(f"lcd {mode}: main returned {rc} after {len(rec['runs'])} runs")
@@ -1113,7 +1152,7 @@ def variants_phase(dev, path: dict) -> dict:
                             ("chunked", ["--chunked", "--chunk_size", "16"])):
             with recording_pipeline() as rec:
                 lk.lk_pyramid_cuda.launches = 0
-                rc = cli.main(base + extra + ["--log_output", "--output_path", os.path.join(tmp, mode)])
+                rc = cli_main(base + extra + ["--log_output", "--output_path", os.path.join(tmp, mode)])
                 launches = lk.lk_pyramid_cuda.launches
             row = check_cli_run(f"mono {mode}", rec, rc, launches, provider.ground_truth,
                                 os.path.join(tmp, mode))
@@ -1240,6 +1279,290 @@ def variants_phase(dev, path: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the mesher and RegularVIO
+# ---------------------------------------------------------------------------
+
+#: The noisy near plane of tests/test_regular_vio.py:240-252 at the bench
+#: width: a textured plane 1.8 m ahead, 0.25 m/s, pixel and IMU noise.
+MESHER_NOISE = dict(imu_rate=200.0, pixel_noise_std=0.5, acc_noise_density=2e-3,
+                    gyro_noise_density=1.6968e-4, seed=5)
+
+
+class Quantized:
+    """A synthetic provider whose images are rounded to uint8, as its EuRoC
+    folder's PNGs hold them: a run on it and the CLI on the folder see the
+    same pixels."""
+
+    def __init__(self, provider):
+        self.base = provider
+        self.ground_truth, self.imu_sync = provider.ground_truth, provider.imu_sync
+        self.left_stamps = provider.left_stamps
+
+    def frames(self):
+        return self.base.frames()
+
+    def load_image(self, key):
+        return to_uint8(self.base.load_image(key))
+
+
+def near_plane_provider() -> Quantized:
+    """The scene with the IMU blocks' capacity of the params (32 samples;
+    the provider's default is 16), as the CLI's EuRoC provider takes it:
+    the card sums the zero-padded blocks in an order that depends on their
+    length, which alone moves this noisy scene's keyframes by ~1 mm."""
+    return Quantized(SyntheticStereoProvider(
+        n_frames=80, vx=0.25, depth=1.8, noise=_NoiseModel(**MESHER_NOISE),
+        max_imu_per_frame=near_plane_params(1).max_imu_per_frame))
+
+
+def near_plane_params(backend_type: int) -> VioParams:
+    p = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+    p.pipeline.backend_type = backend_type
+    p.frontend.min_point_dist = 0.3
+    return p
+
+
+def inv3_first_use_ms(dev) -> dict:
+    """Host time, ending in a sync, of the first and second call in this
+    process of a batched 3x3 `torch.linalg.inv` at RegularVIO's shape (384
+    landmark blocks) and of the closed-form inverse the port uses there
+    (`smoother._inv3_sym`), and their largest relative difference."""
+    from kimera_vio_tpu_torch.backend.smoother import _inv3_sym
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    a = torch.randn(384, 3, 5, device=dev, generator=g)
+    H = a @ a.transpose(-1, -2) + 1e-6 * torch.eye(3, device=dev)
+    out = {}
+    for name, fn in (("linalg_inv_384x3x3", lambda: torch.linalg.inv(H)),
+                     ("closed_form_384x3x3", lambda: _inv3_sym(H.permute(1, 2, 0)).permute(2, 0, 1))):
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - tic) * 1e3)
+        out[name] = times
+    ref = torch.linalg.inv(H)
+    rel = ((_inv3_sym(H.permute(1, 2, 0)).permute(2, 0, 1) - ref).abs()
+           / ref.abs().amax(dim=(1, 2), keepdim=True)).max()
+    out["closed_form_max_rel_diff"] = float(rel)
+    if not out["closed_form_max_rel_diff"] < 1e-4:
+        raise AssertionError(f"closed-form 3x3 inverse off by {rel} (relative)")
+    return out
+
+
+@contextlib.contextmanager
+def timed_mesher():
+    """Per keyframe, the host time of the mesher (Delaunay, filter,
+    horizon), the RegularVIO refine and the dense depth, each ending in
+    `torch.cuda.synchronize`."""
+    from kimera_vio_tpu_torch.mesher.mesher import Mesher
+
+    rec = {"mesher": [], "refine": [], "dense_depth": [], "first_pair": None}
+    orig = {"mesher": Mesher.spin_once, "refine": StereoImuPipeline._regular_refine,
+            "dense_depth": StereoImuPipeline._dense_depth_for_kf}
+
+    def timed(name):
+        def fn(self, *a, **kw):
+            if name == "dense_depth" and rec["first_pair"] is None:
+                rec["first_pair"] = a[:2]
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            res = orig[name](self, *a, **kw)
+            torch.cuda.synchronize()
+            rec[name].append((time.perf_counter() - tic) * 1e3)
+            return res
+        return fn
+
+    Mesher.spin_once = timed("mesher")
+    StereoImuPipeline._regular_refine = timed("refine")
+    StereoImuPipeline._dense_depth_for_kf = timed("dense_depth")
+    try:
+        yield rec
+    finally:
+        Mesher.spin_once = orig["mesher"]
+        StereoImuPipeline._regular_refine = orig["refine"]
+        StereoImuPipeline._dense_depth_for_kf = orig["dense_depth"]
+
+
+def read_ply(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """(vertices (V, 3), faces (F, 3)) of an ASCII PLY as MesherLogger
+    writes it; raises where it does not parse."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    nv, nf = int(lines[2].split()[-1]), int(lines[6].split()[-1])
+    if lines[:2] != ["ply", "format ascii 1.0"] or lines[8] != "end_header" \
+            or len(lines) != 9 + nv + nf:
+        raise AssertionError(f"{path}: not a MesherLogger PLY")
+    v = np.array([[float(x) for x in ln.split()] for ln in lines[9:9 + nv]]).reshape(nv, 3)
+    f = np.array([[int(x) for x in ln.split()] for ln in lines[9 + nv:]]).reshape(nf, 4)
+    if not (np.isfinite(v).all() and (f[:, 0] == 3).all() and (f[:, 1:] < max(nv, 1)).all()):
+        raise AssertionError(f"{path}: bad vertices or faces")
+    return v, f[:, 1:]
+
+
+def check_plys(name: str, out_dir: str, n_keyframes: int) -> dict:
+    """One PLY per keyframe after the bootstrap, each parsed back."""
+    mesh_dir = os.path.join(out_dir, "mesh")
+    names = sorted(os.listdir(mesh_dir))
+    if names != [f"mesh_{k:05d}.ply" for k in range(n_keyframes - 1)]:
+        raise AssertionError(f"{name}: {len(names)} PLYs for {n_keyframes} keyframes")
+    faces = [len(read_ply(os.path.join(mesh_dir, n))[1]) for n in names]
+    if not max(faces) > 0:
+        raise AssertionError(f"{name}: every mesh is empty")
+    return {"plys": len(names), "triangles_last": faces[-1], "triangles_max": max(faces)}
+
+
+def mesher_row(name: str, pipe, out, wall: float, launches: int, tracked: int, gt, fps2: float,
+               rec: dict | None) -> dict:
+    est = np.stack(out.positions)
+    if launches != tracked:
+        raise AssertionError(f"{name}: LK launches {launches} != {tracked} tracked frames")
+    if not np.isfinite(est).all():
+        raise AssertionError(f"{name}: trajectory not finite")
+    ate = compute_ate(np.array(out.stamps_ns), est, gt.stamps_ns, gt.positions, align=False)["rmse"]
+    if not ate < 0.05:
+        raise AssertionError(f"{name}: ATE rmse {ate} m >= 0.05 m")
+    kf = pipe.stats.get("VioFrontend Keyframe Rate [ms]")
+    row = {"run": name, "frames": out.n_frames, "keyframes": out.n_keyframes, "wall_s": wall,
+           "frames_per_s": out.n_frames / wall, "path_frames_per_s": fps2,
+           "keyframe_step_ms": kf.total / kf.count if kf.count else None, "ate_rmse_m": ate,
+           "lk_launches": launches, "regular_vio": pipe.use_regular_vio}
+    if rec is not None:
+        for k in ("mesher", "refine", "dense_depth"):
+            row[f"{k}_ms_per_keyframe"] = float(np.mean(rec[k])) if rec[k] else None
+            row[f"{k}_calls"] = len(rec[k])
+    if pipe._mesher is not None:
+        row["horizon_triangles_end"] = pipe._mesher.horizon_mesh().n_triangles
+    if pipe._plane_tracker is not None:
+        row["active_planes_end"] = int(pipe._plane_tracker.active.sum())
+        row["plane_hits"] = pipe._plane_tracker.hits.tolist()
+    return row
+
+
+def run_mesher(dev, name: str, params, provider, fps2: float, out_dir: str | None,
+               enable_mesher: bool = True) -> tuple[dict, object, object, dict]:
+    """One sequential run(), the LK counter set to 0 just before."""
+    pipe = StereoImuPipeline(params, parallel_run=False, device=dev,
+                             enable_mesher=enable_mesher, output_path=out_dir)
+    with counted_steps() as steps, timed_mesher() as rec:
+        torch.cuda.synchronize()
+        lk.lk_pyramid_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = pipe.run(provider)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lk.lk_pyramid_cuda.launches
+    row = mesher_row(name, pipe, out, wall, launches, steps["steps"], provider.ground_truth, fps2,
+                     rec if enable_mesher else None)
+    return row, out, pipe, rec
+
+
+def dense_depth_card_vs_cpu(pipe, pair) -> dict:
+    """The first keyframe's dense depth on CUDA tensors against the same
+    function on CPU copies of its rectified pair; its card time."""
+    from kimera_vio_tpu_torch.ops.stereo_matching import dense_depth
+
+    left, right = pair
+    lr = remap_bilinear(left, pipe._dense_maps[0])
+    rr = remap_bilinear(right, pipe._dense_maps[1])
+    fp = pipe.params.frontend
+    kw = dict(fx=float(pipe.stereo.fx), baseline=float(pipe.stereo.baseline),
+              min_depth=float(fp.min_point_dist), max_depth=float(fp.max_point_dist),
+              num_disparities=int(cli_flags.get_flag("dense_stereo_num_disparities")),
+              block_size=int(cli_flags.get_flag("dense_stereo_block_size")))
+    d_card = dense_depth(lr, rr, **kw).cpu()
+    d_cpu = dense_depth(lr.cpu(), rr.cpu(), **kw)
+    agree = float(((d_card > 0) == (d_cpu > 0)).float().mean())
+    both = (d_card > 0) & (d_cpu > 0)
+    err = float((d_card - d_cpu).abs()[both].max()) if bool(both.any()) else 0.0
+    res = {"valid_agreement": agree, "max_abs_depth_diff_m": err,
+           "valid_share": float((d_card > 0).float().mean()),
+           "card_ms": time_ms(lambda: dense_depth(lr, rr, **kw), reps=10)}
+    if not (agree >= 0.995 and err <= 1e-3 and res["valid_share"] > 0.05):
+        raise AssertionError(f"dense depth card vs CPU: {res}")
+    return res
+
+
+def mesher_phase(dev, path: dict) -> dict:
+    """Phase 6 (see the module docstring)."""
+    fps2 = path["frames_per_s"]
+    res = {"inv3_first_use_ms": inv3_first_use_ms(dev)}
+    log(f"[mesher] {json.dumps(res)}")
+    with tempfile.TemporaryDirectory(prefix="kimera_mesher_") as tmp:
+        provider = near_plane_provider()
+        gt = provider.ground_truth
+        # (a) the plain backend, then RegularVIO with the mesher.
+        plain, _, _, _ = run_mesher(dev, "run_plain", near_plane_params(0), provider, fps2, None,
+                                    enable_mesher=False)
+        log(f"[mesher] {json.dumps(plain)}")
+        reg_dir = os.path.join(tmp, "run_regular")
+        reg, out_reg, pipe, _ = run_mesher(dev, "run_regular", near_plane_params(1), provider, fps2,
+                                           reg_dir)
+        reg.update(check_plys("run_regular", reg_dir, out_reg.n_keyframes))
+        if not max(reg["plane_hits"]) >= 5:
+            raise AssertionError(f"run_regular: plane hits {reg['plane_hits']}")
+        if not reg["ate_rmse_m"] <= 1.2 * plain["ate_rmse_m"] + 5e-4:
+            raise AssertionError(f"ATE regular {reg['ate_rmse_m']} > 1.2 x plain "
+                                 f"{plain['ate_rmse_m']} + 5e-4")
+        log(f"[mesher] {json.dumps(reg)}")
+        res["run_plain"], res["run_regular"] = plain, reg
+
+        # (b) the CLI with --enable_mesher on the same scene as a EuRoC folder.
+        p = near_plane_params(1)
+        p.pipeline.parallel_run = True
+        data, pfolder, png_ms = write_folders(os.path.join(tmp, "cli"), provider, p)
+        base = ["--params_folder", pfolder, "--dataset_path", data, "--max_features", "256",
+                "--max_landmarks", "384", "--device", dev.type, "--enable_mesher"]
+        for mode, extra in (("cli_parallel", []), ("cli_sequential", ["--parallel_run", "0"]),
+                            ("cli_chunked", ["--chunked", "--chunk_size", "16"])):
+            out_dir = os.path.join(tmp, mode)
+            with recording_pipeline() as rec_runs, timed_mesher() as rec:
+                lk.lk_pyramid_cuda.launches = 0
+                rc = cli_main(base + extra + ["--log_output", "--output_path", out_dir])
+                launches = lk.lk_pyramid_cuda.launches
+            if rc != 0 or len(rec_runs["runs"]) != 1:
+                raise AssertionError(f"{mode}: main returned {rc} after {len(rec_runs['runs'])} runs")
+            run = rec_runs["runs"][0]
+            row = mesher_row(mode, run["pipe"], run["out"], run["wall"], launches,
+                             run["out"].n_frames - 1, gt, fps2, rec)
+            row.update(check_plys(mode, out_dir, run["out"].n_keyframes))
+            row["png_decode_ms_per_image"] = png_ms
+            out = run["out"]
+            if mode == "cli_chunked":
+                if out.n_keyframes != out_reg.n_keyframes or \
+                        not row["ate_rmse_m"] <= 1.3 * reg["ate_rmse_m"] + 1e-3:
+                    raise AssertionError(f"{mode}: {out.n_keyframes} keyframes (run: "
+                                         f"{out_reg.n_keyframes}), ATE {row['ate_rmse_m']} vs "
+                                         f"run {reg['ate_rmse_m']}")
+            else:
+                if out.stamps_ns != out_reg.stamps_ns:
+                    raise AssertionError(f"{mode}: keyframe stamps differ from run_regular's")
+                d = float(np.abs(np.stack(out.positions) - np.stack(out_reg.positions)).max())
+                row["max_abs_dpos_vs_run_m"] = d
+                if not d < 1e-3:
+                    raise AssertionError(f"{mode}: positions differ from run_regular's by {d} m")
+            log(f"[mesher] {json.dumps(row)}")
+            res[mode] = row
+
+        # (c) RegularVIO with the mesh refined against dense stereo depth.
+        cli_flags.set_flag("use_dense_depth_mesh_refinement", True)
+        try:
+            dense, _, pipe, rec = run_mesher(dev, "run_dense_depth", near_plane_params(1), provider,
+                                             fps2, None)
+        finally:
+            cli_flags.set_flag("use_dense_depth_mesh_refinement", False)
+        if not dense["dense_depth_calls"] > 0:
+            raise AssertionError("run_dense_depth: no dense depth computed")
+        dense["dense_depth_card_vs_cpu"] = dense_depth_card_vs_cpu(pipe, rec["first_pair"])
+        log(f"[mesher] {json.dumps(dense)}")
+        res["run_dense_depth"] = dense
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -1278,6 +1601,9 @@ def main() -> int:
     t = time.perf_counter()
     var_res = variants_phase(dev, path)
     log(f"[phase] variants {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    mesh_res = mesher_phase(dev, path)
+    log(f"[phase] mesher {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -1290,6 +1616,8 @@ def main() -> int:
         "launches_cli": {mode: r["lk_launches"] for mode, r in cli_res.items()},
         "launches_lcd": {mode: r["lk_launches"] for mode, r in lcd_res["runs"].items()},
         "launches_variants": {name: r["lk_launches"] for name, r in var_res.items()},
+        "launches_mesher": {name: r["lk_launches"] for name, r in mesh_res.items()
+                            if isinstance(r, dict) and "lk_launches" in r},
         "max_abs_err": kern["max_abs_err"],
         "median_abs_err": kern["median_abs_err"],
         "ms": kern["ms"],

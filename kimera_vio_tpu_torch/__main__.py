@@ -8,7 +8,7 @@ flags of `python -m kimera_vio_tpu` and `--device`:
         [--initial_k 0] [--final_k -1] [--log_output] \
         [--output_path ./output_logs] [--parallel_run 1] \
         [--chunked] [--chunk_size 16] [--equalize_image] [--use_lcd] \
-        [--device cuda]
+        [--enable_mesher] [--device cuda]
 
 It runs on the card unless `--device cpu` is given. Values set here land
 in the port's flag registry (config/flags.py), as env-var-set flags do.
@@ -16,9 +16,14 @@ A params folder with `frontend_type: 0` or no RightCameraParams.yaml runs
 the mono pipeline (MonoImuPipeline, cam0 only). `--use_lcd` (or `--gflag
 use_lcd=1`) adds loop closure and PGO (traj_pgo.csv,
 output_lcd_result.csv); `--chunked` then collects the LCD's keyframe
-rows. `--do_fine_imu_camera_temporal_sync` runs the IMU-camera time
-aligner first (not with `--chunked`). The options whose modules are not
-ported, --enable_mesher and --visualize, raise NotImplementedError.
+rows. `--enable_mesher` (stereo only) runs the mesher, with RegularVIO
+where the params say `backend_type: 1`; with `--log_output` each
+keyframe's mesh is written as `<output_path>/mesh/mesh_NNNNN.ply`;
+`--chunked` then collects the mesher's keyframe rows too.
+`--do_fine_imu_camera_temporal_sync` runs the IMU-camera time aligner
+first (not with `--chunked`). `--visualize`, whose module is not ported,
+raises NotImplementedError, and so does `--enable_mesher` on a mono
+params folder (the mono pipeline has no mesher, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -79,8 +84,6 @@ def main(argv=None) -> int:
     from kimera_vio_tpu_torch.pipeline.mono_pipeline import MonoImuPipeline
     from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 
-    if args.enable_mesher:
-        raise NotImplementedError("--enable_mesher: the mesher is not ported yet")
     device = resolve_device(args.device)
     # The pipeline's constructor reads use_lcd and
     # do_fine_imu_camera_temporal_sync and refuses visualize.
@@ -102,6 +105,9 @@ def main(argv=None) -> int:
 
     params = VioParams.from_folder(args.params_folder)
     mono = params.pipeline.frontend_type == 0 or params.right_cam is None
+    if mono and args.enable_mesher:
+        raise NotImplementedError("--enable_mesher: the mesher runs on stereo params folders only; "
+                                  "the mono pipeline has no mesher")
     if args.max_features:
         params.max_features = args.max_features
     if args.max_landmarks:
@@ -131,12 +137,13 @@ def main(argv=None) -> int:
         output_path=args.output_path if flags.get_flag("log_output") else None,
         parallel_run=bool(args.parallel_run) if args.parallel_run is not None else None,
         device=device,
+        **({} if mono else {"enable_mesher": args.enable_mesher}),
     )
 
     t0 = time.perf_counter()
     if args.chunked:
         out = pipe.run_chunked(provider, chunk_size=args.chunk_size, verbose=args.verbose,
-                               collect_aux=pipe.enable_lcd)
+                               collect_aux=args.enable_mesher or pipe.enable_lcd)
     else:
         out = pipe.run(provider, verbose=args.verbose)
     wall = time.perf_counter() - t0

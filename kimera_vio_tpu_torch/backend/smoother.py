@@ -484,34 +484,16 @@ def _pair_factor_blocks(cfg: BackendConfig, win: Window, ks=None):
     )
 
 
-def _smart_factor_blocks(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pts_fixed=None):
-    """Linearize + Schur-eliminate all smart stereo landmarks. Returns
-    (H_pose (K,6,K,6), g_pose (K,6), lmk_points (L,3), lmk_ok (L,))."""
-    K = cfg.nr_states
+def _projection_blocks(cfg: BackendConfig, win: Window, pts, obs_uvd):
+    """Whitened stereo reprojection residuals of every landmark in every
+    window state, with their closed-form Jacobians in the layout the
+    smart factors use: r (3,K,L) [uL, uR, v], F (3,6,K,L) with respect to
+    the state's [dtheta, dp] (R <- R Exp(dtheta), p <- p + dp), E (3,3,K,L)
+    with respect to the point, and stereo_ok (K,L). A mono observation
+    (NaN uR) has its uR row zeroed."""
     R_w_cam = win.rot @ cfg.R_b_cam
     t_w_cam = win.pos + torch.einsum("kij,j->ki", win.rot, cfg.t_b_cam)
-    obs_mask = lmk.obs_mask & win.mask[None, :] & (lmk.ids >= 0)[:, None]
-    newest = max(win.n - 1, 0)
-    if pts_fixed is not None:
-        pts, ok = pts_fixed
-    else:
-        pts, ok, _ = triangulate_stereo_landmarks(
-            R_w_cam, t_w_cam, lmk.obs_uvd, obs_mask,
-            fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, baseline=cfg.baseline,
-            rank_tolerance=cfg.rank_tolerance,
-            landmark_distance_threshold=cfg.landmark_distance_threshold,
-            outlier_rejection_px=cfg.outlier_rejection_px,
-            newest_idx=newest,
-        )
-        ok = ok & (obs_mask.sum(-1) >= cfg.min_obs_for_triangulation)
-    # Invalid landmarks may triangulate to NaN and 0 * NaN = NaN: park them
-    # 5 m in front of the newest camera before linearizing.
-    fallback = t_w_cam[newest] + 5.0 * R_w_cam[newest][:, 2]
-    safe = ok & torch.all(torch.isfinite(pts), dim=-1)
-    pts = torch.where(safe[:, None], pts, fallback[None])
-    ok = safe
-
-    obs = lmk.obs_uvd.permute(2, 1, 0)  # (3,K,L)
+    obs = obs_uvd.permute(2, 1, 0)  # (3,K,L)
     stereo_ok = torch.isfinite(obs[1])
     obs_safe = torch.stack([obs[0], torch.where(stereo_ok, obs[1], obs[0]), obs[2]])
     ptsT = pts.T
@@ -546,10 +528,14 @@ def _smart_factor_blocks(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pt
     row_ok = torch.stack(
         [torch.ones_like(stereo_ok), stereo_ok, torch.ones_like(stereo_ok)]
     ).to(r.dtype)
-    r = r * row_ok
-    F = F * row_ok[:, None]
-    E = E * row_ok[:, None]
+    return r * row_ok, F * row_ok[:, None], E * row_ok[:, None], stereo_ok
 
+
+def _smart_obs_blocks(cfg: BackendConfig, win: Window, obs_uvd, pts, ok, obs_mask):
+    """`_projection_blocks` with the robust (Huber / Tukey) weights of each
+    observation applied and masked to the valid observations of
+    triangulated landmarks: (r, F, E)."""
+    r, F, E, stereo_ok = _projection_blocks(cfg, win, pts, obs_uvd)
     rn = torch.linalg.norm(r, dim=0)
     dev = r.device
     ntype = torch.where(
@@ -561,17 +547,16 @@ def _smart_factor_blocks(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pt
     hw = robust_weight(rn, ntype, nparam)
     w = obs_mask.T & ok[None, :]
     sw = torch.sqrt(hw) * w.to(r.dtype)
-    r = r * sw
-    F = F * sw
-    E = E * sw
+    return r * sw, F * sw, E * sw
 
-    Hll = torch.einsum("aikl,ajkl->ijl", E, E) + 1e-6 * torch.eye(
-        3, dtype=r.dtype, device=dev
-    ).reshape(3, 3, 1)
-    s_ = torch.clamp((Hll[0, 0] + Hll[1, 1] + Hll[2, 2]) / 3.0, min=1e-9)
-    Hll_n = Hll / s_
-    a_, b_, c_ = Hll_n[0, 0], Hll_n[0, 1], Hll_n[0, 2]
-    d_, e_, f_ = Hll_n[1, 1], Hll_n[1, 2], Hll_n[2, 2]
+
+def _inv3_sym(A):
+    """Closed-form inverse of symmetric 3x3 matrices (3,3,L), scaled by
+    their mean diagonal first (adjugate over determinant)."""
+    s_ = torch.clamp((A[0, 0] + A[1, 1] + A[2, 2]) / 3.0, min=1e-9)
+    An = A / s_
+    a_, b_, c_ = An[0, 0], An[0, 1], An[0, 2]
+    d_, e_, f_ = An[1, 1], An[1, 2], An[2, 2]
     c00 = d_ * f_ - e_ * e_
     c01 = c_ * e_ - b_ * f_
     c02 = b_ * e_ - c_ * d_
@@ -580,13 +565,51 @@ def _smart_factor_blocks(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pt
     c22 = a_ * d_ - b_ * b_
     det = a_ * c00 + b_ * c01 + c_ * c02
     idet = 1.0 / det
-    Hll_inv = torch.stack(
+    return torch.stack(
         [
             torch.stack([c00, c01, c02]),
             torch.stack([c01, c11, c12]),
             torch.stack([c02, c12, c22]),
         ]
     ) * (idet / s_)
+
+
+def _smart_points(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pts_fixed=None):
+    """The landmarks' points for linearization: triangulated (or
+    `pts_fixed`), invalid ones parked in front of the newest camera.
+    Returns (pts (L,3), ok (L,), obs_mask (L,K))."""
+    R_w_cam = win.rot @ cfg.R_b_cam
+    t_w_cam = win.pos + torch.einsum("kij,j->ki", win.rot, cfg.t_b_cam)
+    obs_mask = lmk.obs_mask & win.mask[None, :] & (lmk.ids >= 0)[:, None]
+    newest = max(win.n - 1, 0)
+    if pts_fixed is not None:
+        pts, ok = pts_fixed
+    else:
+        pts, ok, _ = triangulate_stereo_landmarks(
+            R_w_cam, t_w_cam, lmk.obs_uvd, obs_mask,
+            fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, baseline=cfg.baseline,
+            rank_tolerance=cfg.rank_tolerance,
+            landmark_distance_threshold=cfg.landmark_distance_threshold,
+            outlier_rejection_px=cfg.outlier_rejection_px,
+            newest_idx=newest,
+        )
+        ok = ok & (obs_mask.sum(-1) >= cfg.min_obs_for_triangulation)
+    # Invalid landmarks may triangulate to NaN and 0 * NaN = NaN: park them
+    # 5 m in front of the newest camera before linearizing.
+    fallback = t_w_cam[newest] + 5.0 * R_w_cam[newest][:, 2]
+    safe = ok & torch.all(torch.isfinite(pts), dim=-1)
+    return torch.where(safe[:, None], pts, fallback[None]), safe, obs_mask
+
+
+def _smart_factor_blocks(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pts_fixed=None):
+    """Linearize + Schur-eliminate all smart stereo landmarks. Returns
+    (H_pose (K,6,K,6), g_pose (K,6), lmk_points (L,3), lmk_ok (L,))."""
+    pts, ok, obs_mask = _smart_points(cfg, win, lmk, pts_fixed)
+    r, F, E = _smart_obs_blocks(cfg, win, lmk.obs_uvd, pts, ok, obs_mask)
+    Hll = torch.einsum("aikl,ajkl->ijl", E, E) + 1e-6 * torch.eye(
+        3, dtype=r.dtype, device=r.device
+    ).reshape(3, 3, 1)
+    Hll_inv = _inv3_sym(Hll)
     Hpl = torch.einsum("aikl,ajkl->ijkl", F, E)
     gl = torch.einsum("aikl,akl->il", E, r)
 

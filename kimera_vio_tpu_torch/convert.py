@@ -15,11 +15,13 @@ import numpy as np
 import torch
 
 from kimera_vio_tpu_torch import resolve_device
+from kimera_vio_tpu_torch.backend.regular_vio import PlaneStates
 from kimera_vio_tpu_torch.backend.smoother import LandmarkTable, Window
 from kimera_vio_tpu_torch.common.types import ImuBias, TrackedFeatures
 from kimera_vio_tpu_torch.config import params as P
 from kimera_vio_tpu_torch.frontend.imu_frontend import Pim
 from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendState
+from kimera_vio_tpu_torch.mesher.plane_tracker import PlaneTracker
 
 _PARAM_CLASSES = {
     "pipeline": P.PipelineParams,
@@ -111,3 +113,25 @@ def state_from_numpy(window: dict, landmarks: dict, frontend: dict | None = None
         last_status=int(frontend["last_status"]),
     )
     return win, lmk, fe
+
+
+def planes_from_numpy(planes: dict, *, device: str | torch.device = "cuda") -> PlaneStates:
+    """The JAX PlaneStates as a dict of numpy arrays (normal, d, mask) ->
+    the port's PlaneStates on `device`."""
+    dev = resolve_device(device)
+    return PlaneStates(**{f.name: torch.as_tensor(np.array(planes[f.name]), device=dev)
+                          for f in dataclasses.fields(PlaneStates)})
+
+
+_TRACKER_STATE = ("P", "cos_tol", "dist_tol", "max_age_kf", "normals", "ds", "active",
+                  "last_seen", "hits", "slot_pid", "_next_pid", "_kf_index")
+
+
+def plane_tracker_from_state(state: dict) -> PlaneTracker:
+    """A JAX PlaneTracker's attributes (its `vars()`) -> the port's
+    PlaneTracker in the same state (host numpy, no device)."""
+    tracker = PlaneTracker(max_planes=int(state["P"]))
+    for name in _TRACKER_STATE:
+        v = state[name]
+        setattr(tracker, name, np.array(v) if isinstance(v, np.ndarray) else v)
+    return tracker

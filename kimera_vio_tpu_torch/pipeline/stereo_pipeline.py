@@ -53,8 +53,25 @@ keyframe while they collect, and never after. MonoImuPipeline and
 RgbdImuPipeline (pipeline/mono_pipeline.py, rgbd_pipeline.py) swap the
 rig and the frontend mode.
 
-Not ported yet: the mesher and the visualizer (the constructor refuses
-`visualize`). `run_chunked` stages raw frames only (the JAX package's
+The mesher and RegularVIO (`enable_mesher`; reference Mesher and
+RegularVioBackend): each keyframe's keypoints, pose and landmark map are
+packed into one int32 row on the device and read back behind the frame
+loop like the LCD's, into the host mesher (mesher/mesher.py: Delaunay,
+triangle filter, the time-horizon mesh, one PLY per keyframe under
+`<output>/mesh/`), optionally refined against a dense depth image (the
+RGB-D sensor's, or dense stereo behind `use_dense_depth_mesh_refinement`).
+With `backend_type: 1` the mesh's planes are segmented, associated with
+persistent plane slots (mesher/plane_tracker.py) and a joint solve over
+window and planes (backend/regular_vio.py) refines the live window, which
+replaces the carry. Lags as in the JAX package: `run()` feeds a keyframe
+8 frames late against the window of that moment; `run_chunked(
+collect_aux=True)` feeds a chunk's keyframes right after the chunk when
+RegularVIO refines, else a chunk late (the mesh does not depend on when).
+The published keyframe states are those of the keyframe steps, before any
+refine.
+
+Not ported yet: the visualizer (the constructor refuses `visualize`).
+`run_chunked` stages raw frames only (the JAX package's
 KIMERA_STAGE_CODEC codecs are not ported).
 """
 
@@ -72,19 +89,25 @@ import numpy as np
 import torch
 
 from kimera_vio_tpu_torch import resolve_device
+from kimera_vio_tpu_torch.backend import regular_vio as rv
 from kimera_vio_tpu_torch.backend import smoother as sm
 from kimera_vio_tpu_torch.common import geometry as geo
 from kimera_vio_tpu_torch.common.types import ImuBias, ImuBlock, NavState, replace, tree_map
 from kimera_vio_tpu_torch.config import flags
 from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.frontend import imu_frontend as imu
-from kimera_vio_tpu_torch.frontend.camera import StereoCamera
+from kimera_vio_tpu_torch.frontend.camera import StereoCamera, rectification_map, remap_bilinear
 from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendConfig, StereoFrontend
 from kimera_vio_tpu_torch.initial.initializer import OnlineInitializer
 from kimera_vio_tpu_torch.initial.time_alignment import CrossCorrTimeAligner
+from kimera_vio_tpu_torch.mesher import mesher as mm
+from kimera_vio_tpu_torch.mesher.mesh_optimization import optimize_mesh
+from kimera_vio_tpu_torch.mesher.plane_tracker import PlaneTracker
 from kimera_vio_tpu_torch.ops import ransac
+from kimera_vio_tpu_torch.ops.stereo_matching import dense_depth
 from kimera_vio_tpu_torch.pipeline.lcd_module import LcdModule
-from kimera_vio_tpu_torch.utils.logger import BackendLogger, FrontendLogger, LcdLogger, PipelineLogger
+from kimera_vio_tpu_torch.utils.logger import (BackendLogger, FrontendLogger, LcdLogger, MesherLogger,
+                                               PipelineLogger)
 from kimera_vio_tpu_torch.utils.prefetch import PrefetchIterator
 from kimera_vio_tpu_torch.utils.stats import StatsCollector
 
@@ -123,8 +146,11 @@ def _check_supported(params: VioParams):
 GUESS_IMU, GUESS_MONO, GUESS_STEREO, GUESS_PNP = 0, 1, 2, 3
 
 
-#: frames between a keyframe and the feed of its LCD row in `run()`
+#: frames between a keyframe and the feed of its LCD and mesher rows in `run()`
 AUX_LAG = 8
+
+#: plane-pair slots of the RegularVIO solve (its parallel-plane rows)
+N_PLANE_PAIRS = 4
 
 
 class StereoImuPipeline:
@@ -132,12 +158,18 @@ class StereoImuPipeline:
 
     def __init__(self, params: VioParams, output_path: str | None = None,
                  parallel_run: bool | None = None, device: str | torch.device = "cuda",
-                 enable_lcd: bool = False):
+                 enable_lcd: bool = False, enable_mesher: bool = False):
         _check_supported(params)
         self.device = resolve_device(device)
         self.params = params
         self.parallel_run = params.pipeline.parallel_run if parallel_run is None else parallel_run
         self.enable_lcd = enable_lcd or bool(flags.get_flag("use_lcd"))
+        self.enable_mesher = enable_mesher
+        # backend_type 1 (RegularVIO, the EuRoC default) needs the mesher's
+        # planes; without the mesher it is the plain backend, as in the
+        # reference's shipped default (RegularVioBackend.h:83-87).
+        self.use_regular_vio = params.pipeline.backend_type == 1 and enable_mesher
+        self._mesher = None
         if output_path is None and flags.get_flag("log_output"):
             output_path = flags.get_flag("output_path")
         dev = self.device
@@ -220,18 +252,183 @@ class StereoImuPipeline:
                      ok=i[k, :M] > 0, desc=i[k, M:].reshape(M, 8).view(np.uint32))
                 for k in range(rows.shape[0])]
 
-    def _drain_lcd(self, lcd_module, pending: list, upto: int) -> list:
-        """Feed the pending keyframes (frame number, stamp, row) of frames
-        up to `upto` to the LCD, their rows read back in one transfer;
-        returns the keyframes still pending."""
+    def _pack_mesh_row(self, bout, fe_out) -> torch.Tensor:
+        """One keyframe's mesher input as one int32 row on the device: pose
+        (rot, pos), keypoint pixels (uL, v) and landmark points as float32
+        bits, then the keypoint ids, landmark ids and landmark validity."""
+        meas = fe_out["measurements"]
+        kp_uv = torch.stack([meas.uvs[:, 0], meas.uvs[:, 2]], -1)
+        f = torch.cat([bout["rot"].reshape(-1), bout["pos"], kp_uv.reshape(-1),
+                       bout["lmk_points"].reshape(-1)])
+        return torch.cat([f.view(torch.int32), meas.ids.to(torch.int32),
+                          bout["lmk_ids"].to(torch.int32), bout["lmk_valid"].to(torch.int32)])
+
+    def _unpack_mesh_rows(self, rows: np.ndarray) -> list:
+        """Host inverse of `_pack_mesh_row` for (n, P) rows."""
+        N, L = self.frontend_cfg.max_features, self.backend_cfg.max_landmarks
+        nf = 12 + 2 * N + 3 * L
+        f = rows[:, :nf].view(np.float32)
+        i = rows[:, nf:]
+        return [dict(rot=f[k, 0:9].reshape(3, 3), pos=f[k, 9:12],
+                     kp_uv=f[k, 12:12 + 2 * N].reshape(N, 2),
+                     lmk_points=f[k, 12 + 2 * N:].reshape(L, 3), kp_ids=i[k, :N],
+                     lmk_ids=i[k, N:N + L], lmk_valid=i[k, N + L:] > 0)
+                for k in range(rows.shape[0])]
+
+    def _setup_mesher(self, on: bool):
+        """A run's mesher, plane tracker and PLY logger (or none)."""
+        on = on and self.enable_mesher
+        self._mesher = mm.Mesher(device=self.device) if on else None
+        self._plane_tracker = PlaneTracker() if on and self.use_regular_vio else None
+        self._mesher_logger = MesherLogger(self.output_path) if on and self.output_path else None
+        # The images ride along only where the mesh is refined against depth.
+        self._mesher_images = on and (self.frontend_cfg.rgbd
+                                      or bool(flags.get_flag("use_dense_depth_mesh_refinement")))
+
+    def _drain_aux(self, lcd_module, pending: list, upto: int, win, lmk):
+        """Feed the pending keyframes (frame number, stamp, LCD row, mesher
+        row, left, right) of frames up to `upto` to the LCD and the mesher,
+        each kind of row read back in one transfer. The mesher's RegularVIO
+        refine acts on `win` (and reads `lmk`), the window as it stands now.
+        Returns (the keyframes still pending, the window)."""
         n = 0
         while n < len(pending) and pending[n][0] <= upto:
             n += 1
-        if n:
-            rows = torch.stack([row for _, _, row in pending[:n]]).cpu().numpy()
-            for (_, stamp_ns, _), fields in zip(pending[:n], self._unpack_lcd_rows(rows)):
-                lcd_module.add_keyframe_packed(stamp_ns=stamp_ns, **fields)
-        return pending[n:]
+        if not n:
+            return pending, win
+        lcd_rows = mesh_rows = None
+        if lcd_module is not None:
+            lcd_rows = self._unpack_lcd_rows(torch.stack([e[2] for e in pending[:n]]).cpu().numpy())
+        if self._mesher is not None:
+            mesh_rows = self._unpack_mesh_rows(torch.stack([e[3] for e in pending[:n]]).cpu().numpy())
+        for k, (_, stamp_ns, _, _, left, right) in enumerate(pending[:n]):
+            if mesh_rows is not None:
+                win = self._feed_mesher(mesh_rows[k], left, right, win, lmk)
+            if lcd_rows is not None:
+                lcd_module.add_keyframe_packed(stamp_ns=stamp_ns, **lcd_rows[k])
+        return pending[n:], win
+
+    def _feed_mesher(self, fo: dict, left, right, win, lmk):
+        """One keyframe through the mesher: mesh, refine against depth
+        (RGB-D sensor depth, or dense stereo behind the
+        use_dense_depth_mesh_refinement flag), the RegularVIO refine of
+        `win`, the PLY. Returns the window."""
+        mesh = self._mesher.spin_once(fo["kp_uv"], fo["kp_ids"], fo["lmk_ids"], fo["lmk_points"],
+                                      fo["lmk_valid"],
+                                      horizon_ids={int(i) for i in fo["lmk_ids"] if i >= 0})
+        if self.frontend_cfg.rgbd:
+            mesh = self._refine_mesh(mesh, right, fo["rot"], fo["pos"])
+        elif flags.get_flag("use_dense_depth_mesh_refinement"):
+            mesh = self._refine_mesh(mesh, self._dense_depth_for_kf(left, right), fo["rot"], fo["pos"])
+        if self.use_regular_vio:
+            win = self._regular_refine(win, lmk, mesh)
+        if self._mesher_logger is not None:
+            verts = mesh.vertices.reshape(-1, 3)
+            self._mesher_logger.log(verts, np.arange(len(verts)).reshape(-1, 3))
+        return win
+
+    def _regular_refine(self, win, lmk, mesh):
+        """One RegularVIO joint solve over the window and the persistent
+        plane states: the mesh's horizontal planes and walls are segmented
+        and associated with the tracker's slots (Mesher::associatePlanes,
+        Mesher.cpp:1316-1420), each landmark takes the slot of the first
+        triangle it belongs to, co-tracked near-parallel planes get
+        parallel-plane rows, and the solved planes are written back.
+        Returns the refined window, or `win` where no plane holds three
+        landmarks."""
+        if mesh.n_triangles == 0:
+            return win
+        dev = self.device
+        tracker = self._plane_tracker
+        verts = torch.as_tensor(mesh.vertices, dtype=torch.float32, device=dev)
+        normals = mm.triangle_normals(verts)
+        g_axis = torch.tensor([0.0, 0.0, 1.0], device=dev)
+        keep = torch.ones(mesh.n_triangles, dtype=torch.bool, device=dev)
+        pn, pd, pv, tri_assign = mm.segment_horizontal_planes(verts, keep, normals, g_axis)
+        wn, wd, wv, wall_assign = mm.segment_walls(verts, keep, normals, g_axis)
+        n_h = pn.shape[0]
+        tri_assign = torch.where((tri_assign < 0) & (wall_assign >= 0), wall_assign + n_h, tri_assign)
+        S = n_h + wn.shape[0]
+        host = torch.cat([torch.cat([pn, wn]).reshape(-1), pd, wd, pv.float(), wv.float(),
+                          tri_assign.float()]).cpu().numpy()
+        seg_n = host[:3 * S].reshape(S, 3)
+        seg_d = host[3 * S:4 * S]
+        seg_valid = host[4 * S:5 * S] > 0.5
+        assign = host[5 * S:].astype(np.int64)
+        if not seg_valid.any():
+            return win
+        seg_idx = np.flatnonzero(seg_valid)
+        slot_of_valid, _ = tracker.associate(seg_n[seg_idx], seg_d[seg_idx])
+        seg_to_slot = np.full(S, -1, np.int32)
+        seg_to_slot[seg_idx] = slot_of_valid
+        id_to_plane: dict[int, int] = {}
+        for t_i, ids3 in enumerate(mesh.lmk_ids):
+            p = int(assign[t_i])
+            if p < 0 or seg_to_slot[p] < 0:
+                continue
+            for lid in ids3:
+                id_to_plane.setdefault(int(lid), int(seg_to_slot[p]))
+        lmk_ids = lmk.ids.cpu().numpy()
+        plane_assoc = np.array([id_to_plane.get(int(i), -1) if i >= 0 else -1 for i in lmk_ids],
+                               np.int32)
+        if (plane_assoc >= 0).sum() < 3:
+            return win
+        pairs = np.full((N_PLANE_PAIRS, 2), -1, np.int32)
+        for q, pair in enumerate(tracker.parallel_pairs()[:N_PLANE_PAIRS]):
+            pairs[q] = pair
+        t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        planes = rv.PlaneStates(normal=t(tracker.normals), d=t(tracker.ds), mask=t(tracker.active))
+        win2, planes2, _ = rv.regular_backend_solve(
+            self.backend_cfg, win, lmk, planes, t(plane_assoc),
+            torch.tensor(0.1, dtype=torch.float32, device=dev), gn_iters=1,
+            parallel_pairs=t(pairs), parallel_pair_mask=t(pairs[:, 0] >= 0))
+        solved = torch.cat([planes2.normal.reshape(-1), planes2.d]).cpu().numpy()
+        tracker.update_from_solver(solved[:3 * tracker.P].reshape(-1, 3), solved[3 * tracker.P:])
+        return win2
+
+    def _dense_depth_for_kf(self, left, right) -> torch.Tensor:
+        """Dense metric depth of a stereo keyframe: the raw pair rectified
+        (through the rectification maps, as in the JAX package, also where
+        the frontend skips an identity rectification) and block-matched
+        (ops/stereo_matching.dense_depth)."""
+        if getattr(self, "_dense_maps", None) is None:
+            fe, st = self.frontend, self.stereo
+            self._dense_maps = (
+                (fe.map_left, fe.map_right) if not fe.identity_rect else
+                tuple(torch.from_numpy(rectification_map(st, cam, R)).to(self.device)
+                      for cam, R in ((st.left, st.R_rect_l), (st.right, st.R_rect_r))))
+        fp = self.params.frontend
+        return dense_depth(
+            remap_bilinear(left, self._dense_maps[0]), remap_bilinear(right, self._dense_maps[1]),
+            fx=float(self.stereo.fx), baseline=float(self.stereo.baseline),
+            min_depth=float(fp.min_point_dist), max_depth=float(fp.max_point_dist),
+            num_disparities=int(flags.get_flag("dense_stereo_num_disparities")),
+            block_size=int(flags.get_flag("dense_stereo_block_size")))
+
+    def _refine_mesh(self, mesh, depth_img, pose_R, pose_t):
+        """Depth-based mesh refinement (reference MeshOptimization.cpp): the
+        mesh's distinct vertices, in the keyframe camera's frame, move along
+        their rays to follow the depth image (`mesh_optimizer_type`)."""
+        if mesh.n_triangles == 0:
+            return mesh
+        uniq, inv = np.unique(mesh.lmk_ids.reshape(-1), return_inverse=True)
+        inv = inv.reshape(-1)
+        verts_w = np.zeros((len(uniq), 3), np.float32)
+        verts_w[inv] = mesh.vertices.reshape(-1, 3)
+        tris = inv.reshape(-1, 3).astype(np.int32)
+        C_R = self.stereo.R_b_rect.cpu().numpy()
+        C_t = self.stereo.t_b_rect.cpu().numpy()
+        R_wc = pose_R @ C_R
+        t_wc = pose_t + pose_R @ C_t
+        dev = self.device
+        refined_c, _ = optimize_mesh(
+            torch.as_tensor((verts_w - t_wc) @ R_wc, device=dev), torch.as_tensor(tris, device=dev),
+            torch.ones(len(tris), dtype=torch.bool, device=dev),
+            torch.as_tensor(depth_img, dtype=torch.float32, device=dev),
+            float(self.stereo.fx), float(self.stereo.fy), float(self.stereo.cx), float(self.stereo.cy),
+            optimizer_type=int(flags.get_flag("mesh_optimizer_type")))
+        refined_w = refined_c.cpu().numpy() @ R_wc.T + t_wc
+        return mm.Mesh3D(lmk_ids=mesh.lmk_ids, vertices=refined_w[tris])
 
     # ------------------------------------------------------------------
     def _rebase_delta_s(self, rel_s: float) -> float:
@@ -544,7 +741,7 @@ class StereoImuPipeline:
                     f.write(",".join(f"{x:.9g}" if j else str(x) for j, x in enumerate(row)) + "\n")
 
     def _drive(self, provider, frames, verbose: bool, sync_each: bool = False,
-               defer_readback: bool = False, lcd_drain: tuple | None = None) -> PipelineOutput:
+               defer_readback: bool = False, aux_drain: tuple | None = None) -> PipelineOutput:
         """The run loop of both entry points. `frames` yields (packet,
         left, right, imu_block, origin_ns): images and IMU block on the
         device (no IMU block for the first frame, which bootstraps) and
@@ -553,10 +750,12 @@ class StereoImuPipeline:
         frame and keyframe step times; `defer_readback` reads the keyframe
         states back once at the end instead of at each keyframe.
 
-        With loop closure and `lcd_drain = (every, lag)`, every keyframe
-        after the bootstrap leaves its LCD row on the device; every
-        `every` frames the rows of keyframes at least `lag` frames old are
-        read back in one transfer and fed to the LCD; PGO runs at the end.
+        With loop closure or the mesher and `aux_drain = (every, lag)`,
+        every keyframe after the bootstrap leaves its LCD and mesher rows on
+        the device; every `every` frames the rows of keyframes at least
+        `lag` frames old are read back, one transfer per kind, and fed to
+        the LCD and the mesher, whose RegularVIO refine replaces the
+        window; the rest is fed after the last frame, then PGO runs.
 
         Online initialization (autoInitialize: 2, not mono) and fine time
         alignment read each keyframe's inputs on the host while they
@@ -572,9 +771,11 @@ class StereoImuPipeline:
         bp = self.params.backend
         fe_state = win = lmk = None
         keyframes = []  # (stamp_ns, state row) not yet published
-        lcd_module = self._build_lcd() if self.enable_lcd and lcd_drain else None
+        lcd_module = self._build_lcd() if self.enable_lcd and aux_drain else None
         self.frontend_cfg.lcd_features = self._lcd_features if lcd_module is not None else 0
-        lcd_pending = []  # (frame number, stamp_ns, LCD row) not yet fed
+        self._setup_mesher(aux_drain is not None)
+        feeds_aux = lcd_module is not None or self._mesher is not None
+        aux_pending = []  # (frame number, stamp_ns, LCD row, mesher row, left, right) not yet fed
         use_init = bp.auto_initialize == 2 and not self.frontend_cfg.mono
         initializer = None
         aligner = None
@@ -670,11 +871,16 @@ class StereoImuPipeline:
                         keyframes.append((stamp_ns, torch.cat(
                             [bout["rot"].reshape(-1), bout["pos"], bout["vel"], bout["bias"]])))
                         self._note_backend_health(int(bout["n_recovered"]))
-                        if lcd_module is not None:
-                            lcd_pending.append((out.n_frames, stamp_ns, self._pack_lcd_row(bout, fe_out)))
-                    if lcd_module is not None and (out.n_frames - 1) % lcd_drain[0] == 0:
-                        lcd_pending = self._drain_lcd(lcd_module, lcd_pending,
-                                                      out.n_frames - lcd_drain[1])
+                        if feeds_aux:
+                            images = (left, right) if self._mesher_images else (None, None)
+                            aux_pending.append((
+                                out.n_frames, stamp_ns,
+                                self._pack_lcd_row(bout, fe_out) if lcd_module is not None else None,
+                                self._pack_mesh_row(bout, fe_out) if self._mesher is not None else None,
+                                *images))
+                    if feeds_aux and (out.n_frames - 1) % aux_drain[0] == 0:
+                        aux_pending, win = self._drain_aux(lcd_module, aux_pending,
+                                                           out.n_frames - aux_drain[1], win, lmk)
                 collecting = aligner is not None or (initializer is not None and not initializer.done)
                 if not (defer_readback or collecting) and keyframes:
                     self._publish(out, keyframes, self._host_rows(keyframes), logger)
@@ -688,8 +894,9 @@ class StereoImuPipeline:
                 rows = self._host_rows(keyframes)
                 self.stats.add("readback [ms]", (time.perf_counter() - tic) * 1e3)
                 self._publish(out, keyframes, rows, logger)
+            if feeds_aux:
+                _, win = self._drain_aux(lcd_module, aux_pending, out.n_frames, win, lmk)
             if lcd_module is not None:
-                self._drain_lcd(lcd_module, lcd_pending, out.n_frames)
                 self.lcd_result = lcd_module.finish()
         finally:
             frames.close()  # ends a prefetch or stager thread
@@ -739,7 +946,7 @@ class StereoImuPipeline:
     def run(self, provider, verbose: bool = False) -> PipelineOutput:
         """Run the whole provider sequence; returns the keyframe trajectory."""
         return self._drive(provider, self._direct_frames(provider), verbose,
-                           sync_each=not self.parallel_run, lcd_drain=(1, AUX_LAG))
+                           sync_each=not self.parallel_run, aux_drain=(1, AUX_LAG))
 
     # ------------------------------------------------------------------
     def _stage(self, provider, batch, side_stream) -> Staged:
@@ -875,12 +1082,15 @@ class StereoImuPipeline:
         keyframe states back once at the end.
 
         Stamps enter the step as `run()` gives them, so the trajectory is
-        `run()`'s. `collect_aux=True` drives loop closure when it is on,
-        its rows read back once per chunk (without it the LCD does not
-        run, as in the JAX package). Refused, as in the JAX package: fine
-        time alignment, online initialization, external odometry."""
-        if self.enable_lcd and not collect_aux:
-            warnings.warn("loop closure enabled but collect_aux=False: the LCD will not run "
+        `run()`'s. `collect_aux=True` drives loop closure and the mesher
+        when they are on (without it they do not run, as in the JAX
+        package): their rows are read back once per chunk, a chunk late,
+        or right after their chunk when RegularVIO refines the window,
+        which then goes on into the next chunk. Refused, as in the JAX
+        package: fine time alignment, online initialization, external
+        odometry."""
+        if (self.enable_lcd or self.enable_mesher) and not collect_aux:
+            warnings.warn("mesher/LCD enabled but collect_aux=False: they will not run "
                           "in chunked mode", stacklevel=2)
         if flags.get_flag("do_fine_imu_camera_temporal_sync"):
             raise NotImplementedError("run_chunked does not support fine IMU-camera time alignment")
@@ -890,4 +1100,5 @@ class StereoImuPipeline:
             raise NotImplementedError("run_chunked does not support external odometry")
         return self._drive(provider, self._staged_frames(provider, chunk_size, super_batch_bytes),
                            verbose, defer_readback=True,
-                           lcd_drain=(chunk_size, chunk_size) if collect_aux else None)
+                           aux_drain=((chunk_size, 0 if self.use_regular_vio else chunk_size)
+                                      if collect_aux else None))

@@ -4,7 +4,8 @@ Port of the main-path loggers of kimera_vio_tpu/utils/logger.py: the key
 artifact is `traj_vio.csv` with the reference's 17-column header
 (src/logging/Logger.cpp:148-151), so evo / kimera_eval read the port's
 output unchanged; with loop closure, `traj_pgo.csv` and
-`output_lcd_result.csv`. Numpy and file IO.
+`output_lcd_result.csv`; with the mesher, one ASCII PLY per keyframe
+under `mesh/`. Numpy and file IO.
 """
 
 from __future__ import annotations
@@ -91,6 +92,31 @@ class LcdLogger:
     def close(self):
         self._traj.close()
         self._result.close()
+
+
+class MesherLogger:
+    """Per-keyframe mesh serialization (reference MesherLogger /
+    Mesher::serializeMeshes, Mesher.cpp:1658-1669): ASCII PLY files
+    `<output>/mesh/mesh_00000.ply`, ... in the JAX package's bytes."""
+
+    def __init__(self, output_path: str):
+        self.dir = os.path.join(output_path, "mesh")
+        os.makedirs(self.dir, exist_ok=True)
+        self.count = 0
+
+    def log(self, vertices: np.ndarray, triangles: np.ndarray):
+        path = os.path.join(self.dir, f"mesh_{self.count:05d}.ply")
+        with open(path, "w") as f:
+            f.write("ply\nformat ascii 1.0\n"
+                    f"element vertex {len(vertices)}\n"
+                    "property float x\nproperty float y\nproperty float z\n"
+                    f"element face {len(triangles)}\n"
+                    "property list uchar int vertex_indices\nend_header\n")
+            for v in vertices:
+                f.write(f"{v[0]:.5f} {v[1]:.5f} {v[2]:.5f}\n")
+            for t in triangles:
+                f.write(f"3 {t[0]} {t[1]} {t[2]}\n")
+        self.count += 1
 
 
 class PipelineLogger:

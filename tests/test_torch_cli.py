@@ -184,7 +184,11 @@ def test_cli_use_lcd_writes_the_pgo_logs(folders, tmp_path, extra):
     ["--enable_mesher"], ["--visualize"], ["--gflag", "visualize=true"],
 ], ids=lambda e: e[-1])
 def test_unported_options_raise(folders, extra):
-    args = ["--params_folder", folders["params"], "--dataset_path", folders["data"], "--device", "cpu"]
+    """--visualize raises on any folder; --enable_mesher on the mono params
+    folder (the mono pipeline has no mesher; on a stereo folder it runs,
+    tests/test_torch_mesher_chunked.py)."""
+    params = folders["mono"] if extra == ["--enable_mesher"] else folders["params"]
+    args = ["--params_folder", params, "--dataset_path", folders["data"], "--device", "cpu"]
     with pytest.raises(NotImplementedError):
         tcli.main(args + extra)
 
