@@ -9,8 +9,9 @@ It builds the hand-written CUDA kernel from csrc/ (nvcc, sm_90a), holds it
 against its plain PyTorch version on the card, drives the port's
 stereo-inertial `StereoImuPipeline.run()` on the synthetic 752x480
 sequence (80 frames), its CLI, loop closure, its variants (mono,
-RGB-D, online initialization, pose sources, time alignment) and the
-mesher with RegularVIO, and checks the results. Every failure ends the run
+RGB-D, online initialization, pose sources, time alignment), the
+mesher with RegularVIO and the options it used to refuse, and checks the
+results. Every failure ends the run
 with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
 path, the phases' lines, one JSON line with the kernel table, and last
@@ -126,6 +127,35 @@ Phases:
      keyframe mesher / RegularVIO refine / dense depth ms (host clock
      around work that ends in `torch.cuda.synchronize`), triangles and
      active planes at the end, plane hits.
+  7. options: what the port used to refuse. First the main kernel's time
+     beside its 0.04017 ms at commit b6f00a3, before the wide
+     instantiation was added. (1) The kernel's wide instantiation
+     (33-54 px) against the plain version, phase 1's gate (median and max
+     |d| < 0.01 px, the same `ok`), each launch's time and bound printed:
+     752x480 at win 41 and win 54 with the 56-row window rule (at 54 that
+     rule admits only keypoints whose search window is clamped at the
+     image edge, so the positions are compared over every valid
+     keypoint), at win 41 and 54 with the gather rule (search_rows=None,
+     every level an XLA level), and 1241x376 at win 41. (2) Sequential
+     `run()` at phase 2's configuration (752x480, 256 features,
+     10-keyframe horizon, 384 landmarks, 80 frames), the LK counter set to
+     0 before each: (a) imu_preintegration_type 0, the Combined IMU
+     factor; (b) FAST + SSC (ANMS type 5); (c) ORB + Brown ANMS (1); (d)
+     GFTT with Harris + SDC (2); (e) enable_non_max_suppression 0 (TopN);
+     (f) klt_win_size 41; (g) the Combined factor through the CLI's
+     --chunked mode on phase 3's sequence and params folder. Gates: LK
+     launches = tracked frames, a finite trajectory, at least one
+     keyframe, ATE < 0.05 m for (a), (f) and (g)
+     (tests/test_imu_frontend.py:379, tests/test_pipeline_e2e.py:35); one
+     `[options]` line per run (frames/s, keyframe step ms, ATE, and the
+     ANMS ms per keyframe by host clock around each ANMS call, the device
+     synchronised: the greedy passes of types 2-5 run on the host). (3)
+     `state_covariance(return_ok=True)` of phase 2's pipeline: ok, finite,
+     symmetric, positive diagonal; its ms. (4) The omni camera on the
+     card from inline OCamCalib parameters: 4096 pixels through
+     omni_backproject_normalized and omni_project back within 1e-3 px,
+     and the 1280x960 rectification map built on the card equal to the
+     CPU's within 1e-3 px.
 """
 
 from __future__ import annotations
@@ -159,6 +189,7 @@ from kimera_vio_tpu_torch.frontend.camera import StereoCamera, remap_bilinear
 from kimera_vio_tpu_torch.frontend.vision_frontend import StereoFrontend
 from kimera_vio_tpu_torch.loopclosure import orb
 from kimera_vio_tpu_torch.loopclosure.lcd import LcdConfig
+from kimera_vio_tpu_torch.ops import anms
 from kimera_vio_tpu_torch.ops import corner_detection as det
 from kimera_vio_tpu_torch.ops import lk_kernel as lk
 from kimera_vio_tpu_torch.ops import optical_flow as of
@@ -249,9 +280,12 @@ def lk_bound_ms(levels, n_kpts: int, win: int = WIN) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_lk(prev_pyr, cur_pyr, pts, valid, label: str, **kw) -> dict:
+def compare_lk(prev_pyr, cur_pyr, pts, valid, label: str, over_valid: bool = False,
+               **kw) -> dict:
     """Kernel vs plain version on the same CUDA tensors; returns the
-    errors, per-level steps, times and the bound."""
+    errors, per-level steps, times and the bound. The positions are
+    compared over the keypoints both track, or with `over_valid` over
+    every valid keypoint (for a window rule that tracks none)."""
     kw = {**LK_KW, **kw}
     grads = [of._grad(p) for p in prev_pyr]
     args = (prev_pyr, cur_pyr, grads, pts, pts, valid)
@@ -268,8 +302,8 @@ def compare_lk(prev_pyr, cur_pyr, pts, valid, label: str, **kw) -> dict:
     torch.cuda.synchronize()
     agree = float((ok_k == ok_p).float().mean())
     both = ok_k & ok_p
-    d = torch.linalg.norm(out_k - out_p, dim=-1)[both]
-    if int(both.sum()) < 0.5 * pts.shape[0]:
+    d = torch.linalg.norm(out_k - out_p, dim=-1)[valid if over_valid else both]
+    if not over_valid and int(both.sum()) < 0.5 * pts.shape[0]:
         raise AssertionError(f"{label}: only {int(both.sum())} keypoints tracked by both")
     median, max_err = float(d.median()), float(d.max())
     # Same float32 math, different summation order of the window sums: the
@@ -297,6 +331,7 @@ def compare_lk(prev_pyr, cur_pyr, pts, valid, label: str, **kw) -> dict:
     bound_ms, bound_by = lk_bound_ms(levels, pts.shape[0], kw["win"])
     res = {
         "label": label, "win": kw["win"], "search_rows": kw["search_rows"],
+        "compared_over": "valid" if over_valid else "tracked by both",
         "launches_per_frame": 1, "tracked": int(ok_k.sum()),
         "ok_agreement": agree, "median_abs_err": median, "max_abs_err": max_err,
         "ms": ms, "ms_no_steps": ms_no_steps, "max_chain_steps": chain,
@@ -334,6 +369,16 @@ def kernel_phase(dev) -> dict:
     if [lv["mode"] for lv in generic["levels"]][0] != "xla" or len(generic["levels"]) != 4:
         raise AssertionError("752x480 with win 31 should skip its top level")
 
+    kitti = compare_lk(*kitti_lk_inputs(dev), "1241x376")
+    if kitti["levels"][-1]["mode"] != "gather":
+        raise AssertionError("1241x376 level 0 should take the gather-kernel window rule")
+    return main
+
+
+def kitti_lk_inputs(dev, margin: float = 14.0):
+    """A KITTI-sized (1241x376) textured pair shifted by 9.6 px, 5-level
+    pyramids and 256 random keypoints `margin` px inside the image.
+    Returns (prev_pyr, cur_pyr, keypoints, valid)."""
     rng = np.random.default_rng(7)
     H, W = 376, 1241
     import scipy.ndimage as ndi
@@ -341,13 +386,11 @@ def kernel_phase(dev) -> dict:
     tex = ndi.zoom(rng.uniform(30, 225, (H // 6 + 2, (W + 40) // 6 + 2)).astype(np.float32), 6, order=3)
     a = torch.from_numpy(np.ascontiguousarray(tex[:H, :W])).to(dev)
     b = torch.from_numpy(np.ascontiguousarray(0.4 * tex[:H, 9 : W + 9] + 0.6 * tex[:H, 10 : W + 10])).to(dev)
-    pts = torch.from_numpy(np.stack([rng.uniform(14, W - 14, 256), rng.uniform(14, H - 14, 256)], -1)
+    pts = torch.from_numpy(np.stack([rng.uniform(margin, W - margin, 256),
+                                     rng.uniform(margin, H - margin, 256)], -1)
                            .astype(np.float32)).to(dev)
-    kitti = compare_lk(of.build_pyramid(a, 4), of.build_pyramid(b, 4), pts,
-                       torch.ones(256, dtype=torch.bool, device=dev), "1241x376")
-    if kitti["levels"][-1]["mode"] != "gather":
-        raise AssertionError("1241x376 level 0 should take the gather-kernel window rule")
-    return main
+    return (of.build_pyramid(a, 4), of.build_pyramid(b, 4), pts,
+            torch.ones(256, dtype=torch.bool, device=dev))
 
 
 def path_phase(dev) -> dict:
@@ -386,7 +429,7 @@ def path_phase(dev) -> dict:
         "lk_launches": launches,
     }
     log(f"[path] {json.dumps(res)}")
-    res["stamps_ns"], res["positions"] = out.stamps_ns, est
+    res["stamps_ns"], res["positions"], res["pipe"] = out.stamps_ns, est, pipe
     return res
 
 
@@ -1563,6 +1606,172 @@ def mesher_phase(dev, path: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the options the port used to refuse
+# ---------------------------------------------------------------------------
+
+# The <24, 56> kernel time per 752x480 frame at commit b6f00a3, before the
+# wide instantiation was added (chip_smoke phase 1 on an H100 80GB HBM3 at
+# 700 W), printed beside this run's.
+MAIN_KERNEL_MS_BEFORE_WIDE = 0.04017
+
+# Inline OCamCalib parameters of a 1280x960 fisheye (the z-polynomial
+# a0..a4, decreasing and positive out to the image corners; the
+# distortion centre; the affine [c, d, e]); no pinhole intrinsics.
+OMNI = dict(camera_model="omni", width=1280, height=960, intrinsics=np.zeros(0),
+            distortion_model="omni",
+            distortion_coeffs=np.array([310.0, 0.0, -1.1e-3, 2.5e-7, -4.0e-10]),
+            omni_distortion_center=np.array([641.3, 478.6]),
+            omni_affine=np.array([-3.0e-4, 2.0e-4, 0.9996]))
+
+
+@contextlib.contextmanager
+def timed_anms():
+    """Host-clock time of every ANMS call (types 0-5), the device
+    synchronised before and after: the greedy passes run on the host."""
+    rec = {"calls": 0, "ms": 0.0}
+    orig = anms.suppress_non_max
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep = orig(*a, **kw)
+        torch.cuda.synchronize()
+        rec["ms"] += (time.perf_counter() - t0) * 1e3
+        rec["calls"] += 1
+        return keep
+
+    anms.suppress_non_max = timed
+    try:
+        yield rec
+    finally:
+        anms.suppress_non_max = orig
+
+
+def omni_on_card(dev) -> dict:
+    """The omni camera on the card: pixels -> omni_backproject_normalized
+    -> points -> omni_project round trip, and the rectification map built
+    with the camera on the card against the one built on the CPU."""
+    from kimera_vio_tpu_torch.config.params import CameraParams
+    from kimera_vio_tpu_torch.frontend import camera as cam_mod
+    from scipy.spatial.transform import Rotation
+
+    p = CameraParams(**OMNI)
+    cam = cam_mod.PinholeCamera.from_params(p, device=dev)
+    cam_cpu = cam_mod.PinholeCamera.from_params(p, device="cpu")
+    rng = np.random.default_rng(5)
+    r, a = rng.uniform(5.0, 420.0, 4096), rng.uniform(0, 2 * np.pi, 4096)
+    uv = torch.from_numpy((np.stack([r * np.cos(a), r * np.sin(a)], -1)
+                           + OMNI["omni_distortion_center"]).astype(np.float32)).to(dev)
+    depth = torch.from_numpy(rng.uniform(1.0, 8.0, 4096).astype(np.float32)).to(dev)
+    xy = cam_mod.omni_backproject_normalized(cam, uv)
+    pts = torch.cat([xy, torch.ones_like(xy[:, :1])], -1) * depth[:, None]
+    uv2, ok = cam_mod.omni_project(cam, pts)
+    torch.cuda.synchronize()
+    err = float(torch.linalg.norm(uv2 - uv, dim=-1).max())
+    if not (bool(ok.all()) and err < 1e-3):
+        raise AssertionError(f"omni round trip: max {err} px, all inside {bool(ok.all())}")
+    pin = synthetic_params(width=1280, height=960, fx=400.0)
+    R = Rotation.from_rotvec([0.01, -0.02, 0.015]).as_matrix().astype(np.float32)
+    maps = {}
+    for name, c, d in (("card", cam, dev), ("cpu", cam_cpu, torch.device("cpu"))):
+        st = StereoCamera.from_params(pin.left_cam, pin.right_cam, device=d)
+        maps[name] = cam_mod.rectification_map(st, c, torch.from_numpy(R).to(d))
+    map_err = float(np.abs(maps["card"] - maps["cpu"]).max())
+    if not map_err < 1e-3:
+        raise AssertionError(f"omni rectification map card vs CPU: max {map_err} px")
+    return {"omni_round_trip_max_px": err, "omni_points": 4096, "omni_map_card_vs_cpu_max_px": map_err}
+
+
+def options_phase(dev, path: dict, kern: dict) -> dict:
+    """Phase 7 (see the module docstring)."""
+    fps2 = path["frames_per_s"]
+    res = {"main_kernel_ms": kern["ms"], "main_kernel_ms_at_b6f00a3": MAIN_KERNEL_MS_BEFORE_WIDE}
+    log(f"[options] {json.dumps(res)}")
+    # (1) the wide windows, kernel against the plain version.
+    prev_pyr, cur_pyr, uv, valid = main_lk_inputs(dev)
+    wide = {}
+    # At win 54 the 56-row window rule admits a keypoint only where its
+    # search window is clamped at the image edge (its first check needs
+    # floor(frac(y) + 28 - 26.5) <= 56 - 54 - 2), as in the Pallas tracker:
+    # positions are compared over every valid keypoint there.
+    for label, kw in (("752x480 win 41", dict(win=41)),
+                      ("752x480 win 54", dict(win=54, over_valid=True)),
+                      ("752x480 win 41 gather rule", dict(win=41, search_rows=None)),
+                      ("752x480 win 54 gather rule", dict(win=54, search_rows=None))):
+        wide[label] = compare_lk(prev_pyr, cur_pyr, uv, valid, label, **kw)
+    for label in ("752x480 win 41 gather rule", "752x480 win 54 gather rule"):
+        if any(lv["mode"] != "xla" for lv in wide[label]["levels"]):
+            raise AssertionError(f"{label}: the gather rule tracks every level as an XLA level")
+    wide["1241x376 win 41"] = compare_lk(*kitti_lk_inputs(dev, margin=30.0), "1241x376 win 41",
+                                         win=41)
+    res["wide"] = wide
+
+    # (2) runs at phase 2's width, each with the LK counter set to 0.
+    provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
+    gt = provider.ground_truth
+    runs = {
+        "a_combined_imu": (dict(imu=dict(preintegration_type=0)), 0.05),
+        "b_fast_ssc": (dict(frontend=dict(feature_detector_type=0, non_max_suppression_type=5)), None),
+        "c_orb_brown": (dict(frontend=dict(feature_detector_type=1, non_max_suppression_type=1)), None),
+        "d_harris_sdc": (dict(frontend=dict(use_harris_detector=True, non_max_suppression_type=2)),
+                         None),
+        "e_topn": (dict(frontend=dict(enable_non_max_suppression=False)), None),
+        "f_klt_win_41": (dict(frontend=dict(klt_win_size=41)), 0.05),
+    }
+    for name, (over, gate) in runs.items():
+        p = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+        for group, fields in over.items():
+            for k, v in fields.items():
+                setattr(getattr(p, group), k, v)
+        with timed_anms() as rec:
+            row, out, pipe = run_variant(name, lambda: StereoImuPipeline(p, parallel_run=False,
+                                                                         device=dev),
+                                         provider, gt, fps2, gate)
+        if out.n_keyframes < 1:
+            raise AssertionError(f"{name}: no keyframe")
+        cfg = pipe.frontend_cfg
+        row.update(detector_type=cfg.detector_type, anms_type=cfg.anms_type, klt_win=cfg.klt_win,
+                   combined_pim=pipe.backend_cfg.combined_pim, anms_calls=rec["calls"],
+                   anms_ms_per_keyframe=rec["ms"] / rec["calls"] if rec["calls"] else None)
+        res[name] = row
+        log(f"[options] {json.dumps(row)}")
+    # (g) the Combined factor through the CLI's chunked mode.
+    p = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+    p.pipeline.parallel_run = True
+    p.imu.preintegration_type = 0
+    with tempfile.TemporaryDirectory(prefix="kimera_options_") as tmp:
+        data, pfolder, _ = write_folders(os.path.join(tmp, "path"), provider, p)
+        args = ["--params_folder", pfolder, "--dataset_path", data, "--max_features", "256",
+                "--max_landmarks", "384", "--device", dev.type, "--chunked", "--chunk_size", "16"]
+        with recording_pipeline() as rec:
+            lk.lk_pyramid_cuda.launches = 0
+            rc = cli_main(args + ["--log_output", "--output_path", os.path.join(tmp, "out")])
+            launches = lk.lk_pyramid_cuda.launches
+        row = check_cli_run("g_combined_cli_chunked", rec, rc, launches, gt, os.path.join(tmp, "out"))
+        if not rec["runs"][0]["pipe"].backend_cfg.combined_pim:
+            raise AssertionError("g_combined_cli_chunked: the params folder did not set the flag")
+    res["g_combined_cli_chunked"] = row
+    log(f"[options] {json.dumps(row)}")
+
+    # (3) state_covariance after phase 2's run.
+    pipe = path["pipe"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cov, ok = pipe.state_covariance(return_ok=True)
+    cov_ms = (time.perf_counter() - t0) * 1e3
+    if not (ok and cov.shape == (15, 15) and np.isfinite(cov).all()
+            and np.array_equal(cov, cov.T) and (np.diag(cov) > 0).all()):
+        raise AssertionError(f"state_covariance: ok {ok}, diag {np.diag(cov)}")
+    res["state_covariance"] = {"ms": cov_ms, "ok": ok, "pos_sigma_m": np.sqrt(np.diag(cov)[3:6]).tolist()}
+    log(f"[options] {json.dumps(res['state_covariance'])}")
+
+    # (4) the omni camera on the card.
+    res["omni"] = omni_on_card(dev)
+    log(f"[options] {json.dumps(res['omni'])}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -1580,9 +1789,10 @@ def main() -> int:
     log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
     kernel = "?"
     for line in ptxas.splitlines():
-        m = re.search(r"Compiling entry function '\S*?lk_pyramid_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*?lk_pyramid_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      line)
         if m:
-            kernel = "lk_pyramid_kernel<win {}, search_rows {}>".format(*m.groups())
+            kernel = "lk_pyramid_kernel<win {}, search_rows {}, max_win {}>".format(*m.groups())
         elif "registers" in line or "spill" in line:
             log(f"[build] {kernel}: {line.strip()}")
 
@@ -1604,6 +1814,9 @@ def main() -> int:
     t = time.perf_counter()
     mesh_res = mesher_phase(dev, path)
     log(f"[phase] mesher {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    opt_res = options_phase(dev, path, kern)
+    log(f"[phase] options {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -1618,6 +1831,8 @@ def main() -> int:
         "launches_variants": {name: r["lk_launches"] for name, r in var_res.items()},
         "launches_mesher": {name: r["lk_launches"] for name, r in mesh_res.items()
                             if isinstance(r, dict) and "lk_launches" in r},
+        "launches_options": {name: r["lk_launches"] for name, r in opt_res.items()
+                             if isinstance(r, dict) and "lk_launches" in r},
         "max_abs_err": kern["max_abs_err"],
         "median_abs_err": kern["median_abs_err"],
         "ms": kern["ms"],
@@ -1626,6 +1841,10 @@ def main() -> int:
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": None,  # no single PyTorch call computes pyramidal LK
+        # The generic instantiations at 33-54 px (phase 7), per shape.
+        "wide": {label: {k: r[k] for k in ("win", "search_rows", "max_abs_err", "median_abs_err",
+                                           "ms", "plain_ms", "bound_ms", "bound_by")}
+                 for label, r in opt_res["wide"].items()},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

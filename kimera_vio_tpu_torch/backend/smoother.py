@@ -5,8 +5,10 @@ Gauss-Newton replacement of the reference's GTSAM fixed-lag smoother,
 src/backend/VioBackend.cpp:296-428, 1036-1250): a window of K keyframe
 states of 15 DoF [dtheta, dp, dv, dba, dbg]; smart stereo landmarks
 triangulated in closed form and Schur-eliminated onto the poses; IMU
-preintegration + bias random-walk factors (Jacobians by forward-mode
-autodiff, `torch.func.jacfwd` under `vmap`); zero-velocity / no-motion
+preintegration + bias random-walk factors, or the Combined IMU factor
+(`imu_preintegration_type: 0`: one 15-dim residual whitened jointly),
+with Jacobians by forward-mode autodiff (`torch.func.jacfwd` under
+`vmap`); zero-velocity / no-motion
 factors on LOW_DISPARITY keyframes; relative-pose between factors from
 external odometry and from the tracker's stereo RANSAC, and the
 constant-velocity factor (analytic Jacobians); a Jacobi-equilibrated
@@ -22,9 +24,8 @@ same order as the reference's `.at[].add`. `torch.linalg.cholesky` raises
 on a matrix that is not positive definite where `jnp.linalg.cholesky`
 returns NaN; `cholesky_ex` with `info != 0` maps to the same non-finite
 step, so the recovery branch fires where it fires in JAX.
-
-Not ported yet: the Combined IMU factor (refused by `from_params`) and
-`state_covariance`.
+`state_covariance` is the reference's computeStateCovariance: the newest
+state's 15x15 marginal, with a health flag.
 """
 
 from __future__ import annotations
@@ -37,7 +38,12 @@ import torch
 from kimera_vio_tpu_torch import resolve_device
 from kimera_vio_tpu_torch.common import geometry as geo
 from kimera_vio_tpu_torch.common.types import ImuBias, NavState, replace, tree_map, tree_map2
-from kimera_vio_tpu_torch.frontend.imu_frontend import Pim, imu_residual, pim_predict
+from kimera_vio_tpu_torch.frontend.imu_frontend import (
+    Pim,
+    combined_cov15,
+    imu_residual,
+    pim_predict,
+)
 from kimera_vio_tpu_torch.ops.triangulation import triangulate_stereo_landmarks
 
 S_DOF = 15
@@ -102,14 +108,15 @@ class BackendConfig:
     baseline: torch.Tensor
     R_b_cam: torch.Tensor
     t_b_cam: torch.Tensor
+    # imu_preintegration_type 0: the Combined IMU factor (joint 15x15
+    # whitening, no separate bias between factor).
+    combined_pim: bool = False
 
     @classmethod
     def from_params(cls, backend_params, imu_params, stereo_cam, *, max_landmarks=512,
                     gn_iters=2, device="cuda"):
         device = resolve_device(device)
         bp = backend_params
-        if int(getattr(imu_params, "preintegration_type", 1)) == 0:
-            raise NotImplementedError("the Combined IMU factor is not ported")
         f = lambda x: _f32(x, device)  # noqa: E731
         return cls(
             nr_states=bp.nr_states,
@@ -150,6 +157,7 @@ class BackendConfig:
             baseline=stereo_cam.baseline,
             R_b_cam=stereo_cam.R_b_rect,
             t_b_cam=stereo_cam.t_b_rect,
+            combined_pim=int(getattr(imu_params, "preintegration_type", 1)) == 0,
         )
 
 
@@ -358,17 +366,29 @@ def _imu_factor_blocks(cfg: BackendConfig, win: Window, ks=None):
         win.rot[ks], win.pos[ks], win.vel[ks], win.bias[ks],
         pim_vals, bias_hat, cfg.n_gravity,
     )
-    dt_k = torch.clamp(win.stamp[ks] - win.stamp[km], min=1e-3)
-    Wp = _whiten_from_cov(win.pim.cov[ks], jitter=1e-10)
-    r_pim_w = (Wp @ r_pim[..., None])[..., 0]
-    Jp_i_w = Wp @ Jp_i
-    Jp_j_w = Wp @ Jp_j
-    sig = torch.cat(
-        [cfg.acc_random_walk.expand(3), cfg.gyro_random_walk.expand(3)]
-    )[None, :] * torch.sqrt(dt_k)[:, None]
-    r = torch.cat([r_pim_w, r_bias / sig], dim=-1)
-    Ji = torch.cat([Jp_i_w, Jb_i / sig[:, :, None]], dim=-2)
-    Jj = torch.cat([Jp_j_w, Jb_j / sig[:, :, None]], dim=-2)
+    if cfg.combined_pim:
+        # The Combined flavour: one 15-dim residual whitened by the joint
+        # covariance of [preintegration error; bias_j - bias_i].
+        pim_ks = tree_map(lambda x: x[ks], win.pim)
+        W15 = _whiten_from_cov(
+            combined_cov15(pim_ks, cfg.acc_random_walk, cfg.gyro_random_walk), jitter=1e-10)
+        r = (W15 @ torch.cat([r_pim, r_bias], dim=-1)[..., None])[..., 0]
+        Ji = W15 @ torch.cat([Jp_i, Jb_i], dim=-2)
+        Jj = W15 @ torch.cat([Jp_j, Jb_j], dim=-2)
+    else:
+        # The plain flavour: the PIM residual whitened by its 9x9
+        # covariance, and a bias random-walk between factor (sigma^2 dt).
+        dt_k = torch.clamp(win.stamp[ks] - win.stamp[km], min=1e-3)
+        Wp = _whiten_from_cov(win.pim.cov[ks], jitter=1e-10)
+        r_pim_w = (Wp @ r_pim[..., None])[..., 0]
+        Jp_i_w = Wp @ Jp_i
+        Jp_j_w = Wp @ Jp_j
+        sig = torch.cat(
+            [cfg.acc_random_walk.expand(3), cfg.gyro_random_walk.expand(3)]
+        )[None, :] * torch.sqrt(dt_k)[:, None]
+        r = torch.cat([r_pim_w, r_bias / sig], dim=-1)
+        Ji = torch.cat([Jp_i_w, Jb_i / sig[:, :, None]], dim=-2)
+        Jj = torch.cat([Jp_j_w, Jb_j / sig[:, :, None]], dim=-2)
     ok = (win.pim_valid[ks] & win.mask[ks] & win.mask[km]).to(win.pos.dtype)
     return Ji * ok[:, None, None], Jj * ok[:, None, None], r * ok[:, None]
 
@@ -716,6 +736,44 @@ def _gn_solve(cfg: BackendConfig, win: Window, lmk: LandmarkTable):
         n_recovered += int(bad)
         pts_fixed = (pts, lmk_ok)
     return win, pts_fixed, n_recovered
+
+
+def state_covariance(cfg: BackendConfig, win: Window, lmk: LandmarkTable,
+                     return_ok: bool = False):
+    """Marginal covariance (15x15) of the newest state: the window's
+    information inverted onto the newest block (the reference's
+    VioBackend::computeStateCovariance). Jacobi equilibration, a 1e-6
+    ridge, non-finite entries zeroed, a Cholesky and a solve for the
+    newest 15 columns; the block is symmetrised.
+
+    `return_ok=True` also returns a health flag (a 0-d bool tensor): the
+    assembly reuses the robust weights at the current estimate without
+    the solver's recovery path, so on a sick window (non-finite rows, a
+    Hessian not positive definite after equilibration, a non-finite or
+    non-positive variance) the numbers mean nothing."""
+    D = cfg.nr_states * S_DOF
+    H, _, _, _ = _assemble(cfg, win, lmk)
+    eye = torch.eye(D, dtype=H.dtype, device=H.device)
+    H = 0.5 * (H + H.T)
+    d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
+    dinv = 1.0 / d
+    Hs = H * dinv[:, None] * dinv[None, :] + 1e-6 * eye
+    newest = max(win.n - 1, 0)
+    rows = slice(newest * S_DOF, (newest + 1) * S_DOF)
+    E = torch.zeros((D, S_DOF), dtype=H.dtype, device=H.device)
+    E[rows] = eye[:S_DOF, :S_DOF]
+    Hs = torch.where(torch.isfinite(Hs), Hs, torch.zeros_like(Hs))
+    Lc, info = torch.linalg.cholesky_ex(Hs)
+    # jnp.linalg.cholesky returns NaN where this reports info != 0.
+    Lc = torch.where(info != 0, torch.full_like(Lc, torch.nan), Lc)
+    X = torch.cholesky_solve(E * dinv[:, None], Lc)
+    cov = (X * dinv[:, None])[rows]
+    cov = 0.5 * (cov + cov.T)
+    if not return_ok:
+        return cov
+    ok = (torch.isfinite(H).all() & torch.isfinite(Lc).all() & torch.isfinite(cov).all()
+          & (torch.diagonal(cov) > 0).all())
+    return cov, ok
 
 
 # ---------------------------------------------------------------------------

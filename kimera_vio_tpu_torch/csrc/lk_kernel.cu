@@ -51,8 +51,14 @@
 //      stride congruent to the window width mod 32, so a warp's 32
 //      consecutive window pixels fall in 32 distinct banks.
 //   4. win and search_rows are template parameters (<24, 56> for the main
-//      path; <0, 0> is the generic instantiation with runtime sizes, win up
-//      to kMaxWin), so the pixel loops unroll and divide by constants.
+//      path), so the pixel loops unroll and divide by constants. Two
+//      generic instantiations take runtime sizes: <0, 0, kMaxWin> for
+//      windows up to 32 px and <0, 0, kMaxWinWide> for 33-54 px. The third
+//      parameter sizes each thread's pixel arrays (6 pixels a thread up to
+//      32 px, 16 up to 54), so the wide one costs the narrower windows
+//      nothing. 54 px is the widest window the Pallas tracker admits: its
+//      search-window clip search_rows - win - 2 must stay >= 0 at its 56
+//      rows (pallas/lk_kernel.py:177-181).
 // TMA does not fit: level rows (94, 47, 311, 621, 1241 floats...) are not
 // multiples of 16 bytes, and its out-of-bounds fill is zeros, not the edge
 // replication the reference uses. Tensor cores have nothing to do: a step is
@@ -67,7 +73,8 @@ namespace {
 
 constexpr int kLanes = 128;     // search-window width (the TPU lane width)
 constexpr int kMaxLevels = 8;
-constexpr int kMaxWin = 32;     // largest window of the generic instantiation
+constexpr int kMaxWin = 32;     // largest window of the narrow generic instantiation
+constexpr int kMaxWinWide = 54; // largest window of the wide one, and of any launch
 // Threads per block (one block per keypoint). Of 96, 192 and 288, which
 // split a 24x24 window evenly, 192 was the fastest on an H100.
 constexpr int kThreads = 192;
@@ -196,13 +203,13 @@ __device__ __forceinline__ int next_active(const Table& tab, int e) {
   return e;
 }
 
-template <int WIN, int SR>
+template <int WIN, int SR, int MAXWIN>
 __global__ void __launch_bounds__(kThreads)
 lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ prev_pts,
                   const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
                   float* __restrict__ out_pts, uint8_t* __restrict__ out_ok,
                   int32_t* __restrict__ out_iters) {
-  constexpr int kPPT = ((WIN > 0 ? WIN * WIN : kMaxWin * kMaxWin) + kThreads - 1) / kThreads;
+  constexpr int kPPT = ((WIN > 0 ? WIN * WIN : MAXWIN * MAXWIN) + kThreads - 1) / kThreads;
   constexpr bool kExact = WIN > 0 && (WIN * WIN) % kThreads == 0;
   const int win = WIN > 0 ? WIN : tab.win;
   const int sr = SR > 0 ? SR : tab.search_rows;
@@ -424,11 +431,11 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
   }
 }
 
-template <int WIN, int SR>
+template <int WIN, int SR, int MAXWIN>
 int launch(const Table& tab, size_t smem, int N, const void* prev_pts, const void* init_pts,
            const void* valid, void* out_pts, void* out_ok, void* out_iters,
            cudaStream_t stream) {
-  auto kernel = lk_pyramid_kernel<WIN, SR>;
+  auto kernel = lk_pyramid_kernel<WIN, SR, MAXWIN>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -445,15 +452,15 @@ int launch(const Table& tab, size_t smem, int N, const void* prev_pts, const voi
 // planes: 4 pointers per level (prev, gx, gy, cur), coarse to fine;
 // ints: 5 per level (H, W, mode, clamp_h, keep_ok); scales: 1 per
 // level. Outputs: pts (N,2) float32, ok (N,) uint8, iters (N, n_levels) int32
-// indexed by level number.
+// indexed by level number. search_rows is read only when a level takes the
+// window rule (modes kVmem and kGather); the gather rule passes 0.
 extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, const float* scales,
                                  int n_levels, int H0, int W0, const void* prev_pts,
                                  const void* init_pts, const void* valid, void* out_pts,
                                  void* out_ok, void* out_iters, int N, int win,
                                  int search_rows, int max_iter, float eps2,
                                  float min_eig_thresh, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || win < 2 || win > kMaxWin ||
-      search_rows < win + 2)
+  if (n_levels < 1 || n_levels > kMaxLevels || win < 2 || win > kMaxWinWide)
     return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
   Table tab = {};
@@ -481,6 +488,7 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, con
     if (L.mode < kSkip || L.mode > kGather) return (int)cudaErrorInvalidValue;
     any_window = any_window || L.mode == kVmem || L.mode == kGather;
   }
+  if (any_window && search_rows < win + 2) return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -501,8 +509,13 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, con
   const size_t smem = fixed + sizeof(float) * stage;
   const cudaStream_t s = (cudaStream_t)stream;
   if (win == 24 && search_rows == 56)
-    return launch<24, 56>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok, out_iters, s);
-  return launch<0, 0>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok, out_iters, s);
+    return launch<24, 56, 24>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
+                              out_iters, s);
+  if (win <= kMaxWin)
+    return launch<0, 0, kMaxWin>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
+                                 out_iters, s);
+  return launch<0, 0, kMaxWinWide>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
+                                   out_iters, s);
 }
 
 extern "C" const char* lk_error_string(int code) {

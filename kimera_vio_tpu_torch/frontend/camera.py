@@ -1,13 +1,14 @@
 """Camera models: distortion, undistortion, stereo rectification, remap.
 
-Port of kimera_vio_tpu/frontend/camera.py for pinhole cameras with
-radial-tangential or equidistant distortion (or none): iterative
-undistortion, bearing vectors, Bouguet-style stereo
+Port of kimera_vio_tpu/frontend/camera.py: pinhole cameras with
+radial-tangential or equidistant distortion (or none), and OCamCalib omni
+cameras (backprojection through the z-polynomial, projection by a Newton
+inversion of it); iterative undistortion, bearing vectors, Bouguet-style stereo
 rectification, keypoint rectification, the dense rectification map (numpy,
 built once per rig) and the bilinear image remap. The reference runs the
 dense remap as a separable shifted-select resample (`SeparableRemap`),
 a TPU workaround for slow gathers; on the GPU the remap is the plain
-4-tap gather `remap_bilinear`. Omni (OCamCalib) cameras are not ported.
+4-tap gather `remap_bilinear`.
 
 Camera constants are 0-d float32 tensors on the pipeline's device, so the
 arithmetic rounds as the reference's float32 scalars do.
@@ -26,6 +27,7 @@ from kimera_vio_tpu_torch.config.params import CameraParams
 DIST_NONE = 0
 DIST_RADTAN = 1
 DIST_EQUIDISTANT = 2
+DIST_OMNI = 3
 
 _DIST_CODES = {
     "none": DIST_NONE,
@@ -34,6 +36,7 @@ _DIST_CODES = {
     "radtan": DIST_RADTAN,
     "equidistant": DIST_EQUIDISTANT,
     "kannala_brandt": DIST_EQUIDISTANT,
+    "omni": DIST_OMNI,
 }
 
 
@@ -52,6 +55,10 @@ class PinholeCamera:
     dist: torch.Tensor  # (5,)
     R_bc: torch.Tensor  # (3,3)
     t_bc: torch.Tensor  # (3,)
+    # OCamCalib omni model (CameraParams.cpp:62-95): the distortion centre
+    # and the inverse of the pixel -> sensor-plane affine.
+    omni_center: torch.Tensor | None = None  # (2,)
+    omni_affine_inv: torch.Tensor | None = None  # (2,2)
     dist_model: int = DIST_RADTAN
     width: int = 752
     height: int = 480
@@ -59,11 +66,21 @@ class PinholeCamera:
     @classmethod
     def from_params(cls, p: CameraParams, device="cuda") -> "PinholeCamera":
         device = resolve_device(device)
-        if getattr(p, "camera_model", "pinhole") == "omni":
-            raise NotImplementedError("omni cameras are not ported")
         d = np.zeros(5)
         d[: min(5, len(p.distortion_coeffs))] = p.distortion_coeffs[:5]
+        model = (DIST_OMNI if getattr(p, "camera_model", "pinhole") == "omni"
+                 else _DIST_CODES[p.distortion_model])
+        center = np.zeros(2)
+        affine = np.eye(2)
         intr = np.asarray(p.intrinsics, np.float64)
+        if model == DIST_OMNI:
+            center = np.asarray(p.omni_distortion_center, np.float64)
+            c_, d_, e_ = p.omni_affine  # A = [[1, c], [d, e]]
+            affine = np.linalg.inv(np.array([[1.0, c_], [d_, e_]]))
+            if intr.size < 4:
+                # Omni params leave the intrinsics empty: pixels map
+                # through the affine and the centre instead.
+                intr = np.array([1.0, 1.0, float(center[0]), float(center[1])])
         return cls(
             fx=_f32(intr[0], device),
             fy=_f32(intr[1], device),
@@ -72,7 +89,9 @@ class PinholeCamera:
             dist=_f32(d, device),
             R_bc=_f32(p.T_BS[:3, :3], device),
             t_bc=_f32(p.T_BS[:3, 3], device),
-            dist_model=_DIST_CODES[p.distortion_model],
+            omni_center=_f32(center, device),
+            omni_affine_inv=_f32(affine, device),
+            dist_model=model,
             width=p.width,
             height=p.height,
         )
@@ -98,9 +117,71 @@ def distort(cam: PinholeCamera, xy: torch.Tensor) -> torch.Tensor:
     return xy * scale[..., None]
 
 
+def _omni_poly(cam: PinholeCamera, rho: torch.Tensor) -> torch.Tensor:
+    """OCamCalib z-polynomial f(rho) = a0 + a1 rho + ... + a4 rho^4, by
+    Horner (Camera::BackProjectOmni)."""
+    d = cam.dist
+    z = d[4]
+    z = d[3] + z * rho
+    z = d[2] + z * rho
+    z = d[1] + z * rho
+    return d[0] + z * rho
+
+
+def omni_backproject_normalized(cam: PinholeCamera, uv: torch.Tensor) -> torch.Tensor:
+    """Omni pixels (...,2) -> normalized coords (x/z, y/z): the affine
+    correction around the distortion centre, then the polynomial for z."""
+    rect = torch.einsum("ij,...j->...i", cam.omni_affine_inv, uv - cam.omni_center)
+    rho = torch.linalg.norm(rect, dim=-1)
+    z = _omni_poly(cam, rho)
+    safe_z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    return rect / safe_z[..., None]
+
+
+def omni_project(cam: PinholeCamera, p_cam: torch.Tensor, iters: int = 12):
+    """Omni projection of camera-frame points (...,3): `iters` Newton steps
+    on m f(rho) - z rho = 0 for the sensor radius rho (m is the point's
+    in-plane norm), then the affine and the centre. Returns (uv, valid:
+    inside the image)."""
+    x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
+    m = torch.sqrt(x * x + y * y)
+    d = cam.dist
+    rho = torch.full_like(m, 100.0)  # a generic fisheye starting radius
+    for _ in range(iters):
+        f = _omni_poly(cam, rho)
+        df = d[1] + rho * (2 * d[2] + rho * (3 * d[3] + rho * 4 * d[4]))
+        g = m * f - z * rho
+        dg = m * df - z
+        rho = rho - g / torch.where(torch.abs(dg) < 1e-9, torch.full_like(dg, 1e-9), dg)
+    scale = torch.where(m > 1e-9, rho / torch.clamp(m, min=1e-9), torch.zeros_like(m))
+    rect = torch.stack([x * scale, y * scale], -1)
+    affine = torch.linalg.inv(cam.omni_affine_inv)
+    uv = torch.einsum("ij,...j->...i", affine, rect) + cam.omni_center
+    valid = (uv[..., 0] >= 0) & (uv[..., 0] < cam.width) & (uv[..., 1] >= 0) & (uv[..., 1] < cam.height)
+    return uv, valid
+
+
+def project(cam: PinholeCamera, p_cam: torch.Tensor):
+    """Camera-frame points (...,3) -> distorted pixels (...,2) and valid
+    (in front of the camera and inside the image; Camera::project)."""
+    if cam.dist_model == DIST_OMNI:
+        return omni_project(cam, p_cam)
+    z = p_cam[..., 2]
+    safe_z = torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
+    xy = p_cam[..., 0:2] / safe_z[..., None]
+    xyd = distort(cam, xy)
+    u = cam.fx * xyd[..., 0] + cam.cx
+    v = cam.fy * xyd[..., 1] + cam.cy
+    valid = (z > 1e-6) & (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
+    return torch.stack([u, v], dim=-1), valid
+
+
 def undistort_to_normalized(cam: PinholeCamera, uv: torch.Tensor, iters: int = 25) -> torch.Tensor:
     """Pixels (...,2) -> undistorted normalized coords by fixed-point
-    iteration (cv::undistortPoints)."""
+    iteration (cv::undistortPoints); omni pixels backproject in closed
+    form."""
+    if cam.dist_model == DIST_OMNI:
+        return omni_backproject_normalized(cam, uv)
     xd = (uv[..., 0] - cam.cx) / cam.fx
     yd = (uv[..., 1] - cam.cy) / cam.fy
     target = torch.stack([xd, yd], dim=-1)
@@ -211,6 +292,23 @@ def rectify_keypoints(stereo: StereoCamera, cam: PinholeCamera, R_rect, uv):
     return torch.stack([u, v], dim=-1)
 
 
+def unrectify_keypoints(stereo: StereoCamera, cam: PinholeCamera, R_rect, uv_rect):
+    """Rectified pixels -> distorted pixels in `cam`
+    (UndistorterRectifier::distortUnrectifyKeypoints). As in the JAX
+    package, every model but none and radial-tangential goes through the
+    equidistant branch of `distort`, omni included."""
+    x = (uv_rect[..., 0] - stereo.cx) / stereo.fx
+    y = (uv_rect[..., 1] - stereo.cy) / stereo.fy
+    rays_rect = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    rays = (R_rect.T @ rays_rect[..., None])[..., 0]
+    z = torch.clamp(rays[..., 2], min=1e-8)
+    xy = rays[..., 0:2] / z[..., None]
+    xyd = distort(cam, xy)
+    u = cam.fx * xyd[..., 0] + cam.cx
+    v = cam.fy * xyd[..., 1] + cam.cy
+    return torch.stack([u, v], dim=-1)
+
+
 def _distort_np(dist_model: int, dist: np.ndarray, xy: np.ndarray) -> np.ndarray:
     """Numpy mirror of `distort` for construction-time map building."""
     if dist_model == DIST_NONE:
@@ -234,11 +332,16 @@ def _distort_np(dist_model: int, dist: np.ndarray, xy: np.ndarray) -> np.ndarray
 def rectification_map(stereo: StereoCamera, cam: PinholeCamera, R_rect) -> np.ndarray:
     """(H, W, 2) float32: for every rectified pixel, the (x, y) source
     position in the distorted image (cv::initUndistortRectifyMap);
-    numpy on the host, once per rig."""
+    numpy on the host, once per rig. An omni camera's map is
+    `unrectify_keypoints` of every pixel, in float32 on the camera's
+    device, as the JAX package builds it."""
     H, W = cam.height, cam.width
     ys = np.arange(H, dtype=np.float64)
     xs = np.arange(W, dtype=np.float64)
     vv, uu = np.meshgrid(ys, xs, indexing="ij")
+    if cam.dist_model == DIST_OMNI:
+        grid = torch.from_numpy(np.stack([uu, vv], -1).astype(np.float32)).to(cam.dist.device)
+        return unrectify_keypoints(stereo, cam, R_rect, grid).cpu().numpy()
     x = (uu - float(stereo.cx)) / float(stereo.fx)
     y = (vv - float(stereo.cy)) / float(stereo.fy)
     rays_rect = np.stack([x, y, np.ones_like(x)], axis=-1)

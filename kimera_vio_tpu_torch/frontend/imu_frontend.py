@@ -314,26 +314,43 @@ def preintegrate(
     return _compose_pim(params, init, pim_block)
 
 
+def preintegrate_gyro(block: ImuBlock, gyro_bias: torch.Tensor) -> torch.Tensor:
+    """Gyro-only rotation preintegration (the reference's
+    ImuFrontend::preintegrateGyroMeasurements): the product of the masked
+    samples' exp((gyr - bias) dt), left to right in sample order. Returns
+    DeltaR (3,3). The increments are one batched `so3_exp`; the product
+    stays sequential, in the reference's order."""
+    dt = torch.where(block.mask, block.dt, torch.zeros_like(block.dt))
+    dR = geo.so3_exp((block.gyr - gyro_bias) * dt[:, None])
+    R = torch.eye(3, dtype=block.gyr.dtype, device=block.gyr.device)
+    for i in range(dR.shape[0]):
+        R = R @ dR[i]
+    return R
+
+
 def combined_cov15(pim: Pim, acc_random_walk, gyro_random_walk) -> torch.Tensor:
     """Joint 15x15 covariance of [preintegration error; bias_j - bias_i]
-    for the Combined flavour (closed form, first order in the walk)."""
+    for the Combined flavour (closed form, first order in the walk).
+    Takes a PIM with any leading batch dimensions."""
     dev, dtp = pim.cov.device, pim.cov.dtype
-    Jb = torch.zeros((9, 6), dtype=dtp, device=dev)
-    Jb[0:3, 3:6] = pim.dR_dbg
-    Jb[3:6, 0:3] = pim.dv_dba
-    Jb[3:6, 3:6] = pim.dv_dbg
-    Jb[6:9, 0:3] = pim.dp_dba
-    Jb[6:9, 3:6] = pim.dp_dbg
+    batch = pim.cov.shape[:-2]
+    Jb = torch.zeros((*batch, 9, 6), dtype=dtp, device=dev)
+    Jb[..., 0:3, 3:6] = pim.dR_dbg
+    Jb[..., 3:6, 0:3] = pim.dv_dba
+    Jb[..., 3:6, 3:6] = pim.dv_dbg
+    Jb[..., 6:9, 0:3] = pim.dp_dba
+    Jb[..., 6:9, 3:6] = pim.dp_dbg
     dt = torch.clamp(pim.delta_t, min=1e-6)
     arw = torch.as_tensor(acc_random_walk, dtype=dtp, device=dev)
     grw = torch.as_tensor(gyro_random_walk, dtype=dtp, device=dev)
-    qb = torch.cat([(arw**2).expand(3), (grw**2).expand(3)]) * dt
-    Qb = torch.diag(qb)
+    qb = torch.cat([(arw**2).expand(3), (grw**2).expand(3)]) * dt[..., None]
+    Qb = torch.diag_embed(qb)
     JQ = Jb @ Qb
-    top = pim.cov + JQ @ Jb.T / 3.0
+    top = pim.cov + JQ @ Jb.transpose(-1, -2) / 3.0
     cross = JQ / 2.0
     return torch.cat(
-        [torch.cat([top, cross], dim=1), torch.cat([cross.T, Qb], dim=1)], dim=0
+        [torch.cat([top, cross], dim=-1),
+         torch.cat([cross.transpose(-1, -2), Qb], dim=-1)], dim=-2
     )
 
 

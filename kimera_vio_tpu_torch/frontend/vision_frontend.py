@@ -14,7 +14,8 @@ is a host `if` on the decision, which needs the tracked count and the
 median disparity on the host (one small copy per frame).
 
 Per keyframe: mono RANSAC (2-pt given the gyro rotation, or 5-pt),
-re-detection (GFTT + binning ANMS), stereo matching, stereo RANSAC (1-pt
+re-detection (GFTT, Harris, FAST or ORB; binning or ANMS types 0-5),
+stereo matching, stereo RANSAC (1-pt
 voting given the rotation, or 3-pt Arun), measurements for the backend.
 RANSAC hypotheses come from a `torch.Generator` seeded with the frame
 count (the reference folds the frame count into PRNGKey(0)).
@@ -58,7 +59,7 @@ from kimera_vio_tpu_torch.loopclosure import orb as orb_mod
 from kimera_vio_tpu_torch.ops import corner_detection as det
 from kimera_vio_tpu_torch.ops import optical_flow as of
 from kimera_vio_tpu_torch.ops import ransac
-from kimera_vio_tpu_torch.ops.lk_kernel import klt_track_lk
+from kimera_vio_tpu_torch.ops.lk_kernel import MAX_WIN as LK_MAX_WIN, klt_track_lk
 from kimera_vio_tpu_torch.ops.stereo_matching import match_stereo
 
 TRACKING_VALID = 0
@@ -88,6 +89,16 @@ class FrontendConfig:
     n_hyp_mono: int = 128
     nr_horizontal_bins: int = 7
     nr_vertical_bins: int = 5
+    # FeatureDetector type: 0 FAST, 1 ORB (FAST-gated, Harris-ranked), 2
+    # AGAST (refused, as in the reference), 3 GFTT.
+    detector_type: int = 3
+    # AnmsAlgorithmType: 6 binning; 0-5 TopN / BrownANMS / SDC / KdTree /
+    # RangeTree / SSC over the strongest candidates (ops/anms.py).
+    anms_type: int = 6
+    max_nr_keypoints_before_anms: int = 1024
+    use_harris: bool = False  # GFTT ranks by the Harris response
+    harris_k: float = 0.04
+    fast_thresh: float = 10.0
     do_subpixel: bool = True
     max_feature_age: int = 25
     quality_level: float = _f32(0.001)
@@ -118,11 +129,11 @@ class FrontendConfig:
 
     @classmethod
     def from_params(cls, fp, max_features=384) -> "FrontendConfig":
-        """From a FrontendParams, as the reference's `from_params`; refuses
-        the detectors this port does not have."""
-        if fp.feature_detector_type != 3 or not fp.enable_non_max_suppression \
-                or fp.non_max_suppression_type != 6 or fp.use_harris_detector:
-            raise NotImplementedError("only GFTT with binning ANMS (type 6) is ported")
+        """From a FrontendParams, as the JAX package's `from_params`.
+        Without non-max suppression the ANMS type is 0 (TopN); the
+        candidate pool is capped at 1024. The JAX package does not read
+        use_harris_detector, k and fast_thresh (its detector runs with
+        their defaults); the port reads them, as the reference does."""
         return cls(
             max_features=max_features,
             klt_win=fp.klt_win_size,
@@ -133,6 +144,12 @@ class FrontendConfig:
             templ_rows=fp.templ_rows,
             nr_horizontal_bins=fp.nr_horizontal_bins,
             nr_vertical_bins=fp.nr_vertical_bins,
+            detector_type=int(fp.feature_detector_type),
+            anms_type=int(fp.non_max_suppression_type) if fp.enable_non_max_suppression else 0,
+            max_nr_keypoints_before_anms=min(int(fp.max_nr_keypoints_before_anms), 1024),
+            use_harris=bool(fp.use_harris_detector),
+            harris_k=float(fp.k),
+            fast_thresh=float(fp.fast_thresh),
             do_subpixel=fp.enable_subpixel_corner_finder,
             max_feature_age=int(fp.max_feature_age),
             quality_level=_f32(fp.quality_level),
@@ -214,6 +231,9 @@ class StereoFrontend:
 
     def __init__(self, cfg: FrontendConfig, stereo: StereoCamera, pim_params: imu.PimParams,
                  device: torch.device):
+        if device.type == "cuda" and cfg.klt_win > LK_MAX_WIN:
+            raise ValueError(f"klt_win_size {cfg.klt_win}: the LK kernel takes windows up to "
+                             f"{LK_MAX_WIN} px, the widest the Pallas tracker admits")
         self.cfg = cfg
         self.stereo = stereo
         self.pim_params = pim_params
@@ -271,9 +291,12 @@ class StereoFrontend:
         cfg = self.cfg
         return det.detect_features(
             img, feats.uv, feats.mask, cfg.max_features,
-            quality_level=cfg.quality_level, min_distance=cfg.min_distance,
-            nr_horizontal_bins=cfg.nr_horizontal_bins,
+            detector_type=cfg.detector_type, quality_level=cfg.quality_level,
+            min_distance=cfg.min_distance, use_harris=cfg.use_harris, harris_k=cfg.harris_k,
+            fast_thresh=cfg.fast_thresh, nr_horizontal_bins=cfg.nr_horizontal_bins,
             nr_vertical_bins=cfg.nr_vertical_bins, do_subpixel=cfg.do_subpixel,
+            anms_type=cfg.anms_type,
+            max_nr_keypoints_before_anms=cfg.max_nr_keypoints_before_anms,
         )
 
     def _pyramid_and_grads(self, img):

@@ -100,7 +100,10 @@ def level_mode(H: int, W: int, win: int, search_rows: int | None):
 
 _MODE_CODES = {"skip": 0, "xla": 1, "vmem": 2, "gather": 3}  # csrc/lk_kernel.cu: Mode
 _MAX_LEVELS = 8  # csrc/lk_kernel.cu: kMaxLevels
-_MAX_WIN = 32  # csrc/lk_kernel.cu: kMaxWin
+# csrc/lk_kernel.cu: kMaxWinWide. The widest window the Pallas tracker
+# admits: its search-window clip search_rows - win - 2 (pallas/lk_kernel.py:
+# 177-181) must stay >= 0 at its fixed 56 rows.
+MAX_WIN = 54
 
 
 class LevelPlan(NamedTuple):
@@ -387,21 +390,27 @@ def _check_image(name, t, dev, shape=None):
 
 def lk_pyramid_cuda(
     prev_pyr, cur_pyr, prev_grads, prev_pts, init_pts, valid, *,
-    win: int, max_iter: int, eps: float, min_eig_thresh: float, search_rows: int,
+    win: int, max_iter: int, eps: float, min_eig_thresh: float, search_rows: int | None,
 ):
     """Track one frame, every level, in ONE launch of the CUDA kernel.
     Computes what `track_pyramid(lk_level_plain, ...)` computes (the
-    window sums in another order). Returns (pts (N,2) float32, ok (N,)
-    bool, iters (N, n_levels) int32: the Gauss-Newton steps per level,
-    indexed by level number). Adds one to `lk_pyramid_cuda.launches` per
-    launch."""
+    window sums in another order), with the window rule of
+    `klt_track_pallas` at `search_rows`, or with `search_rows=None` the
+    gather rule (every level an XLA level); windows of 2-54 px. Returns
+    (pts (N,2) float32, ok (N,) bool, iters (N, n_levels) int32: the
+    Gauss-Newton steps per level, indexed by level number). Adds one to
+    `lk_pyramid_cuda.launches` per launch."""
     n = len(prev_pyr)
     if n == 0 or len(cur_pyr) != n or len(prev_grads) != n:
         raise ValueError("need one prev, cur and gradient pair per level")
     if n > _MAX_LEVELS:
         raise ValueError(f"at most {_MAX_LEVELS} pyramid levels, got {n}")
-    if not (2 <= win <= _MAX_WIN and search_rows >= win + 2):
-        raise ValueError(f"need 2 <= win <= {_MAX_WIN} and search_rows >= win + 2")
+    if not 2 <= win <= MAX_WIN:
+        raise ValueError(
+            f"win {win}: the kernel takes 2 <= win <= {MAX_WIN}, the widest window the "
+            f"Pallas tracker admits (its clip search_rows - win - 2 must stay >= 0 at 56 rows)")
+    if search_rows is not None and search_rows < win + 2:
+        raise ValueError(f"search_rows {search_rows} < win + 2 = {win + 2}")
     dev = prev_pyr[0].device
     if dev.type != "cuda":
         raise ValueError("lk_pyramid_cuda needs CUDA tensors")
@@ -441,7 +450,7 @@ def lk_pyramid_cuda(
             planes, ints, scales, n, H0, W0,
             prev_pts.data_ptr(), init_pts.data_ptr(), valid.data_ptr(),
             out_pts.data_ptr(), out_ok.data_ptr(), out_iters.data_ptr(),
-            N, win, search_rows, max_iter, float(eps * eps), float(min_eig_thresh),
+            N, win, search_rows or 0, max_iter, float(eps * eps), float(min_eig_thresh),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -461,7 +470,7 @@ lk_pyramid_cuda.launches = 0
 def klt_track_lk(
     prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
     win: int = 24, max_iter: int = 30, eps: float = 0.1,
-    min_eig_thresh: float = 1e-4, prev_grads=None, search_rows: int = 56,
+    min_eig_thresh: float = 1e-4, prev_grads=None, search_rows: int | None = 56,
     device: str | torch.device = "cuda",
 ):
     """Pyramidal LK with the level plan of `klt_track_pallas`: coarse to

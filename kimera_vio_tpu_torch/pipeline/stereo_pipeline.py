@@ -943,6 +943,22 @@ class StereoImuPipeline:
             if isinstance(stream, PrefetchIterator):
                 stream.close()
 
+    def state_covariance(self, return_ok: bool = False):
+        """Marginal 15x15 covariance of the newest state of the last run's
+        final window (the reference's computeStateCovariance /
+        getStateCovariance, which a ROS odometry publisher consumes); one
+        extra solve, on demand. `return_ok=True` adds the health flag
+        (False: a sick window, the numbers mean nothing; see
+        `smoother.state_covariance`). Returns numpy (and a bool)."""
+        if not hasattr(self, "_last_win"):
+            raise RuntimeError("state_covariance: no completed run yet")
+        out = sm.state_covariance(self.backend_cfg, self._last_win, self._last_lmk,
+                                  return_ok=return_ok)
+        if return_ok:
+            cov, ok = out
+            return cov.cpu().numpy(), bool(ok)
+        return out.cpu().numpy()
+
     def run(self, provider, verbose: bool = False) -> PipelineOutput:
         """Run the whole provider sequence; returns the keyframe trajectory."""
         return self._drive(provider, self._direct_frames(provider), verbose,
