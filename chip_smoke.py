@@ -10,8 +10,9 @@ against its plain PyTorch version on the card, drives the port's
 stereo-inertial `StereoImuPipeline.run()` on the synthetic 752x480
 sequence (80 frames), its CLI, loop closure, its variants (mono,
 RGB-D, online initialization, pose sources, time alignment), the
-mesher with RegularVIO and the options it used to refuse, and checks the
-results. Every failure ends the run
+mesher with RegularVIO, the options it used to refuse, and the KITTI and
+live providers, the debug overlays, the visualizer and the playground,
+and checks the results. Every failure ends the run
 with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
 path, the phases' lines, one JSON line with the kernel table, and last
@@ -38,8 +39,8 @@ Phases:
      finite and within the JAX package's ATE gate (rmse < 0.05 m,
      tests/test_pipeline_e2e.py:35).
   3. cli: phase 2's sequence written as a EuRoC `mav0` folder (PNGs from
-     this script's own encoder, whose rows cycle through all five PNG
-     filters; CSVs with repr floats) and phase 2's params as a
+     the package's encoder, dataprovider/png.py, whose rows cycle through
+     all five PNG filters; CSVs with repr floats) and phase 2's params as a
      reference-format YAML params folder (parallel_run: 1). Exact gates
      first: `VioParams.from_folder` equals the params, and every decoded
      PNG equals the array written. Then `python -m kimera_vio_tpu_torch`
@@ -156,6 +157,42 @@ Phases:
      omni_backproject_normalized and omni_project back within 1e-3 px,
      and the 1280x960 rectification map built on the card equal to the
      CPU's within 1e-3 px.
+  8. host modules. (a) KITTI at full width: a synthetic 1241x376 sequence
+     (KITTI odometry's size, fx 718.856, baseline 0.537 m; 40 frames at
+     10 Hz, 100 Hz IMU, 15 m ahead at 2 m/s) written as a KITTI raw folder
+     (`write_kitti`: PNGs, datetime timestamps, OXTS rows), read back
+     exactly (stamps on the folder's clock, OXTS rows, every PNG), then
+     `KittiDataProvider` through the sequential `run()` at phase 2's
+     capacities, twice. With the source's ground truth attached: level 0
+     of the LK level table in B1's gather mode, LK launches = tracked
+     frames, ATE rmse < 0.05 m, the keyframe stamps of the source run
+     directly (images rounded to uint8) and positions within 1e-3 m of
+     it. Without ground truth (the IMU-attitude bootstrap): LK launches =
+     tracked frames, finite poses, at least one keyframe. One `[kitti]`
+     line per run: frames/s beside phase 2's, frame and keyframe step ms,
+     ATE, and B1's in-run launch-and-kernel ms per frame (CUDA events
+     around the kernel's wrapper: the host's launch path falls between
+     them). A third run with ground truth, under `torch.profiler`, reads
+     B1's device time per launch from the trace; one more `[kitti]` line
+     puts it beside phase 1's graph-replay time of the 1241x376 pair.
+     (b) Live: phase 2's sequence replayed through `LiveDataProvider` on a
+     feeder thread into the sequential `run()`, phase 2's ground truth
+     attached (its bootstrap): phase 2's keyframe stamps, positions within
+     1e-3 m, LK launches = tracked frames; and `stop()` with a frame that
+     can never sync: `frames()` returns within 5 s (a watchdog join). (c)
+     `log_frontend_images` at phase 2's configuration in the sequential
+     and parallel `run()` and `run_chunked(collect_aux=True)`: one
+     480x752 RGB PNG per fused-step keyframe, each with coloured pixels,
+     phase 2's keyframe stamps; `visualize` + `visualize_mesh_2d` with the
+     mesher on phase 6's near plane, the display writing every 4th
+     keyframe (the pipeline's default, every 10th, writes once in 17):
+     per written keyframe a point cloud and a mesh PLY (parsed back) and a
+     trajectory PNG, and a mesh2d PNG with green edges where the map
+     carries the mesher's image-plane mesh (at least one);
+     `visualize_gt_data` on phase 3's EuRoC folder: one trajectory PNG
+     per shown pose after the first. One
+     `[aux]` line per run: frames/s beside phase 2's (the host cost of
+     the writes).
 """
 
 from __future__ import annotations
@@ -164,12 +201,11 @@ import contextlib
 import json
 import os
 import re
-import struct
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -178,7 +214,8 @@ from kimera_vio_tpu_torch import __main__ as cli
 from kimera_vio_tpu_torch.common.geometry import quat_to_rot
 from kimera_vio_tpu_torch.config import flags as cli_flags
 from kimera_vio_tpu_torch.config.params import VioParams
-from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider
+from kimera_vio_tpu_torch.dataprovider import png
+from kimera_vio_tpu_torch.dataprovider.euroc import EurocDataProvider, GroundTruth
 from kimera_vio_tpu_torch.dataprovider.synthetic import (
     SyntheticPlanar6DofProvider,
     SyntheticStereoProvider,
@@ -194,8 +231,10 @@ from kimera_vio_tpu_torch.ops import corner_detection as det
 from kimera_vio_tpu_torch.ops import lk_kernel as lk
 from kimera_vio_tpu_torch.ops import optical_flow as of
 from kimera_vio_tpu_torch.pipeline.lcd_module import LcdModule
+from kimera_vio_tpu_torch.pipeline import stereo_pipeline
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 from kimera_vio_tpu_torch.utils.logger import compute_ate
+from kimera_vio_tpu_torch.visualizer.visualizer import FileDisplay
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # float32 rate outside the tensor cores.
@@ -372,6 +411,7 @@ def kernel_phase(dev) -> dict:
     kitti = compare_lk(*kitti_lk_inputs(dev), "1241x376")
     if kitti["levels"][-1]["mode"] != "gather":
         raise AssertionError("1241x376 level 0 should take the gather-kernel window rule")
+    main["kitti"] = kitti
     return main
 
 
@@ -438,47 +478,10 @@ def path_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def png_bytes(img: np.ndarray, filter_type: int | None = None) -> bytes:
-    """A grayscale PNG of a uint8 (8-bit) or uint16 (16-bit, big-endian
-    samples) `img`. Row y is filtered with `filter_type`, or, when it is
-    None, with type y % 5, so a decoder meets None, Sub, Up, Average and
-    Paeth rows in turn."""
-    H, W = img.shape
-    bpp = img.dtype.itemsize
-    x = np.ascontiguousarray(img.astype(">u2") if bpp == 2 else img).view(np.uint8)
-    x = x.reshape(H, W * bpp).astype(np.int16)
-    a = np.zeros_like(x)
-    a[:, bpp:] = x[:, :-bpp]
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]
-    c = np.zeros_like(x)
-    c[1:, bpp:] = x[:-1, :-bpp]
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    preds = (np.zeros_like(x), a, b, (a + b) >> 1, paeth)
-    rows = []
-    for y in range(H):
-        ft = y % 5 if filter_type is None else filter_type
-        rows.append(bytes([ft]) + ((x[y] - preds[ft][y]) & 0xFF).astype(np.uint8).tobytes())
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-    ihdr = struct.pack(">IIBBBBB", W, H, 8 * bpp, 0, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
-
-
 def to_uint8(img: np.ndarray) -> np.ndarray:
     """The synthetic provider renders float32 gray levels; a PNG holds them
     rounded to uint8."""
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
-
-
-def _png_writer(path: str, img: np.ndarray) -> None:
-    with open(path, "wb") as f:
-        f.write(png_bytes(img))
 
 
 def _write_cam(mav0: str, cam: str, stamps, images, write_png) -> list:
@@ -524,7 +527,7 @@ def write_euroc(root: str, provider, write_png=None) -> list:
     written = []
     for cam, kind in (("cam0", "left"), ("cam1", "right")):
         images = (to_uint8(provider.load_image((kind, k))) for k in range(len(provider.left_stamps)))
-        written += _write_cam(mav0, cam, provider.left_stamps, images, write_png or _png_writer)
+        written += _write_cam(mav0, cam, provider.left_stamps, images, write_png or png.write_png)
     _write_imu_gt(mav0, provider)
     return written
 
@@ -538,12 +541,53 @@ def write_rgbd(root: str, provider) -> list:
     mav0 = os.path.join(root, "mav0")
     n = len(provider.left_stamps)
     written = _write_cam(mav0, "cam0", provider.left_stamps,
-                         (to_uint8(provider.load_image(("left", k))) for k in range(n)), _png_writer)
+                         (to_uint8(provider.load_image(("left", k))) for k in range(n)), png.write_png)
     depth_mm = np.full((provider.height, provider.width), round(provider.depth * 1000.0), np.uint16)
     depth_mm[:10, :10] = 60000
     written += _write_cam(mav0, "depth0", provider.left_stamps, (depth_mm for _ in range(n)),
-                          _png_writer)
+                          png.write_png)
     _write_imu_gt(mav0, provider)
+    return written
+
+
+#: Time of day of a synthetic KITTI folder's first stamp (any stamp on a
+#: 5 ms grid after it parses back to the exact ns, checked in phase 8)
+KITTI_DAY, KITTI_TOD_NS = "2011-09-26", (13 * 3600 + 2 * 60 + 25) * 10**9
+
+
+def _kitti_stamps(path: str, stamps_ns) -> None:
+    """A KITTI timestamps.txt: each stamp after KITTI_TOD_NS as
+    "YYYY-MM-DD hh:mm:ss.fffffffff", written from the integers."""
+    with open(path, "w") as f:
+        for t in stamps_ns:
+            s, ns = divmod(KITTI_TOD_NS + int(t), 10**9)
+            f.write(f"{KITTI_DAY} {s // 3600:02d}:{s // 60 % 60:02d}:{s % 60:02d}.{ns:09d}\n")
+
+
+def write_kitti(root: str, provider) -> list:
+    """`provider`'s sequence as a KITTI raw folder under `root`
+    (dataprovider/kitti.py): image_00 / image_01 8-bit PNGs of the images
+    rounded to uint8 and their timestamps, oxts/timestamps.txt and one
+    30-column OXTS row per IMU sample (accelerations in columns 11-13,
+    angular rates in 17-19, the rest 0; floats as %.18e). Returns the
+    images written, as (path, array) pairs."""
+    written = []
+    n = len(provider.left_stamps)
+    for cam, kind in (("image_00", "left"), ("image_01", "right")):
+        os.makedirs(os.path.join(root, cam, "data"))
+        _kitti_stamps(os.path.join(root, cam, "timestamps.txt"), provider.left_stamps)
+        for k in range(n):
+            path = os.path.join(root, cam, "data", f"{k:010d}.png")
+            img = to_uint8(provider.load_image((kind, k)))
+            png.write_png(path, img)
+            written.append((path, img))
+    sync = provider.imu_sync
+    os.makedirs(os.path.join(root, "oxts", "data"))
+    _kitti_stamps(os.path.join(root, "oxts", "timestamps.txt"), sync.t)
+    row = np.zeros((1, 30))
+    for i in range(len(sync.t)):
+        row[0, 11:14], row[0, 17:20] = sync.acc[i], sync.gyr[i]
+        np.savetxt(os.path.join(root, "oxts", "data", f"{i:010d}.txt"), row)
     return written
 
 
@@ -788,30 +832,33 @@ def write_folders(root: str, provider, params: VioParams) -> tuple[str, str, flo
     return data, pfolder, (time.perf_counter() - t0) * 1e3 / len(written)
 
 
-def cli_phase(dev, path: dict) -> dict:
+def cli_phase(dev, path: dict, work: str) -> dict:
+    """Phase 3 (see the module docstring). The EuRoC folder stays under
+    `work` for phase 8 (`path["euroc"]`)."""
     params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
     params.pipeline.parallel_run = True  # the reference EuRoC default
     caps = ["--max_features", "256", "--max_landmarks", "384", "--device", dev.type]
     res = {}
-    with tempfile.TemporaryDirectory(prefix="kimera_cli_") as tmp:
-        provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
-        data, pfolder, png_ms = write_folders(os.path.join(tmp, "path"), provider, params)
-        log(f"[cli] params folder and 160 PNGs exact; PNG decode {png_ms:.3f} ms per image")
-        base = ["--params_folder", pfolder, "--dataset_path", data] + caps
-        for mode, extra in (("run", []), ("chunked", ["--chunked", "--chunk_size", "16"]),
-                            ("sequential", ["--parallel_run", "0"])):
-            row, out = run_cli(mode, base + extra, provider.ground_truth, os.path.join(tmp, mode))
-            if mode != "chunked" and row["parallel_run"] != (mode == "run"):
-                raise AssertionError(f"{mode}: parallel_run is {row['parallel_run']}")
-            if out.stamps_ns != path["stamps_ns"]:
-                raise AssertionError(f"{mode}: keyframe stamps differ from phase 2's")
-            row["max_abs_dpos_vs_path_m"] = float(np.abs(np.stack(out.positions) - path["positions"]).max())
-            if not row["max_abs_dpos_vs_path_m"] < 1e-3:
-                raise AssertionError(f"{mode}: positions differ from phase 2's by "
-                                     f"{row['max_abs_dpos_vs_path_m']} m")
-            row["png_decode_ms_per_image"] = png_ms
-            res[mode] = row
-            log(f"[cli] {json.dumps(row)}")
+    tmp = os.path.join(work, "cli")
+    provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
+    data, pfolder, png_ms = write_folders(os.path.join(tmp, "path"), provider, params)
+    path["euroc"] = data
+    log(f"[cli] params folder and 160 PNGs exact; PNG decode {png_ms:.3f} ms per image")
+    base = ["--params_folder", pfolder, "--dataset_path", data] + caps
+    for mode, extra in (("run", []), ("chunked", ["--chunked", "--chunk_size", "16"]),
+                        ("sequential", ["--parallel_run", "0"])):
+        row, out = run_cli(mode, base + extra, provider.ground_truth, os.path.join(tmp, mode))
+        if mode != "chunked" and row["parallel_run"] != (mode == "run"):
+            raise AssertionError(f"{mode}: parallel_run is {row['parallel_run']}")
+        if out.stamps_ns != path["stamps_ns"]:
+            raise AssertionError(f"{mode}: keyframe stamps differ from phase 2's")
+        row["max_abs_dpos_vs_path_m"] = float(np.abs(np.stack(out.positions) - path["positions"]).max())
+        if not row["max_abs_dpos_vs_path_m"] < 1e-3:
+            raise AssertionError(f"{mode}: positions differ from phase 2's by "
+                                 f"{row['max_abs_dpos_vs_path_m']} m")
+        row["png_decode_ms_per_image"] = png_ms
+        res[mode] = row
+        log(f"[cli] {json.dumps(row)}")
     return res
 
 
@@ -1772,6 +1819,342 @@ def options_phase(dev, path: dict, kern: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the last host modules (KITTI, live, overlays, visualizer)
+# ---------------------------------------------------------------------------
+
+#: KITTI odometry's image size and calibration (sequences 00-02: fx 718.856,
+#: baseline 0.537 m), 10 Hz frames and 100 Hz OXTS; a scene 15 m ahead at
+#: 2 m/s: 25.7 px of disparity, 9.6 px of flow a frame
+#: the visualizer run's display cadence (phase 8 (c))
+VIZ_SAVE_EVERY = 4
+
+KITTI = dict(width=1241, height=376, fx=718.856, baseline=0.537, fps=10.0, imu_rate=100.0,
+             depth=15.0, vx=2.0, n_frames=40)
+
+
+def kitti_params() -> VioParams:
+    return synthetic_params(width=KITTI["width"], height=KITTI["height"], fx=KITTI["fx"],
+                            baseline=KITTI["baseline"], nr_states=10, max_features=256,
+                            max_landmarks=384)
+
+
+@contextlib.contextmanager
+def timed_lk():
+    """Wrap `lk.lk_pyramid_cuda` for one run: CUDA events around each call
+    (the kernel's in-run time, launch included) and the last call's level
+    shapes and window rule. The launch counter then lives on the wrapper
+    (the kernel's wrapper adds to `lk.lk_pyramid_cuda.launches`, the
+    module's name); it starts at 0."""
+    rec = {"events": []}
+    orig = lk.lk_pyramid_cuda
+
+    def wrapped(prev_pyr, *a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(prev_pyr, *a, **kw)
+        end.record()
+        rec["events"].append((start, end))
+        rec.update(shapes=[tuple(p.shape) for p in prev_pyr], win=kw["win"],
+                   search_rows=kw["search_rows"])
+        return out
+
+    wrapped.launches = 0
+    lk.lk_pyramid_cuda = wrapped
+    try:
+        yield rec
+    finally:
+        lk.lk_pyramid_cuda = orig
+        rec["launches"] = wrapped.launches
+    torch.cuda.synchronize()
+    rec["ms"] = [s.elapsed_time(e) for s, e in rec["events"]]
+
+
+def shifted_gt(gt, offset_ns: int) -> GroundTruth:
+    """A ground truth with its stamps moved by `offset_ns`."""
+    return GroundTruth(stamps_ns=gt.stamps_ns + offset_ns, positions=gt.positions,
+                       quats_wxyz=gt.quats_wxyz, velocities=gt.velocities,
+                       gyro_bias=gt.gyro_bias, accel_bias=gt.accel_bias)
+
+
+def run_counted(pipe, provider, entry: str = "run", **kw) -> dict:
+    """One run with the LK counter set to 0 just before; gates LK launches
+    == tracked frames and a finite trajectory. Returns the run's numbers,
+    output and wall time."""
+    with counted_steps() as steps:
+        torch.cuda.synchronize()
+        lk.lk_pyramid_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = getattr(pipe, entry)(provider, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lk.lk_pyramid_cuda.launches
+    if launches != steps["steps"]:
+        raise AssertionError(f"LK launches {launches} != {steps['steps']} tracked frames")
+    est = np.stack(out.positions)
+    if not (out.n_keyframes >= 1 and np.isfinite(est).all()):
+        raise AssertionError("no keyframe or a trajectory not finite")
+    return {"out": out, "wall": wall, "launches": launches, "fed": steps["steps"] + steps["bootstraps"]}
+
+
+def kitti_phase(dev, path: dict, kern: dict, work: str) -> dict:
+    """Phase 8 (a) (see the module docstring)."""
+    from kimera_vio_tpu_torch.dataprovider.kitti import KittiDataProvider
+
+    src = SyntheticStereoProvider(**KITTI)
+    root = os.path.join(work, "kitti")
+    t0 = time.perf_counter()
+    written = write_kitti(root, src)
+    write_s = time.perf_counter() - t0
+    prov = KittiDataProvider(root)
+    offset = int(prov.left_stamps[0]) - int(src.left_stamps[0])
+    if not (np.array_equal(prov.left_stamps - offset, src.left_stamps)
+            and np.array_equal(prov.imu_sync.t - offset, src.imu_sync.t)
+            and np.array_equal(prov.imu_sync.acc, src.imu_sync.acc)
+            and np.array_equal(prov.imu_sync.gyr, src.imu_sync.gyr)):
+        raise AssertionError("KITTI folder: stamps or OXTS rows do not read back exactly")
+    t0 = time.perf_counter()
+    for p, img in written:
+        if not np.array_equal(prov.load_image(p), img):
+            raise AssertionError(f"KITTI folder: decoded PNG differs from the array written: {p}")
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(written)
+    params = kitti_params()
+    # The source run directly, images rounded as the PNGs hold them.
+    ref = run_counted(StereoImuPipeline(params, parallel_run=False, device=dev), Quantized(src))
+    res = {}
+    for name, gt in (("gt", shifted_gt(src.ground_truth, offset)), ("no_gt", None)):
+        prov = KittiDataProvider(root)
+        prov.ground_truth = gt
+        pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+        with timed_lk() as rec:
+            r = run_counted(pipe, prov)
+        out = r["out"]
+        plan = lk.level_table(rec["shapes"], rec["win"], rec["search_rows"])
+        modes = {lv.level: lv.mode for lv in plan}
+        if modes[0] != "gather":
+            raise AssertionError(f"KITTI {name}: level 0 is {modes[0]}, not the gather mode (B1)")
+        if rec["launches"] != r["launches"]:
+            raise AssertionError("KITTI: the timed wrapper missed launches")
+        kf = pipe.stats.get("VioFrontend Keyframe Rate [ms]")
+        fr = pipe.stats.get("VioFrontend Frame Rate [ms]")
+        row = {"run": name, "shape": [KITTI["height"], KITTI["width"]], "frames": out.n_frames,
+               "keyframes": out.n_keyframes, "lk_launches": r["launches"],
+               "level_modes": [modes[k] for k in sorted(modes)], "wall_s": r["wall"],
+               "frames_per_s": r["fed"] / r["wall"], "path_frames_per_s": path["frames_per_s"],
+               "frame_step_ms": fr.total / fr.count if fr.count else None,
+               "keyframe_step_ms": kf.total / kf.count if kf.count else None,
+               "b1_launch_and_kernel_ms_per_frame": float(np.mean(rec["ms"])),
+               "b1_launch_and_kernel_ms_median": float(np.median(rec["ms"])),
+               "b1_graph_ms_phase1": kern["kitti"]["ms"]}
+        if gt is not None:
+            est = np.stack(out.positions)
+            row["ate_rmse_m"] = compute_ate(np.array(out.stamps_ns), est, gt.stamps_ns,
+                                            gt.positions, align=False)["rmse"]
+            if not row["ate_rmse_m"] < 0.05:
+                raise AssertionError(f"KITTI: ATE rmse {row['ate_rmse_m']} m >= 0.05 m")
+            if [t - offset for t in out.stamps_ns] != ref["out"].stamps_ns:
+                raise AssertionError("KITTI: keyframe stamps differ from the source run's")
+            row["max_abs_dpos_vs_source_m"] = float(np.abs(est - np.stack(ref["out"].positions)).max())
+            if not row["max_abs_dpos_vs_source_m"] < 1e-3:
+                raise AssertionError(f"KITTI: positions differ from the source run's by "
+                                     f"{row['max_abs_dpos_vs_source_m']} m")
+            row.update(write_s=write_s, png_decode_ms_per_image=decode_ms,
+                       source_frames_per_s=ref["fed"] / ref["wall"])
+        res[name] = row
+        log(f"[kitti] {json.dumps(row)}")
+    res["profile"] = kitti_kernel_profile(dev, params, root, shifted_gt(src.ground_truth, offset),
+                                          kern["kitti"]["ms"])
+    return res
+
+
+def kitti_kernel_profile(dev, params, root: str, gt, graph_ms: float) -> dict:
+    """The KITTI run with ground truth once more, under `torch.profiler`:
+    B1's device time per launch, read from the trace's kernel events. Its
+    launches must equal the run's; a trace without device events leaves
+    the time null ("not measured")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kimera_vio_tpu_torch.dataprovider.kitti import KittiDataProvider
+
+    prov = KittiDataProvider(root)
+    prov.ground_truth = gt
+    pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r = run_counted(pipe, prov)
+    # The trace's raw events: `prof.events()` would first turn all of them
+    # (~140k kernels and their host ops) into Python objects, ~100 s.
+    dev_events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+    us = [e.duration_ns() * 1e-3 for e in dev_events if "lk_pyramid_kernel" in e.name()]
+    if us and len(us) != r["launches"]:
+        raise AssertionError(f"KITTI profile: {len(us)} kernel events for {r['launches']} launches")
+    row = {"run": "gt_profiled", "lk_launches": r["launches"], "device_events": len(dev_events),
+           "b1_kernel_events": len(us),
+           "b1_kernel_ms_per_frame": float(np.mean(us)) * 1e-3 if us else None,
+           "b1_kernel_ms_median": float(np.median(us)) * 1e-3 if us else None,
+           "b1_kernel_ms_max": float(np.max(us)) * 1e-3 if us else None,
+           "b1_graph_ms_phase1": graph_ms, "wall_s_profiled": r["wall"]}
+    log(f"[kitti] {json.dumps(row)}")
+    return row
+
+
+def live_phase(dev, path: dict) -> dict:
+    """Phase 8 (b) (see the module docstring)."""
+    import threading
+
+    from kimera_vio_tpu_torch.dataprovider.live import LiveDataProvider, replay
+
+    provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
+    live = LiveDataProvider(stereo=True, max_queued_frames=128)
+    live.ground_truth = provider.ground_truth  # phase 2's bootstrap
+    params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+    pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+    feeder = threading.Thread(target=replay, args=(provider, live), daemon=True)
+    feeder.start()
+    r = run_counted(pipe, live)
+    feeder.join(timeout=30.0)
+    out = r["out"]
+    if feeder.is_alive() or live.dropped_frames or live.dropped_imu:
+        raise AssertionError(f"live: feeder alive {feeder.is_alive()}, dropped frames "
+                             f"{live.dropped_frames}, IMU {live.dropped_imu}")
+    if out.stamps_ns != path["stamps_ns"]:
+        raise AssertionError("live: keyframe stamps differ from phase 2's")
+    dpos = float(np.abs(np.stack(out.positions) - path["positions"]).max())
+    if not dpos < 1e-3:
+        raise AssertionError(f"live: positions differ from phase 2's by {dpos} m")
+    # stop() with a frame that can never sync (no right frame, no IMU past
+    # it): frames() must drop it and return.
+    MS = 1_000_000
+    stuck = LiveDataProvider(stereo=True)
+    for t in range(0, 120, 5):
+        stuck.push_imu(t * MS, (0.0, 0.0, 9.81), (0.0, 0.0, 0.0))
+    img = np.zeros((8, 8), np.uint8)
+    for t in (50, 100):
+        stuck.push_right_frame(t * MS, img)
+        stuck.push_left_frame(t * MS, img)
+    stuck.push_left_frame(200 * MS, img)
+    got = []
+    consumer = threading.Thread(target=lambda: got.extend(stuck.frames(timeout_s=0.05)),
+                                daemon=True)
+    consumer.start()
+    deadline = time.monotonic() + 5.0
+    while len(got) < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    t0 = time.perf_counter()
+    stuck.stop()
+    consumer.join(timeout=5.0)
+    if consumer.is_alive() or len(got) != 2 or stuck.dropped_frames != 1:
+        raise AssertionError(f"live: frames() after stop(): returned {not consumer.is_alive()}, "
+                             f"{len(got)} packets, {stuck.dropped_frames} dropped")
+    row = {"frames": out.n_frames, "keyframes": out.n_keyframes, "lk_launches": r["launches"],
+           "wall_s": r["wall"], "frames_per_s": r["fed"] / r["wall"],
+           "path_frames_per_s": path["frames_per_s"], "max_abs_dpos_vs_path_m": dpos,
+           "stop_returned_s": time.perf_counter() - t0}
+    log(f"[live] {json.dumps(row)}")
+    return row
+
+
+def aux_phase(dev, path: dict, work: str) -> dict:
+    """Phase 8 (c) (see the module docstring)."""
+    from kimera_vio_tpu_torch.playground import visualize_gt_data
+
+    res = {}
+    params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+    cli_flags.set_flag("log_frontend_images", True)
+    try:
+        for mode in ("sequential", "parallel", "chunked"):
+            out_dir = os.path.join(work, f"overlays_{mode}")
+            pipe = StereoImuPipeline(params, output_path=out_dir, parallel_run=mode == "parallel",
+                                     device=dev)
+            provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
+            r = (run_counted(pipe, provider, "run_chunked", chunk_size=16, collect_aux=True)
+                 if mode == "chunked" else run_counted(pipe, provider))
+            out = r["out"]
+            names = sorted(os.listdir(os.path.join(out_dir, "frontend_images")))
+            if names != sorted(f"{t}.png" for t in out.stamps_ns[1:]):
+                raise AssertionError(f"overlays {mode}: {len(names)} PNGs for "
+                                     f"{out.n_keyframes - 1} fused-step keyframes")
+            for n in names:
+                img = png.decode_png_rgb8(os.path.join(out_dir, "frontend_images", n))
+                if img.shape != (480, 752, 3) or not (img[..., 0] != img[..., 1]).any():
+                    raise AssertionError(f"overlays {mode}: {n} is {img.shape} or gray")
+            if out.stamps_ns != path["stamps_ns"]:
+                raise AssertionError(f"overlays {mode}: keyframe stamps differ from phase 2's")
+            row = {"run": f"overlays_{mode}", "pngs": len(names), "lk_launches": r["launches"],
+                   "wall_s": r["wall"], "frames_per_s": r["fed"] / r["wall"],
+                   "path_frames_per_s": path["frames_per_s"]}
+            res[row["run"]] = row
+            log(f"[aux] {json.dumps(row)}")
+    finally:
+        cli_flags.set_flag("log_frontend_images", False)
+
+    # The visualizer with the mesher on phase 6's near plane. Its display
+    # writes every VIZ_SAVE_EVERY-th keyframe (the pipeline's writes every
+    # 10th: one write in this run's 17 keyframes); which maps carry the
+    # image-plane mesh is recorded (the mesher has none on a keyframe
+    # whose keypoints match no triangulated landmark).
+    out_dir = os.path.join(work, "viz_run")
+    carried = []
+    orig_make, orig_spin = stereo_pipeline.make_display, FileDisplay.spin_once
+
+    def spin(self, widgets):
+        carried.append(widgets.mesh_2d is not None)
+        orig_spin(self, widgets)
+
+    stereo_pipeline.make_display = lambda kind, path: FileDisplay(path, save_every=VIZ_SAVE_EVERY)
+    FileDisplay.spin_once = spin
+    cli_flags.set_flag("visualize", True)
+    cli_flags.set_flag("visualize_mesh_2d", True)
+    try:
+        pipe = StereoImuPipeline(near_plane_params(1), output_path=out_dir, parallel_run=False,
+                                 device=dev, enable_mesher=True)
+        r = run_counted(pipe, near_plane_provider())
+    finally:
+        stereo_pipeline.make_display, FileDisplay.spin_once = orig_make, orig_spin
+        cli_flags.set_flag("visualize", False)
+        cli_flags.set_flag("visualize_mesh_2d", False)
+    disp = pipe._display
+    saved = list(range(disp.save_every, disp._count + 1, disp.save_every))
+    files = sorted(os.listdir(disp.dir))
+    m2d = [f for f in files if f.startswith("mesh2d_")]
+    if disp._count != r["out"].n_keyframes - 1 or len(carried) != disp._count or not saved:
+        raise AssertionError(f"visualizer: {disp._count} keyframes shown")
+    for kind, ext in (("pointcloud", "ply"), ("mesh", "ply"), ("trajectory", "png")):
+        if [f for f in files if f.startswith(kind + "_")] != [f"{kind}_{k:06d}.{ext}" for k in saved]:
+            raise AssertionError(f"visualizer: {kind} files {files}")
+    if not m2d or m2d != [f"mesh2d_{k:06d}.png" for k in saved if carried[k - 1]]:
+        raise AssertionError(f"visualizer: mesh2d files {m2d}, carried {carried}")
+    for k in saved:
+        read_ply(os.path.join(disp.dir, f"mesh_{k:06d}.ply"))
+        lines = open(os.path.join(disp.dir, f"pointcloud_{k:06d}.ply")).read().splitlines()
+        if lines[6] != "end_header" or len(lines) != 7 + int(lines[2].split()[-1]):
+            raise AssertionError(f"visualizer: pointcloud_{k:06d}.ply does not parse")
+        if png.decode_png_rgb8(os.path.join(disp.dir, f"trajectory_{k:06d}.png")).shape != (480, 480, 3):
+            raise AssertionError("visualizer: trajectory image")
+    for f in m2d:
+        img = png.decode_png_rgb8(os.path.join(disp.dir, f))
+        if img.shape != (480, 752, 3) or not (img == (0, 255, 0)).all(-1).any():
+            raise AssertionError(f"visualizer: {f} has no mesh edge")
+    row = {"run": "visualizer_mesher", "keyframes_shown": disp._count, "save_every": disp.save_every,
+           "saved": len(saved), "mesh2d": len(m2d), "maps_with_mesh_2d": sum(carried), "lk_launches": r["launches"], "wall_s": r["wall"],
+           "frames_per_s": r["fed"] / r["wall"], "path_frames_per_s": path["frames_per_s"]}
+    res[row["run"]] = row
+    log(f"[aux] {json.dumps(row)}")
+
+    # visualize_gt_data on phase 3's EuRoC folder.
+    out_dir = os.path.join(work, "playground")
+    t0 = time.perf_counter()
+    visualize_gt_data(path["euroc"], out_dir, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    n_poses = len(range(0, len(EurocDataProvider(path["euroc"]).ground_truth.stamps_ns), 10))
+    names = sorted(os.listdir(out_dir))
+    if names != [f"trajectory_{k:06d}.png" for k in range(2, n_poses + 1)]:
+        raise AssertionError(f"playground: {names}")
+    res["playground"] = {"run": "playground", "pngs": len(names), "ms": ms}
+    log(f"[aux] {json.dumps(res['playground'])}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -1802,8 +2185,17 @@ def main() -> int:
     t = time.perf_counter()
     path = path_phase(dev)
     log(f"[phase] path {time.perf_counter() - t:.1f} s")
+    work = tempfile.mkdtemp(prefix="kimera_smoke_")
+    try:
+        return _phases(dev, kern, path, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phases(dev, kern: dict, path: dict, work: str) -> int:
+    """Phases 3-8, the kernel table and the result line."""
     t = time.perf_counter()
-    cli_res = cli_phase(dev, path)
+    cli_res = cli_phase(dev, path, work)
     log(f"[phase] cli {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     lcd_res = lcd_phase(dev, path)
@@ -1817,6 +2209,11 @@ def main() -> int:
     t = time.perf_counter()
     opt_res = options_phase(dev, path, kern)
     log(f"[phase] options {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    kitti_res = kitti_phase(dev, path, kern, work)
+    live_res = live_phase(dev, path)
+    aux_res = aux_phase(dev, path, work)
+    log(f"[phase] host modules {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -1833,6 +2230,19 @@ def main() -> int:
                             if isinstance(r, dict) and "lk_launches" in r},
         "launches_options": {name: r["lk_launches"] for name, r in opt_res.items()
                              if isinstance(r, dict) and "lk_launches" in r},
+        # Phase 8: B1's gather mode on a run path (level 0 of every
+        # 1241x376 frame), its device time in the run (profiler trace),
+        # its in-run time with the launch path, and the host modules' runs.
+        "launches_kitti": {name: r["lk_launches"] for name, r in kitti_res.items()},
+        "kitti_b1_kernel_ms_per_frame": kitti_res["profile"]["b1_kernel_ms_per_frame"],
+        "kitti_b1_launch_and_kernel_ms_per_frame":
+            kitti_res["gt"]["b1_launch_and_kernel_ms_per_frame"],
+        "kitti_b1_graph_ms": kern["kitti"]["ms"],
+        "kitti_bound_ms": kern["kitti"]["bound_ms"],
+        "kitti_plain_ms": kern["kitti"]["plain_ms"],
+        "launches_live": live_res["lk_launches"],
+        "launches_aux": {name: r["lk_launches"] for name, r in aux_res.items()
+                         if "lk_launches" in r},
         "max_abs_err": kern["max_abs_err"],
         "median_abs_err": kern["median_abs_err"],
         "ms": kern["ms"],

@@ -8,7 +8,7 @@ flags of `python -m kimera_vio_tpu` and `--device`:
         [--initial_k 0] [--final_k -1] [--log_output] \
         [--output_path ./output_logs] [--parallel_run 1] \
         [--chunked] [--chunk_size 16] [--equalize_image] [--use_lcd] \
-        [--enable_mesher] [--device cuda]
+        [--enable_mesher] [--visualize] [--device cuda]
 
 It runs on the card unless `--device cpu` is given. Values set here land
 in the port's flag registry (config/flags.py), as env-var-set flags do.
@@ -21,9 +21,14 @@ where the params say `backend_type: 1`; with `--log_output` each
 keyframe's mesh is written as `<output_path>/mesh/mesh_NNNNN.ply`;
 `--chunked` then collects the mesher's keyframe rows too.
 `--do_fine_imu_camera_temporal_sync` runs the IMU-camera time aligner
-first (not with `--chunked`). `--visualize`, whose module is not ported,
-raises NotImplementedError, and so does `--enable_mesher` on a mono
-params folder (the mono pipeline has no mesher, as in the JAX package).
+first (not with `--chunked`). `--visualize` (or `--gflag visualize=1`)
+writes the visualizer's PLY and PNG artifacts under
+`<output_path>/viz/` in `run()` (not with `--chunked`, as in the JAX
+package); `--gflag log_frontend_images=1` writes one feature-track
+overlay PNG per keyframe under `<output_path>/frontend_images/`, also
+with `--chunked`. `--enable_mesher` on a mono params folder raises
+NotImplementedError (the mono pipeline has no mesher, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -85,8 +90,8 @@ def main(argv=None) -> int:
     from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 
     device = resolve_device(args.device)
-    # The pipeline's constructor reads use_lcd and
-    # do_fine_imu_camera_temporal_sync and refuses visualize.
+    # The pipeline's constructor reads use_lcd, visualize and
+    # do_fine_imu_camera_temporal_sync.
     for name in ("use_lcd", "visualize", "log_output", "log_euroc_gt_data",
                  "do_fine_imu_camera_temporal_sync"):
         if getattr(args, name):
@@ -143,7 +148,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.chunked:
         out = pipe.run_chunked(provider, chunk_size=args.chunk_size, verbose=args.verbose,
-                               collect_aux=args.enable_mesher or pipe.enable_lcd)
+                               collect_aux=(args.enable_mesher or pipe.enable_lcd
+                                            or bool(flags.get_flag("log_frontend_images"))))
     else:
         out = pipe.run(provider, verbose=args.verbose)
     wall = time.perf_counter() - t0

@@ -1,4 +1,5 @@
-"""PNG decoding for EuRoC images and RGB-D depth images, without OpenCV.
+"""PNG reading and writing for EuRoC images, RGB-D depth images and the
+debug overlays, without OpenCV.
 
 The JAX package reads EuRoC frames with `cv2.imread(path,
 IMREAD_GRAYSCALE)`, RGB-D depth images with `cv2.imread(path,
@@ -8,8 +9,14 @@ machine has no OpenCV. EuRoC ships 8-bit grayscale, non-interlaced PNGs
 and depth streams 16-bit grayscale ones (big-endian samples), and this
 module decodes exactly those: it walks the chunks (checking each CRC),
 inflates the concatenated IDAT stream with `zlib` and undoes the five
-row filters. Any other PNG (colour, palette, other bit depths,
-interlaced) raises, naming the file.
+row filters; the 8-bit RGB images this package writes itself (the
+feature-track overlays, the visualizer's plots) decode too. Any other PNG
+(palette, alpha, other bit depths, interlaced) raises, naming the file.
+
+`encode_png` / `write_png` write 8-bit gray, 16-bit gray and 8-bit RGB
+(colour type 2) PNGs: what `cv2.imwrite` stores for a uint8 (H, W), a
+uint16 (H, W) or a uint8 (H, W, 3) array given in RGB order (OpenCV takes
+BGR and stores RGB).
 
 The unfilter runs in C++ (`native/png_unfilter.cpp`): the Average and
 Paeth filters chain each byte to the one decoded a pixel to its left,
@@ -34,13 +41,21 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 class PngFormatError(ValueError):
-    """The file is not a grayscale, non-interlaced PNG of the bit depth
-    asked for."""
+    """The file is not a non-interlaced PNG of the bit depth and colour
+    type asked for."""
 
 
-def read_png_stream(path: str, bit_depths: tuple = (8,)) -> tuple[int, int, bytes]:
-    """(H, W, inflated IDAT bytes) of a grayscale PNG whose bit depth is
-    one of `bit_depths` (8 or 16); a 16-bit image holds 2 W bytes a row."""
+#: PNG colour types read and written here, and their samples per pixel
+GRAY, RGB = 0, 2
+_CHANNELS = {GRAY: 1, RGB: 3}
+
+
+def read_png_stream(path: str, bit_depths: tuple = (8,),
+                    color_type: int = GRAY) -> tuple[int, int, bytes]:
+    """(H, W, inflated IDAT bytes) of a non-interlaced PNG of colour type
+    `color_type` (gray or RGB) whose bit depth is one of `bit_depths` (8
+    or 16); a row holds W * channels * depth / 8 bytes after its filter
+    byte."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
@@ -71,13 +86,15 @@ def read_png_stream(path: str, bit_depths: tuple = (8,)) -> tuple[int, int, byte
     if ihdr is None:
         raise PngFormatError(f"{path}: no IHDR chunk")
     W, H, depth, color, comp, filt, interlace = ihdr
-    if depth not in bit_depths or (color, comp, filt, interlace) != (0, 0, 0, 0) or W == 0 or H == 0:
+    if (depth not in bit_depths or (color, comp, filt, interlace) != (color_type, 0, 0, 0)
+            or W == 0 or H == 0):
         wanted = " or ".join(f"{d}-bit" for d in bit_depths)
+        kind = "grayscale" if color_type == GRAY else "RGB"
         raise PngFormatError(
-            f"{path}: only {wanted} grayscale non-interlaced PNGs are read here (bit depth "
+            f"{path}: only {wanted} {kind} non-interlaced PNGs are read here (bit depth "
             f"{depth}, colour type {color}, interlace {interlace})")
     raw = zlib.decompress(b"".join(idat))
-    row = W * depth // 8 + 1
+    row = W * _CHANNELS[color_type] * depth // 8 + 1
     if len(raw) != H * row:
         raise PngFormatError(f"{path}: image data holds {len(raw)} bytes, not {H * row}")
     return H, W, raw
@@ -151,6 +168,65 @@ def decode_png_gray(path: str) -> np.ndarray:
     if len(raw) == H * (W + 1):
         return _unfilter_native(raw, H, W, path)
     return _unfilter_native(raw, H, W, path, bpp=2).view(">u2").astype(np.uint16)
+
+
+def decode_png_rgb8(path: str) -> np.ndarray:
+    """Decode an 8-bit RGB PNG into an (H, W, 3) uint8 array in RGB order
+    (`cv2.imread(path)[..., ::-1]` for such a file)."""
+    H, W, raw = read_png_stream(path, color_type=RGB)
+    return _unfilter_native(raw, H, W, path, bpp=3).reshape(H, W, 3)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def encode_png(img: np.ndarray, filter_type: int | None = None) -> bytes:
+    """The PNG of a uint8 (H, W) gray, uint16 (H, W) gray (big-endian
+    samples) or uint8 (H, W, 3) RGB `img`. Row y is filtered with
+    `filter_type` (0-4: None, Sub, Up, Average, Paeth), or, when it is
+    None, with type y % 5, so a decoder meets every filter in turn. The
+    data is deflated at zlib level 1, `cv2.imwrite`'s default: higher
+    levels take several times as long for slightly smaller files."""
+    img = np.asarray(img)
+    rgb = img.ndim == 3
+    if not ((img.ndim == 2 and img.dtype in (np.uint8, np.uint16))
+            or (rgb and img.shape[2] == 3 and img.dtype == np.uint8)):
+        raise TypeError(f"encode_png takes uint8 or uint16 (H, W) or uint8 (H, W, 3), "
+                        f"not {img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    bpp = img.dtype.itemsize * (3 if rgb else 1)
+    x = np.ascontiguousarray(img.astype(">u2") if img.dtype == np.uint16 else img).view(np.uint8)
+    x = x.reshape(H, W * bpp).astype(np.int16)
+    a = np.zeros_like(x)  # the byte one pixel to the left
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)  # the byte above
+    b[1:] = x[:-1]
+
+    def paeth():
+        c = np.zeros_like(x)
+        c[1:, bpp:] = x[:-1, :-bpp]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+    preds = (lambda: 0, lambda: a, lambda: b, lambda: (a + b) >> 1, paeth)
+    ft = np.arange(H) % 5 if filter_type is None else np.full(H, filter_type)
+    rows = np.empty((H, W * bpp + 1), np.uint8)
+    rows[:, 0] = ft
+    for f in np.unique(ft):
+        sel = ft == f
+        pred = preds[f]()
+        rows[sel, 1:] = ((x[sel] - (pred[sel] if f else 0)) & 0xFF).astype(np.uint8)
+    ihdr = struct.pack(">IIBBBBB", W, H, 8 * img.dtype.itemsize, RGB if rgb else GRAY, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray, filter_type: int | None = None) -> None:
+    """Write `encode_png(img, filter_type)` to `path`; an I/O error raises."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img, filter_type))
 
 
 def equalize_hist(img: np.ndarray) -> np.ndarray:

@@ -551,6 +551,7 @@ class StereoFrontend:
             "R_stereo": R_stereo,
             "t_mono": t_mono,
             "R_mono": R_mono,
+            "left_rect": left_rect,  # the pipeline's frontend-image overlay
         }
         if cfg.lcd_features > 0:
             extras.update(self._lcd_extract(left_rect, left_rect if cfg.mono else right_rect))

@@ -237,6 +237,9 @@ class Mesher:
         self._evict(horizon_ids)
         id_to_pt = {int(i): lmk_pts[r] for r, i in enumerate(lmk_ids) if lmk_valid[r] and i >= 0}
         sel = [k for k in range(len(kp_ids)) if int(kp_ids[k]) in id_to_pt]
+        # A keyframe without a triangulation has no image-plane mesh (the
+        # JAX mesher keeps the previous keyframe's here, mesher.py:271).
+        self.mesh_2d = None
         if len(sel) < 3:
             return self.horizon_mesh(horizon_ids)
         uv = kp_uv[sel]

@@ -17,7 +17,7 @@ extern "C" {
 // raw : H rows of (1 + W) bytes, each a filter-type byte then W filtered
 //       bytes (the inflated IDAT stream); W counts bytes, not pixels.
 // out : H * W bytes.
-// bpp : bytes per pixel (1 for 8-bit, 2 for 16-bit grayscale).
+// bpp : bytes per pixel (1 for 8-bit gray, 2 for 16-bit gray, 3 for 8-bit RGB).
 // Returns 0, or 1 + the index of the first row whose filter type is not
 // 0..4.
 long long png_unfilter(const uint8_t* raw, uint8_t* out, long long H,

@@ -70,7 +70,20 @@ RegularVIO refines, else a chunk late (the mesh does not depend on when).
 The published keyframe states are those of the keyframe steps, before any
 refine.
 
-Not ported yet: the visualizer (the constructor refuses `visualize`).
+Debug overlays and the visualizer ride the same per-keyframe readback.
+With the `log_frontend_images` flag each keyframe after the bootstrap
+writes `<output>/frontend_images/<stamp_ns>.png`: its rectified left
+image with the keypoints drawn by class (utils/debug_images.py; tracked
+since the previous keyframe, new, dead), in `run()` and in
+`run_chunked(collect_aux=True)`. With `enable_visualizer` or the
+`visualize` flag, `run()` (only, as in the JAX package) feeds each
+keyframe's pose, landmarks and mesh to `Visualizer3D` and the display of
+`make_display` (visualizer/visualizer.py), which writes under
+`<output>/viz/` (`output_path` or the flag's, where the JAX package falls
+back to /tmp/viz_out); `visualize_mesh_2d` adds the mesher's image-plane
+mesh over the keyframe's left image. Both write behind the frame loop,
+as the mesher reads its rows.
+
 `run_chunked` stages raw frames only (the JAX package's
 KIMERA_STAGE_CODEC codecs are not ported).
 """
@@ -108,8 +121,10 @@ from kimera_vio_tpu_torch.ops.stereo_matching import dense_depth
 from kimera_vio_tpu_torch.pipeline.lcd_module import LcdModule
 from kimera_vio_tpu_torch.utils.logger import (BackendLogger, FrontendLogger, LcdLogger, MesherLogger,
                                                PipelineLogger)
+from kimera_vio_tpu_torch.utils.debug_images import save_feature_track_overlay
 from kimera_vio_tpu_torch.utils.prefetch import PrefetchIterator
 from kimera_vio_tpu_torch.utils.stats import StatsCollector
+from kimera_vio_tpu_torch.visualizer.visualizer import Visualizer3D, make_display
 
 
 class Staged(NamedTuple):
@@ -137,9 +152,17 @@ class PipelineOutput:
     n_frames: int = 0
 
 
-def _check_supported(params: VioParams):
-    if flags.get_flag("visualize"):
-        raise NotImplementedError("not ported yet: visualize")
+class AuxKeyframe(NamedTuple):
+    """A keyframe waiting for the aux modules: its rows and images stay on
+    the device until `_drain_aux` reads them back."""
+
+    frame: int  # frame number in the run
+    stamp_ns: int
+    lcd_row: torch.Tensor | None  # `_pack_lcd_row`, with loop closure
+    kf_row: torch.Tensor | None  # `_pack_kf_row`, for mesher, overlays, visualizer
+    left: torch.Tensor | None  # raw images where the mesher refines against depth
+    right: torch.Tensor | None  # or (left only) the 2-D mesh is drawn
+    left_rect: torch.Tensor | None  # rectified left, uint8, for the overlay
 
 
 #: pose_guess_source values (BackendParams poseGuessSource)
@@ -158,13 +181,14 @@ class StereoImuPipeline:
 
     def __init__(self, params: VioParams, output_path: str | None = None,
                  parallel_run: bool | None = None, device: str | torch.device = "cuda",
-                 enable_lcd: bool = False, enable_mesher: bool = False):
-        _check_supported(params)
+                 enable_lcd: bool = False, enable_mesher: bool = False,
+                 enable_visualizer: bool = False):
         self.device = resolve_device(device)
         self.params = params
         self.parallel_run = params.pipeline.parallel_run if parallel_run is None else parallel_run
         self.enable_lcd = enable_lcd or bool(flags.get_flag("use_lcd"))
         self.enable_mesher = enable_mesher
+        self.enable_visualizer = enable_visualizer or bool(flags.get_flag("visualize"))
         # backend_type 1 (RegularVIO, the EuRoC default) needs the mesher's
         # planes; without the mesher it is the plain backend, as in the
         # reference's shipped default (RegularVioBackend.h:83-87).
@@ -252,19 +276,22 @@ class StereoImuPipeline:
                      ok=i[k, :M] > 0, desc=i[k, M:].reshape(M, 8).view(np.uint32))
                 for k in range(rows.shape[0])]
 
-    def _pack_mesh_row(self, bout, fe_out) -> torch.Tensor:
-        """One keyframe's mesher input as one int32 row on the device: pose
-        (rot, pos), keypoint pixels (uL, v) and landmark points as float32
-        bits, then the keypoint ids, landmark ids and landmark validity."""
+    def _pack_kf_row(self, bout, fe_out) -> torch.Tensor:
+        """One keyframe's input to the mesher, the overlay and the
+        visualizer as one int32 row on the device: pose (rot, pos),
+        keypoint pixels (uL, v) and landmark points as float32 bits, then
+        the keypoint ids, landmark ids, landmark validity and keypoint
+        validity."""
         meas = fe_out["measurements"]
         kp_uv = torch.stack([meas.uvs[:, 0], meas.uvs[:, 2]], -1)
         f = torch.cat([bout["rot"].reshape(-1), bout["pos"], kp_uv.reshape(-1),
                        bout["lmk_points"].reshape(-1)])
         return torch.cat([f.view(torch.int32), meas.ids.to(torch.int32),
-                          bout["lmk_ids"].to(torch.int32), bout["lmk_valid"].to(torch.int32)])
+                          bout["lmk_ids"].to(torch.int32), bout["lmk_valid"].to(torch.int32),
+                          meas.mask.to(torch.int32)])
 
-    def _unpack_mesh_rows(self, rows: np.ndarray) -> list:
-        """Host inverse of `_pack_mesh_row` for (n, P) rows."""
+    def _unpack_kf_rows(self, rows: np.ndarray) -> list:
+        """Host inverse of `_pack_kf_row` for (n, P) rows."""
         N, L = self.frontend_cfg.max_features, self.backend_cfg.max_landmarks
         nf = 12 + 2 * N + 3 * L
         f = rows[:, :nf].view(np.float32)
@@ -272,7 +299,8 @@ class StereoImuPipeline:
         return [dict(rot=f[k, 0:9].reshape(3, 3), pos=f[k, 9:12],
                      kp_uv=f[k, 12:12 + 2 * N].reshape(N, 2),
                      lmk_points=f[k, 12 + 2 * N:].reshape(L, 3), kp_ids=i[k, :N],
-                     lmk_ids=i[k, N:N + L], lmk_valid=i[k, N + L:] > 0)
+                     lmk_ids=i[k, N:N + L], lmk_valid=i[k, N + L:N + 2 * L] > 0,
+                     kp_mask=i[k, N + 2 * L:] > 0)
                 for k in range(rows.shape[0])]
 
     def _setup_mesher(self, on: bool):
@@ -285,34 +313,62 @@ class StereoImuPipeline:
         self._mesher_images = on and (self.frontend_cfg.rgbd
                                       or bool(flags.get_flag("use_dense_depth_mesh_refinement")))
 
-    def _drain_aux(self, lcd_module, pending: list, upto: int, win, lmk):
-        """Feed the pending keyframes (frame number, stamp, LCD row, mesher
-        row, left, right) of frames up to `upto` to the LCD and the mesher,
-        each kind of row read back in one transfer. The mesher's RegularVIO
-        refine acts on `win` (and reads `lmk`), the window as it stands now.
-        Returns (the keyframes still pending, the window)."""
+    def _drain_aux(self, lcd_module, pending: list, upto: int, win, lmk, visualizer=None):
+        """Feed the pending keyframes (`AuxKeyframe`) of frames up to
+        `upto`, in order, to the overlay writer, the mesher, the LCD and
+        the visualizer, each kind of row read back in one transfer. The
+        mesher's RegularVIO refine acts on `win` (and reads `lmk`), the
+        window as it stands now. Returns (the keyframes still pending, the
+        window)."""
         n = 0
-        while n < len(pending) and pending[n][0] <= upto:
+        while n < len(pending) and pending[n].frame <= upto:
             n += 1
         if not n:
             return pending, win
-        lcd_rows = mesh_rows = None
+        lcd_rows = kf_rows = None
         if lcd_module is not None:
-            lcd_rows = self._unpack_lcd_rows(torch.stack([e[2] for e in pending[:n]]).cpu().numpy())
-        if self._mesher is not None:
-            mesh_rows = self._unpack_mesh_rows(torch.stack([e[3] for e in pending[:n]]).cpu().numpy())
-        for k, (_, stamp_ns, _, _, left, right) in enumerate(pending[:n]):
-            if mesh_rows is not None:
-                win = self._feed_mesher(mesh_rows[k], left, right, win, lmk)
+            lcd_rows = self._unpack_lcd_rows(torch.stack([e.lcd_row for e in pending[:n]]).cpu().numpy())
+        if pending[0].kf_row is not None:
+            kf_rows = self._unpack_kf_rows(torch.stack([e.kf_row for e in pending[:n]]).cpu().numpy())
+        for k, e in enumerate(pending[:n]):
+            if e.left_rect is not None:
+                self._log_frontend_img(e.stamp_ns, kf_rows[k], e.left_rect.cpu().numpy())
+            mesh = None
+            if self._mesher is not None:
+                win, mesh = self._feed_mesher(kf_rows[k], e.left, e.right, win, lmk)
             if lcd_rows is not None:
-                lcd_module.add_keyframe_packed(stamp_ns=stamp_ns, **lcd_rows[k])
+                lcd_module.add_keyframe_packed(stamp_ns=e.stamp_ns, **lcd_rows[k])
+            if visualizer is not None:
+                self._feed_visualizer(visualizer, kf_rows[k], mesh, e.left)
         return pending[n:], win
+
+    def _log_frontend_img(self, stamp_ns: int, fo: dict, left_rect: np.ndarray):
+        """log_frontend_images: the keyframe's feature-track overlay PNG
+        (reference logFrontendImg, StereoVisionImuFrontend.cpp:540,599),
+        green tracked since the previous keyframe, blue new, red dead."""
+        out_dir = self.output_path or flags.get_flag("output_path")
+        ids, mask = fo["kp_ids"], fo["kp_mask"]
+        save_feature_track_overlay(left_rect, fo["kp_uv"], ids, mask, self._prev_kf_ids,
+                                   os.path.join(out_dir, "frontend_images", f"{stamp_ns}.png"))
+        self._prev_kf_ids = [int(i) for i in ids[mask & (ids >= 0)]]
+
+    def _feed_visualizer(self, visualizer, fo: dict, mesh, left):
+        """One keyframe's widgets to the display: the pose, the landmark
+        cloud, the mesh and, behind visualize_mesh_2d, the mesher's
+        image-plane mesh over the raw left image."""
+        show_2d = (bool(flags.get_flag("visualize_mesh_2d")) and self._mesher is not None
+                   and self._mesher.mesh_2d is not None)
+        w = visualizer.spin_once(fo["rot"], fo["pos"], fo["lmk_points"], fo["lmk_valid"],
+                                 fo["lmk_ids"], mesh=mesh,
+                                 mesh_2d=self._mesher.mesh_2d if show_2d else None,
+                                 image=left.cpu().numpy() if show_2d else None)
+        self._display.spin_once(w)
 
     def _feed_mesher(self, fo: dict, left, right, win, lmk):
         """One keyframe through the mesher: mesh, refine against depth
         (RGB-D sensor depth, or dense stereo behind the
         use_dense_depth_mesh_refinement flag), the RegularVIO refine of
-        `win`, the PLY. Returns the window."""
+        `win`, the PLY. Returns (the window, the mesh)."""
         mesh = self._mesher.spin_once(fo["kp_uv"], fo["kp_ids"], fo["lmk_ids"], fo["lmk_points"],
                                       fo["lmk_valid"],
                                       horizon_ids={int(i) for i in fo["lmk_ids"] if i >= 0})
@@ -325,7 +381,7 @@ class StereoImuPipeline:
         if self._mesher_logger is not None:
             verts = mesh.vertices.reshape(-1, 3)
             self._mesher_logger.log(verts, np.arange(len(verts)).reshape(-1, 3))
-        return win
+        return win, mesh
 
     def _regular_refine(self, win, lmk, mesh):
         """One RegularVIO joint solve over the window and the persistent
@@ -741,7 +797,8 @@ class StereoImuPipeline:
                     f.write(",".join(f"{x:.9g}" if j else str(x) for j, x in enumerate(row)) + "\n")
 
     def _drive(self, provider, frames, verbose: bool, sync_each: bool = False,
-               defer_readback: bool = False, aux_drain: tuple | None = None) -> PipelineOutput:
+               defer_readback: bool = False, aux_drain: tuple | None = None,
+               visualize: bool = False) -> PipelineOutput:
         """The run loop of both entry points. `frames` yields (packet,
         left, right, imu_block, origin_ns): images and IMU block on the
         device (no IMU block for the first frame, which bootstraps) and
@@ -750,12 +807,14 @@ class StereoImuPipeline:
         frame and keyframe step times; `defer_readback` reads the keyframe
         states back once at the end instead of at each keyframe.
 
-        With loop closure or the mesher and `aux_drain = (every, lag)`,
-        every keyframe after the bootstrap leaves its LCD and mesher rows on
-        the device; every `every` frames the rows of keyframes at least
-        `lag` frames old are read back, one transfer per kind, and fed to
-        the LCD and the mesher, whose RegularVIO refine replaces the
-        window; the rest is fed after the last frame, then PGO runs.
+        With loop closure, the mesher, the overlays or the visualizer
+        (`visualize`) and `aux_drain = (every, lag)`, every keyframe after
+        the bootstrap leaves its rows (and the images they need) on the
+        device; every `every` frames those of keyframes at least `lag`
+        frames old are read back, one transfer per kind of row, and fed to
+        the overlay writer, the mesher (whose RegularVIO refine replaces
+        the window), the LCD and the visualizer; the rest is fed after the
+        last frame, then PGO runs.
 
         Online initialization (autoInitialize: 2, not mono) and fine time
         alignment read each keyframe's inputs on the host while they
@@ -774,8 +833,18 @@ class StereoImuPipeline:
         lcd_module = self._build_lcd() if self.enable_lcd and aux_drain else None
         self.frontend_cfg.lcd_features = self._lcd_features if lcd_module is not None else 0
         self._setup_mesher(aux_drain is not None)
-        feeds_aux = lcd_module is not None or self._mesher is not None
-        aux_pending = []  # (frame number, stamp_ns, LCD row, mesher row, left, right) not yet fed
+        log_fe_imgs = aux_drain is not None and bool(flags.get_flag("log_frontend_images"))
+        self._prev_kf_ids = None
+        visualizer = None
+        if visualize:
+            visualizer = Visualizer3D()
+            self._display = make_display(
+                self.params.pipeline.display_type,
+                os.path.join(self.output_path or flags.get_flag("output_path"), "viz"))
+        keep_left = visualizer is not None and bool(flags.get_flag("visualize_mesh_2d"))
+        need_kf_row = self._mesher is not None or log_fe_imgs or visualizer is not None
+        feeds_aux = lcd_module is not None or need_kf_row
+        aux_pending = []  # AuxKeyframe not yet fed
         use_init = bp.auto_initialize == 2 and not self.frontend_cfg.mono
         initializer = None
         aligner = None
@@ -872,15 +941,17 @@ class StereoImuPipeline:
                             [bout["rot"].reshape(-1), bout["pos"], bout["vel"], bout["bias"]])))
                         self._note_backend_health(int(bout["n_recovered"]))
                         if feeds_aux:
-                            images = (left, right) if self._mesher_images else (None, None)
-                            aux_pending.append((
+                            aux_pending.append(AuxKeyframe(
                                 out.n_frames, stamp_ns,
                                 self._pack_lcd_row(bout, fe_out) if lcd_module is not None else None,
-                                self._pack_mesh_row(bout, fe_out) if self._mesher is not None else None,
-                                *images))
+                                self._pack_kf_row(bout, fe_out) if need_kf_row else None,
+                                left if self._mesher_images or keep_left else None,
+                                right if self._mesher_images else None,
+                                self._overlay_image(fe_out) if log_fe_imgs else None))
                     if feeds_aux and (out.n_frames - 1) % aux_drain[0] == 0:
                         aux_pending, win = self._drain_aux(lcd_module, aux_pending,
-                                                           out.n_frames - aux_drain[1], win, lmk)
+                                                           out.n_frames - aux_drain[1], win, lmk,
+                                                           visualizer)
                 collecting = aligner is not None or (initializer is not None and not initializer.done)
                 if not (defer_readback or collecting) and keyframes:
                     self._publish(out, keyframes, self._host_rows(keyframes), logger)
@@ -895,7 +966,8 @@ class StereoImuPipeline:
                 self.stats.add("readback [ms]", (time.perf_counter() - tic) * 1e3)
                 self._publish(out, keyframes, rows, logger)
             if feeds_aux:
-                _, win = self._drain_aux(lcd_module, aux_pending, out.n_frames, win, lmk)
+                _, win = self._drain_aux(lcd_module, aux_pending, out.n_frames, win, lmk,
+                                         visualizer)
             if lcd_module is not None:
                 self.lcd_result = lcd_module.finish()
         finally:
@@ -909,6 +981,13 @@ class StereoImuPipeline:
         if verbose:
             print(self.stats.print_table())
         return out
+
+    @staticmethod
+    def _overlay_image(fe_out: dict) -> torch.Tensor:
+        """The keyframe's rectified left image, as the frontend step made
+        it, the way the overlay draws it: clipped to 0..255 and truncated
+        to uint8, on the device."""
+        return fe_out["left_rect"].clamp(0, 255).to(torch.uint8)
 
     def _direct_frames(self, provider):
         """run()'s frame source: each packet's images decoded (on a worker
@@ -962,7 +1041,8 @@ class StereoImuPipeline:
     def run(self, provider, verbose: bool = False) -> PipelineOutput:
         """Run the whole provider sequence; returns the keyframe trajectory."""
         return self._drive(provider, self._direct_frames(provider), verbose,
-                           sync_each=not self.parallel_run, aux_drain=(1, AUX_LAG))
+                           sync_each=not self.parallel_run, aux_drain=(1, AUX_LAG),
+                           visualize=self.enable_visualizer)
 
     # ------------------------------------------------------------------
     def _stage(self, provider, batch, side_stream) -> Staged:
@@ -1049,12 +1129,14 @@ class StereoImuPipeline:
             return
         first = packets[0]
         t0_ns = first["stamp_ns"]
+        # Each image is loaded once (a live provider releases it as it is
+        # read); the first frame's also sizes the super-batches.
+        left0 = provider.load_image(first["left_path"])
+        right0 = provider.load_image(first["right_path"]) if "right_path" in first else left0
         rest = [p for p in packets[1:] if p.get("imu") is not None]
         C = chunk_size
         super_frames = C
         if rest:
-            left0 = provider.load_image(rest[0]["left_path"])
-            right0 = provider.load_image(rest[0]["right_path"]) if "right_path" in rest[0] else left0
             frame_bytes = 2 * left0.size * np.result_type(left0.dtype, right0.dtype).itemsize
             super_frames = max(C, super_batch_bytes // frame_bytes // C * C)
         supers = [rest[i:i + super_frames] for i in range(0, len(rest), super_frames)]
@@ -1067,9 +1149,8 @@ class StereoImuPipeline:
         side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
         staged = PrefetchIterator(supers, lambda batch: self._stage(provider, batch, side), depth=2)
         try:
-            left = torch.from_numpy(provider.load_image(first["left_path"])).to(dev)
-            right = (torch.from_numpy(provider.load_image(first["right_path"])).to(dev)
-                     if "right_path" in first else left)
+            left = torch.from_numpy(left0).to(dev)
+            right = torch.from_numpy(right0).to(dev) if "right_path" in first else left
             yield first, left, right, None, t0_ns
             for batch, origin_ns in zip(supers, origins_ns):
                 tic = time.perf_counter()
@@ -1102,12 +1183,17 @@ class StereoImuPipeline:
         when they are on (without it they do not run, as in the JAX
         package): their rows are read back once per chunk, a chunk late,
         or right after their chunk when RegularVIO refines the window,
-        which then goes on into the next chunk. Refused, as in the JAX
-        package: fine time alignment, online initialization, external
-        odometry."""
-        if (self.enable_lcd or self.enable_mesher) and not collect_aux:
-            warnings.warn("mesher/LCD enabled but collect_aux=False: they will not run "
-                          "in chunked mode", stacklevel=2)
+        which then goes on into the next chunk; so are the overlays of
+        `log_frontend_images`. Refused, as in the JAX package: fine time
+        alignment, online initialization, external odometry. The
+        visualizer runs in `run()` only, as in the JAX package."""
+        if (self.enable_lcd or self.enable_mesher or flags.get_flag("log_frontend_images")) \
+                and not collect_aux:
+            warnings.warn("mesher/LCD/log_frontend_images enabled but collect_aux=False: they "
+                          "will not run in chunked mode", stacklevel=2)
+        if self.enable_visualizer:
+            warnings.warn("the visualizer runs in run() only (as in the JAX package), not in "
+                          "run_chunked", stacklevel=2)
         if flags.get_flag("do_fine_imu_camera_temporal_sync"):
             raise NotImplementedError("run_chunked does not support fine IMU-camera time alignment")
         if self.params.backend.auto_initialize == 2:

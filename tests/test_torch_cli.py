@@ -3,8 +3,9 @@ the same EuRoC-format folder and params folder, on the CPU — the stereo
 params folder and a mono one (no RightCameraParams.yaml: the mono
 pipeline; the JAX CLI's mono route raises before it runs, so there the
 port's CLI is held against that route's pipeline run directly); the port's `run()` on that folder against the JAX run the JAX
-CLI made; the options the port refuses; and the options `run_chunked`
-refuses, as the JAX one does.
+CLI made; `--visualize` and the one route the port refuses (the mesher
+on a mono folder); and the options `run_chunked` refuses, as the JAX one
+does.
 
 The JAX side tracks with its gather LK (`KIMERA_LK_IMPL=gather`), as
 tests/test_torch_pipeline.py explains, and so does its tolerance: the same
@@ -183,14 +184,33 @@ def test_cli_use_lcd_writes_the_pgo_logs(folders, tmp_path, extra):
 @pytest.mark.parametrize("extra", [
     ["--enable_mesher"], ["--visualize"], ["--gflag", "visualize=true"],
 ], ids=lambda e: e[-1])
-def test_unported_options_raise(folders, extra):
-    """--visualize raises on any folder; --enable_mesher on the mono params
-    folder (the mono pipeline has no mesher; on a stereo folder it runs,
-    tests/test_torch_mesher_chunked.py)."""
+def test_unported_options_raise(folders, tmp_path, monkeypatch, extra):
+    """--enable_mesher on the mono params folder raises (the mono pipeline
+    has no mesher; on a stereo folder it runs,
+    tests/test_torch_mesher_chunked.py). --visualize and --gflag
+    visualize=true, which used to raise, now run the visualizer in the
+    default parallel run(): its display (writing every keyframe here,
+    `save_every` 1) leaves a point cloud PLY per keyframe after the
+    bootstrap and the trajectory images under <output_path>/viz, without
+    --log_output."""
     params = folders["mono"] if extra == ["--enable_mesher"] else folders["params"]
     args = ["--params_folder", params, "--dataset_path", folders["data"], "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
-        tcli.main(args + extra)
+    if extra == ["--enable_mesher"]:
+        with pytest.raises(NotImplementedError):
+            tcli.main(args + extra)
+        return
+    from kimera_vio_tpu_torch.pipeline import stereo_pipeline
+    from kimera_vio_tpu_torch.visualizer.visualizer import FileDisplay
+
+    monkeypatch.setattr(stereo_pipeline, "make_display",
+                        lambda display_type, path: FileDisplay(path, save_every=1))
+    assert tcli.main(args + CAPS + extra + ["--output_path", str(tmp_path)]) == 0
+    files = sorted(os.listdir(tmp_path / "viz"))
+    plys = [f for f in files if f.startswith("pointcloud")]
+    pngs = [f for f in files if f.startswith("trajectory")]
+    assert len(plys) >= 2 and plys == [f"pointcloud_{k:06d}.ply" for k in range(1, len(plys) + 1)]
+    assert pngs == [f"trajectory_{k:06d}.png" for k in range(2, len(plys) + 1)]
+    assert not (tmp_path / "traj_vio.csv").exists()  # no --log_output
 
 
 @pytest.fixture(scope="module")

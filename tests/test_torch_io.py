@@ -192,7 +192,7 @@ def test_png_decoder_matches_opencv(tmp_path, writer):
         else:
             ft = None if writer == "cycling" else int(writer[-1])
             with open(path, "wb") as f:
-                f.write(chip_smoke.png_bytes(img, ft))
+                f.write(png.encode_png(img, ft))
             H, W, raw = png.read_png_stream(path)
             rows = np.frombuffer(raw, np.uint8).reshape(H, W + 1)[:, 0]
             assert (rows == (np.arange(H) % 5 if ft is None else ft)).all()
@@ -214,7 +214,7 @@ def test_png_decoder_refuses_other_pngs(tmp_path):
         with pytest.raises(png.PngFormatError, match=name):
             png.decode_png_gray8(str(tmp_path / name))
     # Interlaced (Adam7) header, and a row with filter type 5.
-    good = chip_smoke.png_bytes(rng.integers(0, 256, (4, 6)).astype(np.uint8), 0)
+    good = png.encode_png(rng.integers(0, 256, (4, 6)).astype(np.uint8), 0)
 
     def chunk(kind, body):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
@@ -259,7 +259,7 @@ def test_png16_decoder_matches_opencv(tmp_path, writer):
         else:
             ft = None if writer == "cycling" else int(writer[-1])
             with open(path, "wb") as f:
-                f.write(chip_smoke.png_bytes(img, ft))
+                f.write(png.encode_png(img, ft))
         want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
         assert want.dtype == np.uint16
         np.testing.assert_array_equal(want, img)

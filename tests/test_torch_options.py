@@ -34,8 +34,8 @@ function and the port's counterpart; each test states its tolerance.
     within 1e-6 relative, the Newton projection within 1e-3 px, the
     rectification map within 1e-3 px.
   * `FrontendConfig.from_params` and `BackendConfig.from_params` for each
-    lifted option against the JAX package's, and the pipeline still
-    refusing `visualize` with all of them on.
+    lifted option against the JAX package's, and a short run with all of
+    them and `visualize` on, the visualizer writing its artifacts.
   * LK at win 41: the plain tracker against `klt_track_pallas(...,
     interpret=True)` at the repository's tolerance (median < 0.05 px,
     tests/test_optical_flow.py:183-186), the gather rule against the JAX
@@ -396,9 +396,16 @@ def test_frontend_config_from_params_matches_jax(option):
     assert tcfg.fast_thresh == float(tp.frontend.fast_thresh)
 
 
-def test_pipeline_takes_every_option_but_visualize():
-    """Each lifted option at once builds a pipeline (Combined factor,
-    ORB with Brown ANMS, a 41 px window); `visualize` is still refused."""
+def test_pipeline_takes_every_option_but_visualize(tmp_path, monkeypatch):
+    """Each lifted option at once builds a pipeline (Combined factor, ORB
+    with Brown ANMS, a 41 px window), and so does `visualize`, the last
+    one lifted: a short 160x120 `run()` with all of them on and the
+    visualizer's display writing every keyframe (`save_every` 1) leaves
+    one point cloud PLY per keyframe after the bootstrap under
+    <output>/viz and a finite trajectory."""
+    from kimera_vio_tpu_torch.pipeline import stereo_pipeline
+    from kimera_vio_tpu_torch.visualizer.visualizer import FileDisplay
+
     p = vio_params_from_dict(dataclasses.asdict(j_synthetic_params(width=320, height=240)))
     p.imu.preintegration_type = 0
     p.frontend.feature_detector_type = 1
@@ -408,12 +415,29 @@ def test_pipeline_takes_every_option_but_visualize():
     assert pipe.backend_cfg.combined_pim
     assert (pipe.frontend_cfg.detector_type, pipe.frontend_cfg.anms_type) == (1, 1)
     assert pipe.frontend_cfg.klt_win == 41
+    small = vio_params_from_dict(dataclasses.asdict(j_synthetic_params(
+        width=160, height=120, fx=120.0, nr_states=5, max_features=64, max_landmarks=96)))
+    small.frontend.klt_max_level = 2
+    small.frontend.templ_cols, small.frontend.templ_rows = 31, 7
+    small.imu.preintegration_type = 0
+    small.frontend.feature_detector_type = 1
+    small.frontend.non_max_suppression_type = 1
+    small.frontend.klt_win_size = 41
+    monkeypatch.setattr(stereo_pipeline, "make_display",
+                        lambda display_type, path: FileDisplay(path, save_every=1))
     flags.set_flag("visualize", True)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the test workers share the machine's cores
     try:
-        with pytest.raises(NotImplementedError, match="visualize"):
-            StereoImuPipeline(p, device="cpu")
+        pipe = StereoImuPipeline(small, output_path=str(tmp_path), device="cpu")
+        out = pipe.run(SyntheticStereoProvider(n_frames=10, vx=0.5, width=160, height=120, fx=120.0))
     finally:
         flags.set_flag("visualize", False)
+        torch.set_num_threads(n_threads)
+    assert pipe.enable_visualizer and pipe.backend_cfg.combined_pim
+    assert np.isfinite(np.stack(out.positions)).all()
+    plys = sorted(f for f in os.listdir(tmp_path / "viz") if f.startswith("pointcloud"))
+    assert plys == [f"pointcloud_{k:06d}.ply" for k in range(1, out.n_keyframes)]
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ which changes the landmark set a little, and (2) float32 sums run in
 another order throughout (pyramids, LK windows, the normal equations).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from kimera_vio_tpu_torch.dataprovider.synthetic import SyntheticStereoProvider,
 from kimera_vio_tpu_torch.frontend import imu_frontend as imu
 from kimera_vio_tpu_torch.frontend.camera import PinholeCamera, StereoCamera
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
+from kimera_vio_tpu_torch.playground import visualize_gt_data
 from kimera_vio_tpu_torch.utils.logger import compute_ate
 
 SIZE = dict(width=320, height=240)
@@ -85,6 +88,7 @@ _CONSTRUCTORS = {
     "LandmarkTable.empty": lambda: sm.LandmarkTable.empty(8, 3),
     "ImuBias.zero": lambda: ImuBias.zero(),
     "TrackedFeatures.empty": lambda: TrackedFeatures.empty(8),
+    "visualize_gt_data": lambda: visualize_gt_data("no_such_dataset"),
 }
 
 
@@ -98,17 +102,43 @@ def test_public_constructors_default_to_the_card(name):
         _CONSTRUCTORS[name]()
 
 
-def test_pipeline_refuses_unported_options():
-    """The visualizer is the one option the pipeline still refuses (every
-    frontend type, pose source and initialization mode runs)."""
+def test_pipeline_refuses_unported_options(tmp_path, monkeypatch):
+    """Nothing is refused any more (every frontend type, pose source and
+    initialization mode builds, as before): with the `visualize` flag, the
+    last option the pipeline used to refuse, `run()` feeds each keyframe
+    after the bootstrap to the visualizer, and its file display (here
+    writing every keyframe, `save_every` 1) writes the landmark cloud as a
+    PLY and, from the second keyframe on, the trajectory image under
+    <output>/viz."""
     from kimera_vio_tpu_torch.config import flags
+    from kimera_vio_tpu_torch.dataprovider.png import decode_png_rgb8
+    from kimera_vio_tpu_torch.pipeline import stereo_pipeline
+    from kimera_vio_tpu_torch.visualizer.visualizer import FileDisplay
 
     params = synthetic_params(**SIZE, **CAP)
     params.backend.auto_initialize = 2
     StereoImuPipeline(params, device="cpu")
+    monkeypatch.setattr(stereo_pipeline, "make_display",
+                        lambda display_type, path: FileDisplay(path, save_every=1))
     flags.set_flag("visualize", True)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the test workers share the machine's cores
     try:
-        with pytest.raises(NotImplementedError, match="visualize"):
-            StereoImuPipeline(params, device="cpu")
+        pipe = StereoImuPipeline(synthetic_params(**SIZE, **CAP), output_path=str(tmp_path),
+                                 device="cpu")
+        out = pipe.run(SyntheticStereoProvider(n_frames=N_FRAMES, **SIZE))
     finally:
         flags.set_flag("visualize", False)
+        torch.set_num_threads(n_threads)
+    assert pipe.enable_visualizer
+    n = out.n_keyframes - 1
+    assert n >= 2
+    files = sorted(os.listdir(tmp_path / "viz"))
+    assert [f for f in files if f.startswith("trajectory")] == [
+        f"trajectory_{k:06d}.png" for k in range(2, n + 1)]
+    assert [f for f in files if f.startswith("pointcloud")] == [
+        f"pointcloud_{k:06d}.ply" for k in range(1, n + 1)]
+    head = (tmp_path / "viz" / f"pointcloud_{n:06d}.ply").read_text().splitlines()
+    n_pts = int(head[2].split()[-1])
+    assert n_pts > 0 and len(head) == 7 + n_pts
+    assert decode_png_rgb8(str(tmp_path / "viz" / f"trajectory_{n:06d}.png")).shape == (480, 480, 3)
