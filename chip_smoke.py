@@ -10,9 +10,10 @@ against its plain PyTorch version on the card, drives the port's
 stereo-inertial `StereoImuPipeline.run()` on the synthetic 752x480
 sequence (80 frames), its CLI, loop closure, its variants (mono,
 RGB-D, online initialization, pose sources, time alignment), the
-mesher with RegularVIO, the options it used to refuse, and the KITTI and
+mesher with RegularVIO, the options it used to refuse, the KITTI and
 live providers, the debug overlays, the visualizer and the playground,
-and checks the results. Every failure ends the run
+and a fleet of eight streams through one batched frame step, and checks
+the results. Every failure ends the run
 with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
 path, the phases' lines, one JSON line with the kernel table, and last
@@ -193,6 +194,29 @@ Phases:
      per shown pose after the first. One
      `[aux]` line per run: frames/s beside phase 2's (the host cost of
      the writes).
+  9. fleet: `FleetVio` (parallel/fleet.py), B streams through one batched
+     frame step. (a) The kernel's stream axis: B = 4 streams of phase 2's
+     752x480 sequence (stream b: frames b -> b+4, 256 detected keypoints)
+     and of phase 8a's 1241x376 sequence (frames b -> b+1; level 0 in B1's
+     gather mode), each in ONE launch against the plain version per
+     stream (phase 1's gate) and against four single-stream launches bit
+     for bit, and the same for B = 8 streams at 752x480 (the fleet run's
+     launch shape, 2,048 blocks); graph-replay ms per launch and per stream-frame at B = 1, 4
+     and 8 (752x480) beside the bound at B (the streams' `lk_work`
+     summed) and the plain version over the same streams. (b) Eight
+     distinct streams at phase 2's configuration (752x480, 256 features,
+     10-keyframe horizon, 384 landmarks), 40 frames each, vx 0.3-1.0 m/s
+     at 15-25 frames/s (so the streams keyframe at different frames),
+     each bootstrapped at its ground truth; every stream also alone
+     through the single-stream `_init_stream` + `_step` on the card.
+     Gates: LK launches = fleet frames (39, not 8 x 39); per stream and
+     frame the single-stream run's keyframe flag and position within 1e-3
+     m; ATE < 0.05 m per stream; at least one frame mixing keyframing and
+     tracking streams; final positions apart. (c) The same at B = 4, 2, 1
+     (the first B streams). One `[fleet]` line per run: stream-frames/s,
+     the batched frame step ms on fleet frames without a keyframe and the
+     keyframe ms per keyframing stream (host clock, each step ending in
+     `torch.cuda.synchronize`), phase 2's frames/s beside them.
 """
 
 from __future__ import annotations
@@ -212,6 +236,7 @@ import torch
 
 from kimera_vio_tpu_torch import __main__ as cli
 from kimera_vio_tpu_torch.common.geometry import quat_to_rot
+from kimera_vio_tpu_torch.common.types import ImuBlock, stack_trees, unstack_trees
 from kimera_vio_tpu_torch.config import flags as cli_flags
 from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.dataprovider import png
@@ -295,7 +320,21 @@ def _tile_pixels(shape, corners, win: int) -> int:
 def lk_bound_ms(levels, n_kpts: int, win: int = WIN) -> tuple[float, str]:
     """Least time the card could take for one frame's LK levels, from this
     run's data: bytes over HBM bandwidth vs float32 operations over the
-    float32 peak, whichever is larger.
+    float32 peak, whichever is larger (`lk_work`)."""
+    return bound_ms(*lk_work(levels, n_kpts, win))
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): bytes over HBM bandwidth or float32 operations
+    over the float32 peak, whichever takes longer."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lk_work(levels, n_kpts: int, win: int = WIN) -> tuple[int, float]:
+    """(bytes, float32 operations) of one frame's LK levels, from this run's
+    data.
 
     Bytes, each read once: per level, the distinct prev, gx and gy pixels
     under the valid keypoints' (win+1)^2 template tiles, and the distinct
@@ -314,9 +353,7 @@ def lk_bound_ms(levels, n_kpts: int, win: int = WIN) -> tuple[float, str]:
         nbytes += 3 * 4 * _tile_pixels(lv["shape"], lv["base"][valid], win)
         nbytes += 4 * _tile_pixels(lv["shape"], lv["start"][stepped], win)
         flops += int(valid.sum()) * npx * 27 + int(lv["iters"].sum()) * npx * 17
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes, flops
 
 
 def compare_lk(prev_pyr, cur_pyr, pts, valid, label: str, over_valid: bool = False,
@@ -2155,6 +2192,261 @@ def aux_phase(dev, path: dict, work: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the fleet
+# ---------------------------------------------------------------------------
+
+# Eight streams (vx m/s, frames/s): the rates differ so that under the
+# default keyframe policy (a keyframe once 0.2 s have passed) the streams
+# keyframe at different frames; 16 IMU samples a block hold 200 Hz down to
+# 12.5 frames/s.
+FLEET_STREAMS = ((0.3, 20.0), (0.4, 15.0), (0.5, 25.0), (0.6, 16.0),
+                 (0.7, 20.0), (0.8, 18.0), (0.9, 25.0), (1.0, 15.0))
+FLEET_FRAMES = 40
+FLEET_SWEEP = (1, 2, 4, 8)
+
+
+def fleet_lk_inputs(dev, n_streams: int, kitti: bool = False) -> dict:
+    """One keyframe -> frame pair per stream, stream b the sequence
+    shifted by b frames: phase 2's 752x480 sequence, frames b -> b+4 (as
+    `main_lk_inputs`), or phase 8a's 1241x376 KITTI sequence, frames b ->
+    b+1 (its 9.6 px a frame); 5-level pyramids and 256 keypoints detected
+    on frame b. Returns the stacked (B, ...) pyramids, gradients,
+    keypoints and flags."""
+    gap = 1 if kitti else 4
+    prov = (SyntheticStereoProvider(**{**KITTI, "n_frames": n_streams + gap}) if kitti
+            else SyntheticStereoProvider(n_frames=n_streams + gap, vx=0.5))
+    prev, cur, pts, valid = [], [], [], []
+    for b in range(n_streams):
+        img0 = torch.from_numpy(prov.load_image(("left", b))).to(dev)
+        img1 = torch.from_numpy(prov.load_image(("left", b + gap))).to(dev)
+        uv, ok = det.detect_features(img0, torch.zeros((256, 2), device=dev),
+                                     torch.zeros(256, dtype=torch.bool, device=dev), 256)
+        prev.append(of.build_pyramid(img0, 4))
+        cur.append(of.build_pyramid(img1, 4))
+        pts.append(uv)
+        valid.append(ok)
+    prev = [torch.stack(lv) for lv in zip(*prev)]
+    return {"prev": prev, "cur": [torch.stack(lv) for lv in zip(*cur)],
+            "grads": [of._grad(p) for p in prev], "pts": torch.stack(pts),
+            "valid": torch.stack(valid)}
+
+
+def _first(inp: dict, n: int) -> tuple:
+    """The lk_pyramid_cuda arguments of the first n streams."""
+    return ([p[:n] for p in inp["prev"]], [c[:n] for c in inp["cur"]],
+            [(gx[:n], gy[:n]) for gx, gy in inp["grads"]], inp["pts"][:n], inp["pts"][:n],
+            inp["valid"][:n])
+
+
+def plain_stream_work(args: tuple) -> tuple:
+    """One stream's lk_pyramid_cuda arguments (2-D planes) through the
+    plain version: (pts, ok, levels with the inputs `lk_work` counts)."""
+    seen = []
+
+    def level_seen(prev, gx, gy, cur, base, start, valid, **lkw):
+        out = lk.lk_level_plain(prev, gx, gy, cur, base, start, valid, **lkw)
+        seen.append({"base": base, "start": start, "valid": valid})
+        return out
+
+    prev, cur, grads, pts, init, valid = args
+    out, ok, lv = lk.track_pyramid(level_seen, prev, cur, pts, init, valid, grads, **LK_KW)
+    return out, ok, [{**level, **s} for level, s in zip(lv, seen)]
+
+
+def compare_fleet_lk(inp: dict, n_streams: int, label: str) -> dict:
+    """ONE launch for n_streams streams against the plain version per
+    stream (phase 1's gate: median and max |d| < 0.01 px over the
+    keypoints both track, the same `ok`), and against n_streams
+    single-stream launches bit for bit."""
+    args = _first(inp, n_streams)
+    out_k, ok_k, it_k = lk.lk_pyramid_cuda(*args, **LK_KW)
+    per_stream = unstack_trees(args, n_streams)
+    singles = [lk.lk_pyramid_cuda(*a, **LK_KW) for a in per_stream]
+    d, agree, modes, tracked_both = [], [], None, 0
+    for b in range(n_streams):
+        out_p, ok_p, levels = plain_stream_work(per_stream[b])
+        modes = [lv["mode"] for lv in levels]
+        both = ok_k[b] & ok_p
+        tracked_both += int(both.sum())
+        d.append(torch.linalg.norm(out_k[b] - out_p, dim=-1)[both])
+        agree.append(float((ok_k[b] == ok_p).float().mean()))
+        single = singles[b]
+        if not (torch.equal(single[0], out_k[b]) and torch.equal(single[1], ok_k[b])
+                and torch.equal(single[2], it_k[b])):
+            raise AssertionError(f"{label}: stream {b}'s batched launch differs from its own")
+    d = torch.cat(d)
+    if tracked_both < 0.5 * n_streams * inp["pts"].shape[1]:
+        raise AssertionError(f"{label}: only {tracked_both} keypoints tracked by both")
+    median, max_err = float(d.median()), float(d.max())
+    if not (median < 0.01 and max_err < 0.01 and min(agree) == 1.0):
+        raise AssertionError(f"{label}: median {median} px, max {max_err} px, "
+                             f"ok agreement {min(agree)}")
+    return {"label": label, "streams": n_streams, "launches": 1, "tracked": int(ok_k.sum()),
+            "median_abs_err": median, "max_abs_err": max_err, "ok_agreement": min(agree),
+            "equal_to_single_launches": True, "level_modes": modes}
+
+
+def fleet_kernel_rows(inp: dict) -> dict:
+    """Graph-replay ms of one launch at B = 1, 4 and 8, per launch and per
+    stream-frame, beside the bound at B (the streams' `lk_work` summed)
+    and the plain version over the same B streams (one eager call of
+    `track_pyramid` on the stacked inputs)."""
+    n = inp["pts"].shape[0]
+    work = [lk_work(plain_stream_work(a)[2], inp["pts"].shape[1])
+            for a in unstack_trees(_first(inp, n), n)]
+    rows = {}
+    for n in (1, 4, 8):
+        args = _first(inp, n)
+        ms = graph_ms(lambda: lk.lk_pyramid_cuda(*args, **LK_KW))
+        plain = time_ms(lambda: lk.track_pyramid(lk.lk_level_plain, args[0], args[1], args[3],
+                                                 args[4], args[5], args[2], **LK_KW),
+                        reps=3, warmup=1)
+        b_ms, b_by = bound_ms(sum(w[0] for w in work[:n]), sum(w[1] for w in work[:n]))
+        rows[n] = {"streams": n, "ms": ms, "ms_per_stream_frame": ms / n, "bound_ms": b_ms,
+                   "bound_by": b_by, "plain_ms": plain}
+        log(f"[fleet] {json.dumps({'run': 'kernel 752x480', **rows[n]})}")
+    return rows
+
+
+def fleet_streams(dev, n_frames: int = FLEET_FRAMES, size: dict | None = None) -> list:
+    """Per stream of FLEET_STREAMS: its provider, its frames on the card
+    (left, right, IMU block, float32 seconds since its first frame, stamp
+    ns) and its ground-truth state at its first frame."""
+    out = []
+    for vx, fps in FLEET_STREAMS:
+        prov = SyntheticStereoProvider(n_frames=n_frames, vx=vx, fps=fps, **(size or {}))
+        packets = list(prov.frames())
+        s0 = packets[0]["stamp_ns"]
+        frames = [(torch.from_numpy(prov.load_image(p["left_path"])).to(dev),
+                   torch.from_numpy(prov.load_image(p["right_path"])).to(dev),
+                   None if p["imu"] is None else ImuBlock(
+                       *(getattr(p["imu"], f).to(dev) for f in ("acc", "gyr", "dt", "mask"))),
+                   float(np.float32((p["stamp_ns"] - s0) * 1e-9)), p["stamp_ns"])
+                  for p in packets]
+        out.append({"provider": prov, "frames": frames})
+    return out
+
+
+def fleet_gold(dev, params, streams: list) -> list:
+    """Each stream alone on the card: `_init_stream` at its ground truth,
+    then the single-stream `_step` per frame. Per stream: the keyframe
+    flags and the positions per frame (the backend's on keyframes, the
+    newest window slot's otherwise, as the fleet reports them)."""
+    pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+    for st in streams:
+        frames = st["frames"]
+        st["nav"], st["bias"] = pipe._bootstrap_state(st["provider"], frames[0][4], None)
+        fe, win, lmk = pipe._init_stream(frames[0][0], frames[0][1], 0.0, st["nav"], st["bias"])
+        flags, pos = [], []
+        for left, right, blk, stamp, _ in frames[1:]:
+            fe, win, lmk, fo, bout = pipe._step(fe, win, lmk, left, right, blk, stamp)
+            flags.append(bool(fo["is_keyframe"]))
+            pos.append((bout["pos"] if bout else win.pos[max(win.n - 1, 0)]).clone())
+        st["gold_kf"] = np.array(flags)
+        st["gold_pos"] = torch.stack(pos).cpu().numpy()
+    return streams
+
+
+def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float) -> dict:
+    """The first n_streams streams through FleetVio, every step ending in
+    `torch.cuda.synchronize`, the LK counter set to 0 just before. Gates:
+    one LK launch per fleet frame; per stream and frame the single-stream
+    run's keyframe flag and position within 1e-3 m; ATE < 0.05 m per
+    stream; at least one frame that mixes keyframing and tracking streams
+    (B > 1); final positions apart (B > 1)."""
+    from kimera_vio_tpu_torch.parallel import FleetVio
+
+    sel = streams[:n_streams]
+    n_frames = len(sel[0]["frames"])
+    fleet = FleetVio(params, n_streams, device=dev)
+    state = fleet.init(torch.stack([st["frames"][0][0] for st in sel]),
+                       torch.stack([st["frames"][0][1] for st in sel]),
+                       stack_trees([st["nav"] for st in sel]),
+                       torch.stack([st["bias"] for st in sel]))
+    inputs = []
+    for k in range(1, n_frames):
+        fr = [st["frames"][k] for st in sel]
+        inputs.append((torch.stack([f[0] for f in fr]), torch.stack([f[1] for f in fr]),
+                       stack_trees([f[2] for f in fr]), [f[3] for f in fr]))
+    kf, pos, step_ms = [], [], []
+    torch.cuda.synchronize()
+    lk.lk_pyramid_cuda.launches = 0
+    t0 = time.perf_counter()
+    for args in inputs:
+        tic = time.perf_counter()
+        state, out = fleet.step(state, *args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - tic) * 1e3)
+        kf.append(out["is_keyframe"])
+        pos.append(out["pos"])
+    wall = time.perf_counter() - t0
+    launches = lk.lk_pyramid_cuda.launches
+    if launches != n_frames - 1:
+        raise AssertionError(f"fleet B={n_streams}: LK launches {launches} != {n_frames - 1} "
+                             "fleet frames")
+    kf = np.stack(kf)  # (frames, B)
+    pos = torch.stack(pos).cpu().numpy()  # (frames, B, 3)
+    n_kf = kf.sum(1)
+    mixed = int(((n_kf > 0) & (n_kf < n_streams)).sum())
+    ate, max_dpos = [], 0.0
+    for b, st in enumerate(sel):
+        if not np.array_equal(kf[:, b], st["gold_kf"]):
+            raise AssertionError(f"fleet B={n_streams}: stream {b}'s keyframe flags differ from "
+                                 "its single-stream run")
+        max_dpos = max(max_dpos, float(np.abs(pos[:, b] - st["gold_pos"]).max()))
+        stamps = [st["frames"][0][4]] + [st["frames"][k + 1][4] for k in np.flatnonzero(kf[:, b])]
+        est = np.concatenate([st["nav"].pos.cpu().numpy()[None], pos[kf[:, b], b]])
+        gt = st["provider"].ground_truth
+        ate.append(compute_ate(np.array(stamps), est, gt.stamps_ns, gt.positions,
+                               align=False)["rmse"])
+    if not max_dpos < 1e-3:
+        raise AssertionError(f"fleet B={n_streams}: positions {max_dpos} m from the "
+                             "single-stream runs'")
+    if not (np.isfinite(pos).all() and max(ate) < 0.05):
+        raise AssertionError(f"fleet B={n_streams}: ATE rmse {ate} (gate 0.05 m)")
+    if n_streams > 1:
+        final = pos[-1]
+        apart = min(float(np.linalg.norm(final[i] - final[j]))
+                    for i in range(n_streams) for j in range(i + 1, n_streams))
+        if mixed < 1 or not apart > 1e-3:
+            raise AssertionError(f"fleet B={n_streams}: {mixed} mixed frames, final positions "
+                                 f"{apart} m apart")
+    step_ms = np.array(step_ms)
+    track_ms = float(step_ms[n_kf == 0].mean())
+    kf_ms = float(np.mean((step_ms[n_kf > 0] - track_ms) / n_kf[n_kf > 0]))
+    row = {"run": f"fleet B={n_streams}", "streams": n_streams, "frames": n_frames,
+           "lk_launches": launches, "keyframes": int(n_kf.sum()), "mixed_frames": mixed,
+           "ate_rmse_m": ate, "max_abs_dpos_vs_single_m": max_dpos, "wall_s": wall,
+           "stream_frames_per_s": n_streams * (n_frames - 1) / wall,
+           "frame_step_ms": track_ms, "keyframe_ms_per_stream": kf_ms,
+           "path_frames_per_s": path_fps}
+    log(f"[fleet] {json.dumps(row)}")
+    return row
+
+
+def fleet_phase(dev, path: dict, n_frames: int = FLEET_FRAMES, size: dict | None = None) -> dict:
+    """Phase 9 (see the module docstring)."""
+    res = {}
+    if size is None:  # the kernel rows need the card's full-size frames
+        inp = fleet_lk_inputs(dev, 8)
+        res["kernel"] = compare_fleet_lk(inp, 4, "752x480")
+        # B = 8: the launch shape of the fleet run below (2,048 blocks).
+        res["kernel8"] = compare_fleet_lk(inp, 8, "752x480 B=8")
+        res["kitti"] = compare_fleet_lk(fleet_lk_inputs(dev, 4, kitti=True), 4, "1241x376")
+        if res["kitti"]["level_modes"][-1] != "gather":
+            raise AssertionError("1241x376 level 0 should take the gather mode (B1)")
+        for r in (res["kernel"], res["kernel8"], res["kitti"]):
+            log(f"[fleet] {json.dumps({'run': 'kernel vs plain', **r})}")
+        res["rows"] = fleet_kernel_rows(inp)
+    params = (synthetic_params(**size, nr_states=10, max_features=256, max_landmarks=384)
+              if size else synthetic_params(nr_states=10, max_features=256, max_landmarks=384))
+    streams = fleet_gold(dev, params, fleet_streams(dev, n_frames, size))
+    res["runs"] = {n: fleet_run(dev, params, streams, n, path["frames_per_s"])
+                   for n in sorted(FLEET_SWEEP, reverse=True)}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -2193,7 +2485,7 @@ def main() -> int:
 
 
 def _phases(dev, kern: dict, path: dict, work: str) -> int:
-    """Phases 3-8, the kernel table and the result line."""
+    """Phases 3-9, the kernel table and the result line."""
     t = time.perf_counter()
     cli_res = cli_phase(dev, path, work)
     log(f"[phase] cli {time.perf_counter() - t:.1f} s")
@@ -2214,6 +2506,9 @@ def _phases(dev, kern: dict, path: dict, work: str) -> int:
     live_res = live_phase(dev, path)
     aux_res = aux_phase(dev, path, work)
     log(f"[phase] host modules {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    fleet_res = fleet_phase(dev, path)
+    log(f"[phase] fleet {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -2243,6 +2538,17 @@ def _phases(dev, kern: dict, path: dict, work: str) -> int:
         "launches_live": live_res["lk_launches"],
         "launches_aux": {name: r["lk_launches"] for name, r in aux_res.items()
                          if "lk_launches" in r},
+        # Phase 9: the stream axis. One launch per fleet frame for all B
+        # streams; its graph-replay ms per stream-frame and bound at B.
+        "launches_fleet": {n: r["lk_launches"] for n, r in fleet_res["runs"].items()},
+        "fleet_ms_per_stream_frame": {n: r["ms_per_stream_frame"]
+                                      for n, r in fleet_res["rows"].items()},
+        "fleet_ms": {n: r["ms"] for n, r in fleet_res["rows"].items()},
+        "fleet_bound_ms": {n: r["bound_ms"] for n, r in fleet_res["rows"].items()},
+        "fleet_plain_ms": {n: r["plain_ms"] for n, r in fleet_res["rows"].items()},
+        "fleet_max_abs_err": {"752x480": fleet_res["kernel"]["max_abs_err"],
+                              "752x480 B=8": fleet_res["kernel8"]["max_abs_err"],
+                              "1241x376": fleet_res["kitti"]["max_abs_err"]},
         "max_abs_err": kern["max_abs_err"],
         "median_abs_err": kern["median_abs_err"],
         "ms": kern["ms"],

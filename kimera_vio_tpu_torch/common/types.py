@@ -8,6 +8,10 @@ struct-of-arrays shapes so that a test can compare them field by field.
   * Timestamps are int64 nanoseconds on the host; on-device time is
     relative float32 seconds.
   * Per-feature containers are fixed-capacity SoA with a validity mask.
+  * A stacked tree (`stack_trees`) carries B streams: a leading stream
+    axis on every tensor and one numpy array per host scalar;
+    `unstack_trees` splits it into its streams, `tree_set` writes one
+    stream of it and `tree_clone` copies it.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from kimera_vio_tpu_torch import resolve_device
@@ -55,6 +60,81 @@ def tree_map2(fn, a, b):
     if isinstance(a, torch.Tensor):
         return fn(a, b)
     return a
+
+
+def stack_trees(trees: list):
+    """Structurally equal trees (dataclasses, tuples, lists, dicts) -> one
+    tree with a leading stream axis: tensor leaves are stacked on dim 0,
+    host scalars (int, float, bool) become numpy arrays of one value per
+    stream, None stays None."""
+    first = trees[0]
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return dataclasses.replace(
+            first,
+            **{f.name: stack_trees([getattr(t, f.name) for t in trees])
+               for f in dataclasses.fields(first)},
+        )
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(stack_trees(list(xs)) for xs in zip(*trees))
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if first is None:
+        return None
+    return np.array(trees)
+
+
+def unstack_trees(tree, n: int) -> list:
+    """The n single-stream trees of a stacked tree (`stack_trees`'s
+    inverse; dicts too): tensor leaves as views, numpy leaves as their
+    rows (Python scalars where a row has no axis)."""
+    def rows(cols):
+        return list(zip(*cols)) if cols else [()] * n
+
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        names = [f.name for f in dataclasses.fields(tree)]
+        cols = [unstack_trees(getattr(tree, k), n) for k in names]
+        return [dataclasses.replace(tree, **dict(zip(names, row))) for row in rows(cols)]
+    if isinstance(tree, dict):
+        return [dict(zip(tree, row)) for row in rows([unstack_trees(v, n) for v in tree.values()])]
+    if isinstance(tree, (tuple, list)):
+        return [type(tree)(row) for row in rows([unstack_trees(x, n) for x in tree])]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    if isinstance(tree, np.ndarray):
+        return [x.item() if x.ndim == 0 else x for x in tree]
+    return [tree] * n
+
+
+def tree_clone(tree):
+    """A copy of a tree that shares no tensor or numpy array with it."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(
+            tree, **{f.name: tree_clone(getattr(tree, f.name)) for f in dataclasses.fields(tree)}
+        )
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_clone(x) for x in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+def tree_set(dst, b: int, src) -> None:
+    """Write the single-stream tree `src` into stream b of the stacked
+    tree `dst`, in place (tensor slices copied, host values assigned)."""
+    if dataclasses.is_dataclass(dst) and not isinstance(dst, type):
+        for f in dataclasses.fields(dst):
+            tree_set(getattr(dst, f.name), b, getattr(src, f.name))
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            tree_set(d, b, s)
+    elif isinstance(dst, torch.Tensor):
+        dst[b].copy_(src)
+    elif isinstance(dst, np.ndarray):
+        dst[b] = src
 
 
 @dataclass

@@ -17,11 +17,12 @@ import torch
 from kimera_vio_tpu_torch import resolve_device
 from kimera_vio_tpu_torch.backend.regular_vio import PlaneStates
 from kimera_vio_tpu_torch.backend.smoother import LandmarkTable, Window
-from kimera_vio_tpu_torch.common.types import ImuBias, TrackedFeatures
+from kimera_vio_tpu_torch.common.types import ImuBias, TrackedFeatures, stack_trees, unstack_trees
 from kimera_vio_tpu_torch.config import params as P
 from kimera_vio_tpu_torch.frontend.imu_frontend import Pim
 from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendState
 from kimera_vio_tpu_torch.mesher.plane_tracker import PlaneTracker
+from kimera_vio_tpu_torch.parallel.fleet import FleetState
 
 _PARAM_CLASSES = {
     "pipeline": P.PipelineParams,
@@ -113,6 +114,19 @@ def state_from_numpy(window: dict, landmarks: dict, frontend: dict | None = None
         last_status=int(frontend["last_status"]),
     )
     return win, lmk, fe
+
+
+def fleet_state_from_numpy(fe_state: dict, win: dict, lmk: dict, *,
+                           device: str | torch.device = "cuda") -> FleetState:
+    """The JAX FleetState's leaves (frontend state, window, landmark table
+    as dicts of numpy arrays with a leading stream axis) -> the port's
+    FleetState on `device`: each stream through `state_from_numpy`, then
+    stacked."""
+    n = np.asarray(win["n"]).shape[0]
+    streams = [state_from_numpy(w, lm, fe, device=device)
+               for w, lm, fe in zip(*(unstack_trees(t, n) for t in (win, lmk, fe_state)))]
+    w, lm, fe = (stack_trees(list(part)) for part in zip(*streams))
+    return FleetState(fe_state=fe, win=w, lmk=lm)
 
 
 def planes_from_numpy(planes: dict, *, device: str | torch.device = "cuda") -> PlaneStates:

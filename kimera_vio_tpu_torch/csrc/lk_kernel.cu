@@ -1,5 +1,6 @@
-// Pyramidal forward-additive Lucas-Kanade: one launch tracks one frame,
-// every pyramid level coarse to fine; one multi-warp block per keypoint.
+// Pyramidal forward-additive Lucas-Kanade: one launch tracks one frame of
+// each of B streams, every pyramid level coarse to fine; one multi-warp
+// block per keypoint and stream (grid N x B).
 //
 // Replaces, in one kernel:
 //   * kimera_vio_tpu/ops/pallas/lk_kernel.py:_level_kernel_vmem (:332,
@@ -59,6 +60,11 @@
 //      nothing. 54 px is the widest window the Pallas tracker admits: its
 //      search-window clip search_rows - win - 2 must stay >= 0 at its 56
 //      rows (pallas/lk_kernel.py:177-181).
+//   5. A stream axis: B independent streams (a fleet of robots sharing one
+//      rig) are tracked in the same launch. blockIdx.y picks the stream: it
+//      offsets the four planes of every level by the level's stride between
+//      streams' planes, and the keypoint and output indices by N. One stream
+//      is B = 1 of the same kernel.
 // TMA does not fit: level rows (94, 47, 311, 621, 1241 floats...) are not
 // multiples of 16 bytes, and its out-of-bounds fill is zeros, not the edge
 // replication the reference uses. Tensor cores have nothing to do: a step is
@@ -88,6 +94,7 @@ struct Level {
   const float* gx;
   const float* gy;
   const float* cur;
+  long long stride;  // elements between one stream's planes and the next's
   int H, W, mode, clamp_h;
   float scale;   // the point and its base are multiplied by this first
   int keep_ok;   // this level's ok is and-ed into the result
@@ -181,9 +188,10 @@ __device__ __forceinline__ void tile_origin(const Level& L, int win, float px, f
 }
 
 // Issue the cp.async copies of a level's raw prev / gx / gy tiles (edge-
-// clamped) into dst (3 planes of (win+1)^2 floats).
-__device__ __forceinline__ void stage_tiles(float* dst, const Level& L, int win, float px,
-                                            float py) {
+// clamped) into dst (3 planes of (win+1)^2 floats); `off` is the stream's
+// plane offset.
+__device__ __forceinline__ void stage_tiles(float* dst, const Level& L, size_t off, int win,
+                                            float px, float py) {
   int t_ox, t_oy;
   float ftx, fty;
   bool frac_ok;
@@ -192,7 +200,7 @@ __device__ __forceinline__ void stage_tiles(float* dst, const Level& L, int win,
   for (int i = threadIdx.x; i < 3 * t2; i += kThreads) {
     const int q = i / t2, rem = i - q * t2;
     const int r = rem / tw, c = rem - r * tw;
-    const float* plane = q == 0 ? L.prev : (q == 1 ? L.gx : L.gy);
+    const float* plane = (q == 0 ? L.prev : (q == 1 ? L.gx : L.gy)) + off;
     cp_async4(dst + i, plane + (size_t)clampi(t_oy + r, 0, L.H - 1) * L.W +
                            clampi(t_ox + c, 0, L.W - 1));
   }
@@ -224,7 +232,10 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
   float* s_stage = smem + 8 * kWarps;                // search window or plane
   float* s_raw = s_stage + tab.stage_floats;         // 2 x 3 x t2
 
-  const int k = blockIdx.x;
+  // Keypoint blockIdx.x of stream blockIdx.y: inputs and outputs are
+  // (B, N, ...), so its row is k; every plane is offset by the stream's.
+  const int k = blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t b = blockIdx.y;
   const int tid = threadIdx.x;
 
   // The window pixels this thread owns: p = tid + j * kThreads.
@@ -253,7 +264,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
         bx = bx * tab.lv[e].scale;
         by = by * tab.lv[e].scale;
       }
-      stage_tiles(s_raw, tab.lv[e0], win, bx, by);
+      stage_tiles(s_raw, tab.lv[e0], b * tab.lv[e0].stride, win, bx, by);
     }
     cp_async_commit();
   }
@@ -271,20 +282,21 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
     }
     const int H = L.H, W = L.W;
     const bool window = L.mode != kXla;
+    const float* cur = L.cur + b * L.stride;
 
     // ---- stage the search window (or the XLA level's plane) ---------------
     int sx0 = 0, sy0 = 0;
-    const float* P = L.cur;  // what an XLA level's steps sample: plane or its copy
+    const float* P = cur;  // what an XLA level's steps sample: plane or its copy
     if (window) {
       sx0 = clampi((int)floorf(cx) - kLanes / 2, 0, max(W - kLanes, 0));
       sy0 = clampi((int)floorf(cy) - sr / 2, 0, max(L.clamp_h - sr, 0));
       for (int i = tid; i < sr * kLanes; i += kThreads) {
         const int r = i / kLanes, c = i % kLanes;
         cp_async4(s_stage + r * sstride + c,
-                  L.cur + (size_t)clampi(sy0 + r, 0, H - 1) * W + clampi(sx0 + c, 0, W - 1));
+                  cur + (size_t)clampi(sy0 + r, 0, H - 1) * W + clampi(sx0 + c, 0, W - 1));
       }
     } else if (H * W <= tab.stage_floats) {
-      for (int i = tid; i < H * W; i += kThreads) cp_async4(s_stage + i, L.cur + i);
+      for (int i = tid; i < H * W; i += kThreads) cp_async4(s_stage + i, cur + i);
       P = s_stage;
     }
     cp_async_commit();
@@ -298,7 +310,7 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
           bx = bx * tab.lv[f].scale;
           by = by * tab.lv[f].scale;
         }
-        stage_tiles(s_raw + (buf ^ 1) * 3 * t2, tab.lv[ne], win, bx, by);
+        stage_tiles(s_raw + (buf ^ 1) * 3 * t2, tab.lv[ne], b * tab.lv[ne].stride, win, bx, by);
       }
       cp_async_commit();
     }
@@ -432,8 +444,8 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
 }
 
 template <int WIN, int SR, int MAXWIN>
-int launch(const Table& tab, size_t smem, int N, const void* prev_pts, const void* init_pts,
-           const void* valid, void* out_pts, void* out_ok, void* out_iters,
+int launch(const Table& tab, size_t smem, int N, int B, const void* prev_pts,
+           const void* init_pts, const void* valid, void* out_pts, void* out_ok, void* out_iters,
            cudaStream_t stream) {
   auto kernel = lk_pyramid_kernel<WIN, SR, MAXWIN>;
   if (smem > 48 * 1024) {
@@ -441,27 +453,31 @@ int launch(const Table& tab, size_t smem, int N, const void* prev_pts, const voi
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<N, kThreads, smem, stream>>>(tab, (const float*)prev_pts, (const float*)init_pts,
-                                  (const uint8_t*)valid, (float*)out_pts, (uint8_t*)out_ok,
-                                  (int32_t*)out_iters);
+  kernel<<<dim3(N, B), kThreads, smem, stream>>>(
+      tab, (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid,
+      (float*)out_pts, (uint8_t*)out_ok, (int32_t*)out_iters);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// planes: 4 pointers per level (prev, gx, gy, cur), coarse to fine;
-// ints: 5 per level (H, W, mode, clamp_h, keep_ok); scales: 1 per
-// level. Outputs: pts (N,2) float32, ok (N,) uint8, iters (N, n_levels) int32
-// indexed by level number. search_rows is read only when a level takes the
+// planes: 4 pointers per level (prev, gx, gy, cur), coarse to fine, each
+// to stream 0's plane; strides: per level the elements from one stream's
+// planes to the next's; ints: 5 per level (H, W, mode, clamp_h, keep_ok);
+// scales: 1 per level. Points (B, N, 2), valid (B, N). Outputs: pts (B, N,
+// 2) float32, ok (B, N) uint8, iters (B, N, n_levels) int32 indexed by level
+// number. search_rows is read only when a level takes the
 // window rule (modes kVmem and kGather); the gather rule passes 0.
-extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, const float* scales,
-                                 int n_levels, int H0, int W0, const void* prev_pts,
-                                 const void* init_pts, const void* valid, void* out_pts,
-                                 void* out_ok, void* out_iters, int N, int win,
+extern "C" int lk_pyramid_launch(const void* const* planes, const long long* strides,
+                                 const int* ints, const float* scales, int n_levels, int H0,
+                                 int W0, const void* prev_pts, const void* init_pts,
+                                 const void* valid, void* out_pts, void* out_ok,
+                                 void* out_iters, int N, int n_streams, int win,
                                  int search_rows, int max_iter, float eps2,
                                  float min_eig_thresh, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || win < 2 || win > kMaxWinWide)
     return (int)cudaErrorInvalidValue;
+  if (n_streams < 1 || n_streams > 65535) return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
   Table tab = {};
   tab.n = n_levels;
@@ -479,6 +495,7 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, con
     L.gx = (const float*)planes[4 * e + 1];
     L.gy = (const float*)planes[4 * e + 2];
     L.cur = (const float*)planes[4 * e + 3];
+    L.stride = strides[e];
     L.H = ints[5 * e];
     L.W = ints[5 * e + 1];
     L.mode = ints[5 * e + 2];
@@ -509,13 +526,13 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const int* ints, con
   const size_t smem = fixed + sizeof(float) * stage;
   const cudaStream_t s = (cudaStream_t)stream;
   if (win == 24 && search_rows == 56)
-    return launch<24, 56, 24>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
-                              out_iters, s);
+    return launch<24, 56, 24>(tab, smem, N, n_streams, prev_pts, init_pts, valid, out_pts,
+                              out_ok, out_iters, s);
   if (win <= kMaxWin)
-    return launch<0, 0, kMaxWin>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
-                                 out_iters, s);
-  return launch<0, 0, kMaxWinWide>(tab, smem, N, prev_pts, init_pts, valid, out_pts, out_ok,
-                                   out_iters, s);
+    return launch<0, 0, kMaxWin>(tab, smem, N, n_streams, prev_pts, init_pts, valid, out_pts,
+                                 out_ok, out_iters, s);
+  return launch<0, 0, kMaxWinWide>(tab, smem, N, n_streams, prev_pts, init_pts, valid,
+                                   out_pts, out_ok, out_iters, s);
 }
 
 extern "C" const char* lk_error_string(int code) {

@@ -162,32 +162,34 @@ def preintegrate_sequential(
 
 
 def _compose_pim(params: PimParams, p1: Pim, p2: Pim) -> Pim:
-    """Compose two consecutive preintegrations (same bias_hat)."""
+    """Compose two consecutive preintegrations (same bias_hat); leaves may
+    carry leading batch axes."""
     R1, v1, pp1, t1 = p1.delta_R, p1.delta_v, p1.delta_p, p1.delta_t
     R2, v2, pp2, t2 = p2.delta_R, p2.delta_v, p2.delta_p, p2.delta_t
+    batch = R1.shape[:-2]
     delta_R = R1 @ R2
     delta_v = v1 + (R1 @ v2[..., None])[..., 0]
-    delta_p = pp1 + v1 * t2 + (R1 @ pp2[..., None])[..., 0]
+    delta_p = pp1 + v1 * t2[..., None] + (R1 @ pp2[..., None])[..., 0]
     eye3 = torch.eye(3, dtype=R1.dtype, device=R1.device)
-    A = torch.zeros((9, 9), dtype=R1.dtype, device=R1.device)
-    A[0:3, 0:3] = R2.T
-    A[3:6, 0:3] = -R1 @ geo.hat(v2)
-    A[3:6, 3:6] = eye3
-    A[6:9, 0:3] = -R1 @ geo.hat(pp2)
-    A[6:9, 3:6] = eye3 * t2
-    A[6:9, 6:9] = eye3
-    B1 = torch.zeros((9, 9), dtype=R1.dtype, device=R1.device)
-    B1[0:3, 0:3] = eye3
-    B1[3:6, 3:6] = R1
-    B1[6:9, 6:9] = R1
-    cov = A @ p1.cov @ A.T + B1 @ p2.cov @ B1.T
-    dR_dbg = R2.T @ p1.dR_dbg + p2.dR_dbg
+    A = torch.zeros((*batch, 9, 9), dtype=R1.dtype, device=R1.device)
+    A[..., 0:3, 0:3] = R2.mT
+    A[..., 3:6, 0:3] = -R1 @ geo.hat(v2)
+    A[..., 3:6, 3:6] = eye3
+    A[..., 6:9, 0:3] = -R1 @ geo.hat(pp2)
+    A[..., 6:9, 3:6] = eye3 * t2[..., None, None]
+    A[..., 6:9, 6:9] = eye3
+    B1 = torch.zeros((*batch, 9, 9), dtype=R1.dtype, device=R1.device)
+    B1[..., 0:3, 0:3] = eye3
+    B1[..., 3:6, 3:6] = R1
+    B1[..., 6:9, 6:9] = R1
+    cov = A @ p1.cov @ A.mT + B1 @ p2.cov @ B1.mT
+    dR_dbg = R2.mT @ p1.dR_dbg + p2.dR_dbg
     dv_dba = p1.dv_dba + R1 @ p2.dv_dba
     dv_dbg = p1.dv_dbg - R1 @ geo.hat(v2) @ p1.dR_dbg + R1 @ p2.dv_dbg
-    dp_dba = p1.dp_dba + p1.dv_dba * t2 + R1 @ p2.dp_dba
+    dp_dba = p1.dp_dba + p1.dv_dba * t2[..., None, None] + R1 @ p2.dp_dba
     dp_dbg = (
         p1.dp_dbg
-        + p1.dv_dbg * t2
+        + p1.dv_dbg * t2[..., None, None]
         - R1 @ geo.hat(pp2) @ p1.dR_dbg
         + R1 @ p2.dp_dbg
     )
@@ -207,13 +209,13 @@ def _compose_pim(params: PimParams, p1: Pim, p2: Pim) -> Pim:
 
 
 def _prefix_matmul(M: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix products S_k = M_0 @ ... @ M_k over axis 0
+    """Inclusive prefix products S_k = M_0 @ ... @ M_k over axis -3
     (Hillis-Steele doubling: log2(n) batched matmuls)."""
     S = M
-    n = M.shape[0]
+    n = M.shape[-3]
     off = 1
     while off < n:
-        S = torch.cat([S[:off], S[:-off] @ S[off:]], dim=0)
+        S = torch.cat([S[..., :off, :, :], S[..., :-off, :, :] @ S[..., off:, :, :]], dim=-3)
         off *= 2
     return S
 
@@ -222,70 +224,76 @@ def preintegrate_parallel(params: PimParams, block: ImuBlock, bias: ImuBias) -> 
     """Log-depth preintegration of one block (the reference's
     `preintegrate_parallel`): prefix rotation products, closed-form
     reordered sums for the deltas and bias Jacobians, and suffix products
-    of the 9x9 error-state transitions for the covariance."""
+    of the 9x9 error-state transitions for the covariance. A block with
+    leading batch axes ((B, n, 3) samples, (B, 3) biases) preintegrates
+    B streams at once."""
     dt = torch.where(block.mask, block.dt, torch.zeros_like(block.dt))
-    a = block.acc - bias.accel
-    w = block.gyr - bias.gyro
+    a = block.acc - bias.accel[..., None, :]
+    w = block.gyr - bias.gyro[..., None, :]
     dev, dtp = a.device, a.dtype
+    batch, n = a.shape[:-2], a.shape[-2]
 
-    dR_inc = geo.so3_exp(w * dt[:, None])
-    Jr = geo.so3_right_jacobian(w * dt[:, None])
+    dR_inc = geo.so3_exp(w * dt[..., None])
+    Jr = geo.so3_right_jacobian(w * dt[..., None])
 
     S = _prefix_matmul(dR_inc)
     eye = torch.eye(3, dtype=dtp, device=dev)
-    R = torch.cat([eye[None], S[:-1]], dim=0)
+    R = torch.cat([eye.expand(*batch, 1, 3, 3), S[..., :-1, :, :]], dim=-3)
 
-    t = torch.cat([torch.zeros(1, dtype=dt.dtype, device=dev), torch.cumsum(dt, 0)[:-1]])
-    T = torch.sum(dt)
-    Ra = torch.einsum("kij,kj->ki", R, a)
+    t = torch.cat([torch.zeros((*batch, 1), dtype=dt.dtype, device=dev),
+                   torch.cumsum(dt, -1)[..., :-1]], dim=-1)
+    T = torch.sum(dt, -1)
+    Ra = torch.einsum("...kij,...kj->...ki", R, a)
+    tail = dt * (T[..., None] - t - 0.5 * dt)
 
-    delta_R = S[-1]
-    delta_v = torch.einsum("ki,k->i", Ra, dt)
-    delta_p = torch.einsum("ki,k->i", Ra, dt * (T - t - 0.5 * dt))
+    delta_R = S[..., -1, :, :]
+    delta_v = torch.einsum("...ki,...k->...i", Ra, dt)
+    delta_p = torch.einsum("...ki,...k->...i", Ra, tail)
 
-    SJr = torch.einsum("kij,kjl->kil", S, Jr)
-    dR_dbg = -delta_R.T @ torch.einsum("kil,k->il", SJr, dt)
-    dv_dba = -torch.einsum("kij,k->ij", R, dt)
-    dp_dba = -torch.einsum("kij,k->ij", R, dt * (T - t - 0.5 * dt))
-    P_incl = torch.cumsum(SJr * dt[:, None, None], dim=0)
-    P_excl = torch.cat([torch.zeros((1, 3, 3), dtype=dtp, device=dev), P_incl[:-1]])
-    dR_dbg_k = -torch.einsum("kji,kjl->kil", R, P_excl)
-    Rhat_a = torch.einsum("kij,kjl->kil", R, geo.hat(a))
-    HdR = torch.einsum("kij,kjl->kil", Rhat_a, dR_dbg_k)
-    dv_dbg = -torch.einsum("kil,k->il", HdR, dt)
-    dp_dbg = -torch.einsum("kil,k->il", HdR, dt * (T - t - 0.5 * dt))
+    SJr = torch.einsum("...kij,...kjl->...kil", S, Jr)
+    dR_dbg = -delta_R.mT @ torch.einsum("...kil,...k->...il", SJr, dt)
+    dv_dba = -torch.einsum("...kij,...k->...ij", R, dt)
+    dp_dba = -torch.einsum("...kij,...k->...ij", R, tail)
+    P_incl = torch.cumsum(SJr * dt[..., None, None], dim=-3)
+    P_excl = torch.cat([torch.zeros((*batch, 1, 3, 3), dtype=dtp, device=dev),
+                        P_incl[..., :-1, :, :]], dim=-3)
+    dR_dbg_k = -torch.einsum("...kji,...kjl->...kil", R, P_excl)
+    Rhat_a = torch.einsum("...kij,...kjl->...kil", R, geo.hat(a))
+    HdR = torch.einsum("...kij,...kjl->...kil", Rhat_a, dR_dbg_k)
+    dv_dbg = -torch.einsum("...kil,...k->...il", HdR, dt)
+    dp_dbg = -torch.einsum("...kil,...k->...il", HdR, tail)
 
-    n = a.shape[0]
-    A = torch.zeros((n, 9, 9), dtype=dtp, device=dev)
-    A[:, 0:3, 0:3] = dR_inc.transpose(-1, -2)
-    A[:, 3:6, 0:3] = -Rhat_a * dt[:, None, None]
-    A[:, 6:9, 0:3] = -0.5 * Rhat_a * (dt**2)[:, None, None]
-    A[:, 3:6, 3:6] = eye
-    A[:, 6:9, 3:6] = eye * dt[:, None, None]
-    A[:, 6:9, 6:9] = eye
+    dt3 = dt[..., None, None]
+    A = torch.zeros((*batch, n, 9, 9), dtype=dtp, device=dev)
+    A[..., 0:3, 0:3] = dR_inc.mT
+    A[..., 3:6, 0:3] = -Rhat_a * dt3
+    A[..., 6:9, 0:3] = -0.5 * Rhat_a * dt3**2
+    A[..., 3:6, 3:6] = eye
+    A[..., 6:9, 3:6] = eye * dt3
+    A[..., 6:9, 6:9] = eye
     eye9 = torch.eye(9, dtype=dtp, device=dev)
-    A = torch.where(block.mask[:, None, None], A, eye9)
+    A = torch.where(block.mask[..., None, None], A, eye9)
 
     safe_dt = torch.clamp(dt, min=1e-12)
     gyro_cov = params.gyro_noise_density**2 / safe_dt
     acc_cov = params.acc_noise_density**2 / safe_dt
     int_cov = params.integration_sigma**2 * safe_dt
-    Bg = torch.zeros((n, 9, 3), dtype=dtp, device=dev)
-    Bg[:, 0:3, :] = Jr * dt[:, None, None]
-    Ba = torch.zeros((n, 9, 3), dtype=dtp, device=dev)
-    Ba[:, 3:6, :] = R * dt[:, None, None]
-    Ba[:, 6:9, :] = 0.5 * R * (dt**2)[:, None, None]
-    Q = gyro_cov[:, None, None] * torch.einsum(
-        "kij,klj->kil", Bg, Bg
-    ) + acc_cov[:, None, None] * torch.einsum("kij,klj->kil", Ba, Ba)
-    Q[:, 6:9, 6:9] += int_cov[:, None, None] * eye
-    Q = torch.where(block.mask[:, None, None], Q, torch.zeros_like(Q))
+    Bg = torch.zeros((*batch, n, 9, 3), dtype=dtp, device=dev)
+    Bg[..., 0:3, :] = Jr * dt3
+    Ba = torch.zeros((*batch, n, 9, 3), dtype=dtp, device=dev)
+    Ba[..., 3:6, :] = R * dt3
+    Ba[..., 6:9, :] = 0.5 * R * dt3**2
+    Q = gyro_cov[..., None, None] * torch.einsum(
+        "...kij,...klj->...kil", Bg, Bg
+    ) + acc_cov[..., None, None] * torch.einsum("...kij,...klj->...kil", Ba, Ba)
+    Q[..., 6:9, 6:9] += int_cov[..., None, None] * eye
+    Q = torch.where(block.mask[..., None, None], Q, torch.zeros_like(Q))
 
-    A_rev = torch.flip(A, dims=(0,))
+    A_rev = torch.flip(A, dims=(-3,))
     S9 = _prefix_matmul(A_rev)
-    M_incl = torch.flip(S9, dims=(0,))
-    M = torch.cat([M_incl[1:], eye9[None]], dim=0)
-    cov = torch.einsum("kij,kjl,kml->im", M, Q, M)
+    M_incl = torch.flip(S9, dims=(-3,))
+    M = torch.cat([M_incl[..., 1:, :, :], eye9.expand(*batch, 1, 9, 9)], dim=-3)
+    cov = torch.einsum("...kij,...kjl,...kml->...im", M, Q, M)
 
     return Pim(
         delta_R=delta_R,
@@ -307,7 +315,9 @@ def preintegrate(
 ) -> Pim:
     """Preintegrate a masked IMU block, optionally continuing from `init`
     (the inter-keyframe accumulation, reset on keyframes). Parallel form,
-    composed onto `init` in closed form — as the reference pipeline does."""
+    composed onto `init` in closed form — as the reference pipeline does.
+    Leading batch axes on the block, bias and `init` preintegrate that
+    many streams at once."""
     pim_block = preintegrate_parallel(params, block, bias)
     if init is None:
         return pim_block

@@ -11,7 +11,10 @@ keypoints' motion from the gyro rotation; track lkf -> current with LK;
 apply the keyframe policy (VisionImuFrontend::shouldBeKeyframe). The
 reference gates the keyframe branch with `lax.cond` on the device; here it
 is a host `if` on the decision, which needs the tracked count and the
-median disparity on the host (one small copy per frame).
+median disparity on the host (one small copy per frame). The per-frame
+part (`track`) also takes B streams stacked, in the same launches:
+`FleetVio` (parallel/fleet.py) then decides and runs the keyframe half
+per stream (`decide`, `finish`), as `process_frame` does for one.
 
 Per keyframe: mono RANSAC (2-pt given the gyro rotation, or 5-pt),
 re-detection (GFTT, Harris, FAST or ORB; binning or ANMS types 0-5),
@@ -213,18 +216,35 @@ def extract_lcd_features(stereo, left_rect: torch.Tensor, right_rect: torch.Tens
 
 
 def _nanmedian_linear(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Median of x over `ok`, averaging the two middle values for an even
-    count (jnp.nanmedian's linear interpolation; torch.nanmedian returns
-    the lower one); 0 when nothing is valid."""
-    n = ok.sum()
-    v, _ = torch.sort(torch.where(ok, x, torch.full_like(x, torch.inf)))
+    """Median of x over `ok` along the last axis, averaging the two middle
+    values for an even count (jnp.nanmedian's linear interpolation;
+    torch.nanmedian returns the lower one); 0 when nothing is valid."""
+    n = ok.sum(-1)
+    v, _ = torch.sort(torch.where(ok, x, torch.full_like(x, torch.inf)), dim=-1)
     k = torch.clamp(n - 1, min=0).to(torch.float32) * 0.5
     lo = torch.floor(k)
     hi = torch.ceil(k)
     hw = k - lo
-    med = v[lo.to(torch.int64)] * (1.0 - hw) + v[hi.to(torch.int64)] * hw
+
+    def at(i):
+        return torch.gather(v, -1, i.to(torch.int64)[..., None])[..., 0]
+
+    med = at(lo) * (1.0 - hw) + at(hi) * hw
     return torch.where(n > 0, med, torch.zeros_like(med))
 
+
+@dataclass
+class Tracked:
+    """`StereoFrontend.track`'s result, for one stream or B stacked: the
+    tracked features, the current pyramid, the PIM since the last keyframe,
+    the gyro rotation in the rectified camera, and the policy inputs on
+    the host ((..., 2): tracked count, median disparity)."""
+
+    features: TrackedFeatures
+    pyramid: list
+    pim: imu.Pim
+    R_cam: torch.Tensor
+    policy: np.ndarray
 
 class StereoFrontend:
     """Host orchestrator of the per-frame / per-keyframe computations."""
@@ -275,9 +295,10 @@ class StereoFrontend:
         return img if self.cfg.rgbd or self.cfg.mono else self._remap_right(img)
 
     def _rect_and_versors(self, uv_raw):
-        """(uv_rect, versors) from one shared undistortion."""
+        """(uv_rect, versors) from one shared undistortion; (..., N, 2)
+        pixels of one stream or B."""
         xy = undistort_to_normalized(self.left, uv_raw, iters=10)
-        rays = torch.cat([xy, torch.ones_like(xy[:, :1])], dim=-1)
+        rays = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
         rays = (self.stereo.R_rect_l @ rays[..., None])[..., 0]
         versors = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
         if self.identity_rect:
@@ -372,13 +393,16 @@ class StereoFrontend:
         return StereoMeasurements(ids=feats.ids, uvs=uvd, mask=ok & feats.mask)
 
     # ------------------------------------------------------------------
-    def process_frame(self, state: FrontendState, left_img, right_img, imu_block: ImuBlock,
-                      stamp: float):
-        """Track one frame; run the keyframe branch when the policy says so.
-        Returns (state, outputs)."""
+    def track(self, state: FrontendState, left_img, imu_block: ImuBlock) -> Tracked:
+        """The per-frame part up to the keyframe policy: pyramid,
+        preintegration since the last keyframe, rotational prediction, LK
+        from the last keyframe, the age gate, and the policy's inputs read
+        back in one transfer. Takes one stream, or B streams stacked
+        (`stack_trees`: a leading stream axis on the state's tensors, (B,
+        H, W) images, (B, n) IMU blocks) in the same launches, LK
+        included (one launch)."""
         cfg = self.cfg
         left_img = left_img.to(torch.float32)
-        right_img = right_img.to(torch.float32)
         cur_pyr = of.build_pyramid(left_img, cfg.klt_max_level)
 
         pim = imu.preintegrate(self.pim_params, imu_block, state.imu_bias, init=state.pim)
@@ -386,7 +410,7 @@ class StereoFrontend:
         R_cam_raw = self.R_leftcam_body @ pim.delta_R @ self.R_leftcam_body.T
         feats = state.lkf_features
         init_uv = of.predict_flow_rotational(
-            feats.uv, feats.mask, R_cam_raw.T, self.K_raw, self.K_raw_inv,
+            feats.uv, feats.mask, R_cam_raw.mT[..., None, :, :], self.K_raw, self.K_raw_inv,
             self.left.width, self.left.height,
         )
         tracked_uv, ok = klt_track_lk(
@@ -401,12 +425,16 @@ class StereoFrontend:
             ids=torch.where(ok, feats.ids, torch.full_like(feats.ids, -1)),
             ages=feats.ages, mask=ok,
         )
-
-        # Keyframe policy (VisionImuFrontend::shouldBeKeyframe), on the host.
         disp = torch.linalg.norm(tracked_uv - feats.uv, dim=-1)
-        n_ok_t = ok.sum()
-        med_t = _nanmedian_linear(disp, ok)
-        n_ok, med_disp = int(n_ok_t), float(med_t)
+        policy = torch.stack([ok.sum(-1).to(torch.float32), _nanmedian_linear(disp, ok)], -1)
+        return Tracked(cur_feats, cur_pyr, pim, R_cam, policy.cpu().numpy())
+
+    def decide(self, state: FrontendState, trk: Tracked, stamp: float) -> tuple[bool, int]:
+        """The keyframe policy (VisionImuFrontend::shouldBeKeyframe) of one
+        stream on the host, from the state's host scalars and `trk.policy`:
+        (is_keyframe, tracking status)."""
+        cfg = self.cfg
+        n_ok, med_disp = int(trk.policy[0]), float(trk.policy[1])
         dt = float(np.float32(stamp) - np.float32(state.lkf_stamp))
         time_min = dt >= cfg.min_intra_kf_time
         time_max = dt >= cfg.max_intra_kf_time
@@ -426,31 +454,51 @@ class StereoFrontend:
             TRACKING_LOW_DISPARITY if low_disparity
             else TRACKING_FEW_MATCHES if too_few else TRACKING_VALID
         )
+        return is_keyframe, status
 
+    def finish(self, state: FrontendState, trk: Tracked, left_img, right_img, stamp: float,
+               decision: tuple[bool, int]):
+        """One stream's frame past `track` (`trk`: that stream's result)
+        and `decide` (`decision`): the keyframe branch with the RANSAC
+        inlier-count gate on the status, or the tracking frame's state;
+        then the frame's outputs. A tracking frame reads only the state's
+        host scalars and passes `trk`'s features and PIM on whole.
+        Returns (state, outputs)."""
+        cfg = self.cfg
+        is_keyframe, status = decision
         if is_keyframe:
             state, meas, extras = self._keyframe_branch(
-                state, cur_feats, cur_pyr, left_img, right_img, pim, R_cam, stamp
-            )
+                state, trk.features, trk.pyramid, left_img.to(torch.float32),
+                right_img.to(torch.float32), trk.pim, trk.R_cam, stamp)
             ransac_few = extras["n_mono_inliers"] < cfg.min_mono_inliers or (
                 not (cfg.mono or cfg.rgbd) and extras["n_stereo_inliers"] < cfg.min_stereo_inliers)
             if ransac_few and status == TRACKING_VALID:
                 status = TRACKING_FEW_MATCHES
         else:
-            state = replace(state, features=cur_feats, pim=pim, frame_count=state.frame_count + 1)
+            state = replace(state, features=trk.features, pim=trk.pim,
+                            frame_count=state.frame_count + 1)
             meas = None
             extras = {"n_mono_inliers": 0, "n_stereo_inliers": 0}
         state = replace(state, last_status=status)
         outputs = {
             "is_keyframe": is_keyframe,
             "status": status if is_keyframe else TRACKING_VALID,
-            "n_tracked": n_ok,
-            "median_disparity": med_disp,
-            "pim": pim,
+            "n_tracked": int(trk.policy[0]),
+            "median_disparity": float(trk.policy[1]),
+            "pim": trk.pim,
             "measurements": meas,
             "stamp": stamp,
             **extras,
         }
         return state, outputs
+
+    def process_frame(self, state: FrontendState, left_img, right_img, imu_block: ImuBlock,
+                      stamp: float):
+        """Track one frame; run the keyframe branch when the policy says so.
+        Returns (state, outputs)."""
+        trk = self.track(state, left_img, imu_block)
+        return self.finish(state, trk, left_img, right_img, stamp,
+                           self.decide(state, trk, stamp))
 
     # ------------------------------------------------------------------
     def _keyframe_branch(self, state, cur_feats, cur_pyr, left_img, right_img, pim, R_cam, stamp):

@@ -21,16 +21,17 @@ import torch.nn.functional as F
 
 
 def _conv2d(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
-    """Same-padding 2D correlation of a single-channel image (H, W) with
-    zero padding, as shifted adds in the reference's order."""
+    """Same-padding 2D correlation of a single-channel image (H, W), or of
+    a stack of them (..., H, W), with zero padding, as shifted adds in the
+    reference's order."""
     k = np.asarray(kernel, np.float32)
     kh, kw = k.shape
-    H, W = img.shape
+    H, W = img.shape[-2:]
     ph, pw = kh // 2, kw // 2
     if kh * kw > 32:
         kt = torch.as_tensor(k, dtype=img.dtype, device=img.device)
-        padded = F.pad(img[None, None], (pw, kw - 1 - pw, ph, kh - 1 - ph))
-        return F.conv2d(padded, kt[None, None])[0, 0]
+        padded = F.pad(img.reshape(-1, 1, H, W), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+        return F.conv2d(padded, kt[None, None]).reshape(img.shape)
     padded = F.pad(img, (pw, kw - 1 - pw, ph, kh - 1 - ph))
     out = None
     for dy in range(kh):
@@ -38,7 +39,7 @@ def _conv2d(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
             c = float(k[dy, dx])
             if c == 0.0:
                 continue
-            term = c * padded[dy : dy + H, dx : dx + W]
+            term = c * padded[..., dy : dy + H, dx : dx + W]
             out = term if out is None else out + term
     return out if out is not None else torch.zeros_like(img)
 
@@ -50,7 +51,8 @@ _SCHARR_Y = _SCHARR_X.T
 
 
 def image_gradients(img: torch.Tensor, scharr: bool = True):
-    """(Ix, Iy) via Scharr (LK's gradient) or Sobel."""
+    """(Ix, Iy) via Scharr (LK's gradient) or Sobel, of an (H, W) image or
+    a (..., H, W) stack."""
     kx, ky = (_SCHARR_X, _SCHARR_Y) if scharr else (_SOBEL_X, _SOBEL_Y)
     return _conv2d(img, kx), _conv2d(img, ky)
 

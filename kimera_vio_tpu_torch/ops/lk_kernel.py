@@ -31,6 +31,11 @@ roll, blocks of 8) have no counterpart.
 plain coarse-to-fine loop over `lk_level_plain`) and the kernel, which
 receives it by value as a launch parameter.
 
+Stream axis: levels may be (B, H, W) planes of B streams with keypoints
+(B, N, 2) and flags (B, N); each keypoint reads its own stream's planes,
+and one launch tracks all B x N keypoints (`FleetVio`,
+parallel/fleet.py). 2-D levels with (N, 2) keypoints are one stream.
+
 Dispatch: a CPU tensor runs `track_pyramid(lk_level_plain, ...)`; a CUDA
 tensor launches the kernel (`lk_pyramid_cuda`) or raises. There is no
 fallback between the two.
@@ -142,13 +147,14 @@ def level_table(shapes, win: int, search_rows: int | None) -> list[LevelPlan]:
 # ---------------------------------------------------------------------------
 
 
-def _read(img: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """img[rows, cols] with edge-clamped indices; rows (N,R), cols (N,C)
-    -> (N,R,C)."""
-    H, W = img.shape
+def _read(img: torch.Tensor, s: torch.Tensor, rows: torch.Tensor,
+          cols: torch.Tensor) -> torch.Tensor:
+    """img[s, rows, cols] with edge-clamped indices; img (B,H,W), s (M,)
+    the stream of each keypoint, rows (M,R), cols (M,C) -> (M,R,C)."""
+    _, H, W = img.shape
     r = torch.clamp(rows, 0, H - 1)
     c = torch.clamp(cols, 0, W - 1)
-    return img[r[:, :, None], c[:, None, :]]
+    return img[s[:, None, None], r[:, :, None], c[:, None, :]]
 
 
 def _blend4(raw: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
@@ -176,11 +182,23 @@ def lk_level_plain(
     """One LK pyramid level for all keypoints, plain PyTorch.
 
     prev/gx/gy/cur: (H, W) float32 level images; base: (N,2) keypoints in
-    prev; pts: (N,2) initial guesses in cur; valid: (N,) bool.
-    Returns (pts (N,2), ok (N,), iters (N,) int32 — the Gauss-Newton steps
-    each keypoint took)."""
-    H, W = prev.shape
+    prev; pts: (N,2) initial guesses in cur; valid: (N,) bool. With a
+    stream axis: (B, H, W) images, (B, N, 2) points, (B, N) flags, each
+    keypoint reading its own stream's images.
+    Returns (pts (..., N, 2), ok (..., N), iters (..., N) int32 — the
+    Gauss-Newton steps each keypoint took)."""
+    if prev.dim() == 2:
+        out = lk_level_plain(
+            prev[None], gx[None], gy[None], cur[None], base[None], pts[None], valid[None],
+            win=win, max_iter=max_iter, eps=eps, min_eig_thresh=min_eig_thresh,
+            window_rule=window_rule, search_rows=search_rows, clamp_h=clamp_h)
+        return tuple(x[0] for x in out)
+    B, H, W = prev.shape
     dev = prev.device
+    n_per = base.shape[1]
+    # B x N keypoints in one flat batch; s is each keypoint's stream.
+    s = torch.arange(B, device=dev).repeat_interleave(n_per)
+    base, pts, valid = base.reshape(-1, 2), pts.reshape(-1, 2), valid.reshape(-1)
     N = base.shape[0]
     half = (win - 1) * 0.5
     a1 = torch.arange(win + 1, device=dev)
@@ -210,9 +228,9 @@ def lk_level_plain(
 
     rows = t_oy[:, None] + a1[None, :]
     cols = t_ox[:, None] + a1[None, :]
-    tmpl = _blend4(_read(prev, rows, cols), ftx, fty)
-    tgx = _blend4(_read(gx, rows, cols), ftx, fty)
-    tgy = _blend4(_read(gy, rows, cols), ftx, fty)
+    tmpl = _blend4(_read(prev, s, rows, cols), ftx, fty)
+    tgx = _blend4(_read(gx, s, rows, cols), ftx, fty)
+    tgy = _blend4(_read(gy, s, rows, cols), ftx, fty)
 
     gxx = torch.sum(tgx * tgx, dim=(-2, -1))
     gxy = torch.sum(tgx * tgy, dim=(-2, -1))
@@ -231,7 +249,7 @@ def lk_level_plain(
         sx0 = torch.clamp(torch.floor(cx).to(torch.int64) - _LANES // 2, 0, max(W - _LANES, 0))
         sy0 = torch.clamp(torch.floor(cy).to(torch.int64) - SR // 2, 0, max(clamp_h - SR, 0))
         S = _read(
-            cur,
+            cur, s,
             sy0[:, None] + torch.arange(SR, device=dev)[None, :],
             sx0[:, None] + torch.arange(_LANES, device=dev)[None, :],
         )  # (N, SR, 128)
@@ -272,7 +290,7 @@ def lk_level_plain(
             y0 = torch.floor(y0f)
             xi = torch.clamp(x0.to(torch.int64), 0, W + 2 * pad - win - 1) - pad
             yi = torch.clamp(y0.to(torch.int64), 0, H + 2 * pad - win - 1) - pad
-            raw = _read(cur, yi[:, None] + a1[None, :], xi[:, None] + a1[None, :])
+            raw = _read(cur, s, yi[:, None] + a1[None, :], xi[:, None] + a1[None, :])
             sample = _blend4(raw, x0f - x0, y0f - y0)
         dI = sample - tmpl
         bx = torch.sum(dI * tgx, dim=(-2, -1))
@@ -283,7 +301,8 @@ def lk_level_plain(
         cy = torch.where(act, cy + dy, cy)
         moving = moving & ~(act & (dx * dx + dy * dy < eps * eps))
         iters = iters + act.to(torch.int32)
-    return torch.stack([cx, cy], dim=-1), good_g & inb, iters
+    return (torch.stack([cx, cy], dim=-1).reshape(B, n_per, 2), (good_g & inb).reshape(B, n_per),
+            iters.reshape(B, n_per))
 
 
 # ---------------------------------------------------------------------------
@@ -298,12 +317,13 @@ def track_pyramid(
     """`klt_track_pallas`'s coarse-to-fine loop over `level_fn`
     (`lk_level_plain`, or a wrapper of it); with `search_rows=None` the
     loop of the reference's gather tracker `klt_track` (no window rule on
-    any level, level 0's gate kept). Returns (tracked_pts, ok, levels),
-    `levels` one dict per tracked level: its shape, mode and per-keypoint
-    step counts."""
+    any level, level 0's gate kept). Levels are (H, W), or (B, H, W) with
+    a stream axis on the points and flags. Returns (tracked_pts, ok,
+    levels), `levels` one dict per tracked level: its shape, mode and
+    per-keypoint step counts."""
     pts, base, ok = init_pts, prev_pts, valid
     levels = []
-    for e in level_table([p.shape for p in prev_pyr], win, search_rows):
+    for e in level_table([p.shape[-2:] for p in prev_pyr], win, search_rows):
         pts = pts * e.scale
         base = base * e.scale
         if e.mode == "skip":
@@ -318,13 +338,13 @@ def track_pyramid(
         levels.append({"level": e.level, "shape": e.shape, "mode": e.mode, "iters": iters})
         if e.keep_ok:
             ok = ok & ok_lvl
-    H0, W0 = prev_pyr[0].shape
+    H0, W0 = prev_pyr[0].shape[-2:]
     half = win * 0.5
     inb = (
-        (pts[:, 0] >= half)
-        & (pts[:, 0] < W0 - half)
-        & (pts[:, 1] >= half)
-        & (pts[:, 1] < H0 - half)
+        (pts[..., 0] >= half)
+        & (pts[..., 0] < W0 - half)
+        & (pts[..., 1] >= half)
+        & (pts[..., 1] < H0 - half)
     )
     return pts, ok & inb, levels
 
@@ -366,11 +386,11 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lk_pyramid_launch.argtypes = [
-        P, P, P, I,  # planes, level ints, level scales, n_levels
+        P, P, P, P, I,  # planes, stream strides, level ints, level scales, n_levels
         I, I,  # H0, W0
         P, P, P,  # prev_pts, init_pts, valid
         P, P, P,  # out_pts, out_ok, out_iters
-        I, I, I, I,  # N, win, search_rows, max_iter
+        I, I, I, I, I,  # N, n_streams, win, search_rows, max_iter
         Fl, Fl,  # eps^2, min_eig_thresh
         P,  # stream
     ]
@@ -380,11 +400,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_image(name, t, dev, shape=None):
-    if t.device != dev or t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous 2-D float32 tensor on {dev}, got "
+def _check_image(name, t, dev, shape):
+    if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous float32 tensor on {dev}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if shape is not None and tuple(t.shape) != shape:
+    if tuple(t.shape) != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
 
 
@@ -392,14 +412,18 @@ def lk_pyramid_cuda(
     prev_pyr, cur_pyr, prev_grads, prev_pts, init_pts, valid, *,
     win: int, max_iter: int, eps: float, min_eig_thresh: float, search_rows: int | None,
 ):
-    """Track one frame, every level, in ONE launch of the CUDA kernel.
-    Computes what `track_pyramid(lk_level_plain, ...)` computes (the
-    window sums in another order), with the window rule of
+    """Track one frame of every stream, every level, in ONE launch of the
+    CUDA kernel. Computes what `track_pyramid(lk_level_plain, ...)`
+    computes (the window sums in another order), with the window rule of
     `klt_track_pallas` at `search_rows`, or with `search_rows=None` the
-    gather rule (every level an XLA level); windows of 2-54 px. Returns
-    (pts (N,2) float32, ok (N,) bool, iters (N, n_levels) int32: the
-    Gauss-Newton steps per level, indexed by level number). Adds one to
-    `lk_pyramid_cuda.launches` per launch."""
+    gather rule (every level an XLA level); windows of 2-54 px.
+
+    Levels (B, H, W) with keypoints (B, N, 2) and `valid` (B, N) track B
+    streams; (H, W) levels with (N, 2) keypoints are one stream (B = 1
+    views). Returns (pts (..., N, 2) float32, ok (..., N) bool, iters
+    (..., N, n_levels) int32: the Gauss-Newton steps per level, indexed by
+    level number), with the inputs' leading axes. Adds one to
+    `lk_pyramid_cuda.launches` per launch, whatever B."""
     n = len(prev_pyr)
     if n == 0 or len(cur_pyr) != n or len(prev_grads) != n:
         raise ValueError("need one prev, cur and gradient pair per level")
@@ -412,18 +436,28 @@ def lk_pyramid_cuda(
     if search_rows is not None and search_rows < win + 2:
         raise ValueError(f"search_rows {search_rows} < win + 2 = {win + 2}")
     dev = prev_pyr[0].device
-    if dev.type != "cuda":
-        raise ValueError("lk_pyramid_cuda needs CUDA tensors")
-    N = prev_pts.shape[0]
+    batched = prev_pts.dim() == 3
+    if prev_pts.dim() not in (2, 3):
+        raise ValueError(f"prev_pts: need (N,2) or (B,N,2) keypoints, got {tuple(prev_pts.shape)}")
+    B, N = (prev_pts.shape[0], prev_pts.shape[1]) if batched else (1, prev_pts.shape[0])
+    pts_shape, flag_shape = tuple(prev_pts.shape[:-1]) + (2,), tuple(prev_pts.shape[:-1])
     for name, t in (("prev_pts", prev_pts), ("init_pts", init_pts)):
-        if (t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (N, 2)
+        if (t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != pts_shape
                 or not t.is_contiguous()):
-            raise ValueError(f"{name}: need a contiguous ({N},2) float32 tensor on {dev}")
-    if (valid.device != dev or valid.dtype != torch.bool or tuple(valid.shape) != (N,)
+            raise ValueError(f"{name}: need a contiguous {pts_shape} float32 tensor on {dev}")
+    if (valid.device != dev or valid.dtype != torch.bool or tuple(valid.shape) != flag_shape
             or not valid.is_contiguous()):
-        raise ValueError(f"valid: need a contiguous ({N},) bool tensor on {dev}")
-    plan = level_table([p.shape for p in prev_pyr], win, search_rows)
+        raise ValueError(f"valid: need a contiguous {flag_shape} bool tensor on {dev}")
+
+    def planes3(name, t):
+        """A level's plane as (B, H, W): 2-D planes go with 2-D keypoints."""
+        if t.dim() != prev_pts.dim():
+            raise ValueError(f"{name}: {t.dim()}-D planes with keypoints {pts_shape}")
+        return t if batched else t[None]
+
+    plan = level_table([p.shape[-2:] for p in prev_pyr], win, search_rows)
     planes = (ctypes.c_void_p * (4 * n))()
+    strides = (ctypes.c_longlong * n)()
     ints = (ctypes.c_int * (5 * n))()
     scales = (ctypes.c_float * n)()
     for e, lv in enumerate(plan):
@@ -432,25 +466,29 @@ def lk_pyramid_cuda(
         if lv.mode == "skip":
             continue
         lvl = lv.level
-        _check_image(f"prev_pyr[{lvl}]", prev_pyr[lvl], dev)
         gx, gy = prev_grads[lvl]
-        for name, t in (("gx", gx), ("gy", gy), ("cur", cur_pyr[lvl])):
-            _check_image(f"{name}[{lvl}]", t, dev, lv.shape)
-        planes[4 * e : 4 * e + 4] = [prev_pyr[lvl].data_ptr(), gx.data_ptr(), gy.data_ptr(),
-                                     cur_pyr[lvl].data_ptr()]
-    out_pts = torch.empty((N, 2), dtype=torch.float32, device=dev)
-    out_ok = torch.empty((N,), dtype=torch.bool, device=dev)
-    out_iters = torch.empty((N, n), dtype=torch.int32, device=dev)
+        level = []
+        for name, t in (("prev_pyr", prev_pyr[lvl]), ("gx", gx), ("gy", gy), ("cur", cur_pyr[lvl])):
+            t = planes3(f"{name}[{lvl}]", t)
+            _check_image(f"{name}[{lvl}]", t, dev, (B, *lv.shape))
+            level.append(t)
+        planes[4 * e : 4 * e + 4] = [t.data_ptr() for t in level]
+        strides[e] = lv.shape[0] * lv.shape[1]
+    out_pts = torch.empty(pts_shape, dtype=torch.float32, device=dev)
+    out_ok = torch.empty(flag_shape, dtype=torch.bool, device=dev)
+    out_iters = torch.empty(flag_shape + (n,), dtype=torch.int32, device=dev)
+    if dev.type != "cuda":
+        raise ValueError("lk_pyramid_cuda needs CUDA tensors")
     if N == 0:
         return out_pts, out_ok, out_iters
     lib = _lib()
-    H0, W0 = prev_pyr[0].shape
+    H0, W0 = prev_pyr[0].shape[-2:]
     with torch.cuda.device(dev):
         rc = lib.lk_pyramid_launch(
-            planes, ints, scales, n, H0, W0,
+            planes, strides, ints, scales, n, H0, W0,
             prev_pts.data_ptr(), init_pts.data_ptr(), valid.data_ptr(),
             out_pts.data_ptr(), out_ok.data_ptr(), out_iters.data_ptr(),
-            N, win, search_rows or 0, max_iter, float(eps * eps), float(min_eig_thresh),
+            N, B, win, search_rows or 0, max_iter, float(eps * eps), float(min_eig_thresh),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -478,7 +516,8 @@ def klt_track_lk(
     reference XLA level below the search-window size, a final in-image
     gate. All tensors must already lie on `device`: CUDA tensors go
     through the kernel (one launch), CPU tensors through the plain
-    version. Returns (tracked_pts (N,2), ok (N,))."""
+    version. Levels (B, H, W) with (B, N, 2) keypoints track B streams in
+    that one launch. Returns (tracked_pts (..., N, 2), ok (..., N))."""
     dev = resolve_device(device)
     tensors = [*prev_pyr, *cur_pyr, prev_pts, init_pts, valid]
     if prev_grads is not None:
@@ -497,6 +536,6 @@ def klt_track_lk(
     pts, ok, _ = lk_pyramid_cuda(
         [p.contiguous() for p in prev_pyr], [c.contiguous() for c in cur_pyr],
         [(gx.contiguous(), gy.contiguous()) for gx, gy in prev_grads],
-        prev_pts.contiguous(), init_pts.contiguous(), valid, **kw,
+        prev_pts.contiguous(), init_pts.contiguous(), valid.contiguous(), **kw,
     )
     return pts, ok

@@ -23,15 +23,17 @@ _PYR_K = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
 
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """Gaussian blur + 2x decimation (cv::pyrDown); rows are decimated
-    between the separable passes, as in the reference."""
+    """Gaussian blur + 2x decimation (cv::pyrDown) of an (H, W) image or a
+    (..., H, W) stack; rows are decimated between the separable passes, as
+    in the reference."""
     k = _PYR_K
-    v = _conv2d(img, k[:, None])[::2, :]
-    return _conv2d(v, k[None, :])[:, ::2].contiguous()
+    v = _conv2d(img, k[:, None])[..., ::2, :]
+    return _conv2d(v, k[None, :])[..., ::2].contiguous()
 
 
 def build_pyramid(img: torch.Tensor, max_level: int) -> list[torch.Tensor]:
-    """Level 0 = full resolution ... max_level = coarsest."""
+    """Level 0 = full resolution ... max_level = coarsest; (B, H, W)
+    stacks give (B, H_l, W_l) levels."""
     levels = [img.to(torch.float32)]
     for _ in range(max_level):
         levels.append(pyr_down(levels[-1]))
@@ -39,7 +41,8 @@ def build_pyramid(img: torch.Tensor, max_level: int) -> list[torch.Tensor]:
 
 
 def _grad(img: torch.Tensor):
-    """3-tap Scharr / 32 gradients (cv::calcOpticalFlowPyrLK's pass)."""
+    """3-tap Scharr / 32 gradients (cv::calcOpticalFlowPyrLK's pass), of
+    an image or a stack."""
     gx, gy = image_gradients(img, scharr=True)
     return gx.contiguous(), gy.contiguous()
 
@@ -67,7 +70,8 @@ def predict_flow_rotational(uv, valid, R_cur_prev, K, K_inv, width: int, height:
     """Rotation-only flow prediction: warp keypoints by the infinite-depth
     homography K R K^-1 (RotationalOpticalFlowPredictor,
     OpticalFlowPredictor.cpp:70-126); out-of-image predictions keep the
-    source position."""
+    source position. uv (..., N, 2) with R_cur_prev (..., 1, 3, 3) (or
+    (3, 3)) warps each stream's keypoints by its own rotation."""
     ones = torch.ones_like(uv[..., :1])
     h = torch.cat([uv, ones], dim=-1)
     rays = (K_inv @ h[..., None])[..., 0]

@@ -645,6 +645,14 @@ class StereoImuPipeline:
         fe_state, fe_out = self.frontend.process_frame(fe_state, left, right, imu_block, stamp_s)
         if not fe_out["is_keyframe"]:
             return fe_state, win, lmk, fe_out, None
+        return self._keyframe_half(fe_state, win, lmk, fe_out, stamp_s, ext_odom)
+
+    def _keyframe_half(self, fe_state, win, lmk, fe_out, stamp_s, ext_odom=None):
+        """A keyframe's pose guess, backend step and bias feedback, after
+        the frontend's keyframe branch: one stream's `_step` past the
+        frontend, which `FleetVio` (parallel/fleet.py) runs for each stream
+        that keyframes. Returns (fe_state, win, lmk, fe_out, backend
+        outputs)."""
         bp, fp = self.params.backend, self.params.frontend
         dev = self.device
         meas = fe_out["measurements"]
@@ -695,15 +703,22 @@ class StereoImuPipeline:
         """First frame (or the first after a time-alignment restart):
         frontend state, window and landmark table from ground truth or the
         IMU. Returns (fe_state, win, lmk, nav0)."""
+        nav0, bias0 = self._bootstrap_state(provider, packet["stamp_ns"], packet["imu"])
+        return (*self._init_stream(left, right, stamp_s, nav0, bias0, vel_sigma=vel_sigma), nav0)
+
+    def _init_stream(self, left, right, stamp_s, nav0: NavState, bias0: torch.Tensor,
+                     vel_sigma=None):
+        """A stream's first frame at a given state: frontend state, window
+        bootstrapped at `nav0` / `bias0` (6,) and landmark table with the
+        first measurements in slot 0. Returns (fe_state, win, lmk)."""
         K, L = self.backend_cfg.nr_states, self.backend_cfg.max_landmarks
         fe_state, meas0 = self.frontend.init_state(left, right, stamp_s)
-        nav0, bias0 = self._bootstrap_state(provider, packet["stamp_ns"], packet["imu"])
         fe_state = replace(fe_state, imu_bias=ImuBias(accel=bias0[0:3], gyro=bias0[3:6]))
         win = sm.bootstrap(self.backend_cfg, sm.Window.empty(K, self.device), nav0, bias0, stamp_s,
                            vel_sigma=vel_sigma)
         lmk = sm.update_landmarks(sm.LandmarkTable.empty(L, K, self.device),
                                   meas0.ids, meas0.uvs, meas0.mask, 0)
-        return fe_state, win, lmk, nav0
+        return fe_state, win, lmk
 
     def _reinit_from_alignment(self, sol: dict, stamp_s: float, fe_state):
         """Online initialization solved: a fresh window bootstrapped at the

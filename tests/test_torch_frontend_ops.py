@@ -215,7 +215,7 @@ assert not bad, bad
 new = {"__main__", "config.flags", "config.params", "dataprovider.png", "dataprovider.euroc",
        "native", "utils.prefetch", "pipeline.stereo_pipeline", "dataprovider.kitti",
        "dataprovider.live", "utils.debug_images", "utils.raster", "visualizer.visualizer",
-       "playground"}
+       "playground", "parallel", "parallel.fleet"}
 missing = {n for n in new if "kimera_vio_tpu_torch." + n not in names}
 assert not missing, missing
 print(len(names))
