@@ -12,8 +12,9 @@ sequence (80 frames), its CLI, loop closure, its variants (mono,
 RGB-D, online initialization, pose sources, time alignment), the
 mesher with RegularVIO, the options it used to refuse, the KITTI and
 live providers, the debug overlays, the visualizer and the playground,
-and a fleet of eight streams through one batched frame step, and checks
-the results. Every failure ends the run
+a fleet of eight streams through one batched frame step, the staging
+codecs of the CLI's --chunked mode and LK windows wider than 54 px, and
+checks the results. Every failure ends the run
 with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
 path, the phases' lines, one JSON line with the kernel table, and last
@@ -217,10 +218,38 @@ Phases:
      the batched frame step ms on fleet frames without a keyframe and the
      keyframe ms per keyframing stream (host clock, each step ending in
      `torch.cuda.synchronize`), phase 2's frames/s beside them.
+ 10. codecs and wide windows. (a) The CLI's --chunked --chunk_size 16
+     under KIMERA_STAGE_CODEC = raw, delta4, delta4c and delta3, first on
+     phase 3's EuRoC folder (0.5 m/s: ~81 % of the temporal deltas escape,
+     so every codec declines every super-batch to raw, the JAX package's
+     chain), then on a folder of the same scene at 0.05 m/s (CODEC_VX:
+     ~1.2 % escape, every super-batch in the codec named). Gates per run:
+     phase 3's (LK launches = tracked frames, ATE < 0.05 m, traj_vio.csv),
+     the codec each super-batch landed on, and the keyframe stamps,
+     positions and quaternions of raw staging's run bit for bit. Then, per
+     codec, the slow folder's first super-batch staged by the pipeline's
+     own stager in the codec and in raw and decoded on the card: frames
+     equal byte for byte, IMU rows bit for bit. One `[codec]` line per
+     codec: super-batches, wire MB, stager ms (PNG decode, encode, pack)
+     and copy ms per super-batch, the first super-batch's decode ms (CUDA
+     events, mean of 5), frames/s beside raw's. (b) The kernel's `lk_wide`
+     mode (the gather rule over 54 px) against the plain version, phase
+     1's gate, at 752x480 win 61, 101 (template in shared memory) and 151
+     (re-blended from global memory), and 1241x376 win 61, keypoints more
+     than win/2 + 2 px inside; per row its graph-replay ms, bound, plain
+     ms, and the route and dynamic shared memory the launcher reported
+     (each row's launches through one lk_wide route, both routes over the
+     rows; ptxas registers and spills at the build); B = 4 streams at win
+     61 in one launch against plain per stream and four single launches
+     bit for bit; a sequential `run()` at phase 2's configuration with
+     klt_win_size 61 (gates: LK launches = tracked frames, every launch
+     with the gather rule at 61 px through the shared route, ATE < 0.05
+     m). One `[wide]` line per row and run.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -871,7 +900,8 @@ def write_folders(root: str, provider, params: VioParams) -> tuple[str, str, flo
 
 def cli_phase(dev, path: dict, work: str) -> dict:
     """Phase 3 (see the module docstring). The EuRoC folder stays under
-    `work` for phase 8 (`path["euroc"]`)."""
+    `work` for phases 8 and 10 (`path["euroc"]`, its params folder
+    `path["euroc_params"]` and ground truth `path["gt"]`)."""
     params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
     params.pipeline.parallel_run = True  # the reference EuRoC default
     caps = ["--max_features", "256", "--max_landmarks", "384", "--device", dev.type]
@@ -879,7 +909,7 @@ def cli_phase(dev, path: dict, work: str) -> dict:
     tmp = os.path.join(work, "cli")
     provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
     data, pfolder, png_ms = write_folders(os.path.join(tmp, "path"), provider, params)
-    path["euroc"] = data
+    path["euroc"], path["euroc_params"], path["gt"] = data, pfolder, provider.ground_truth
     log(f"[cli] params folder and 160 PNGs exact; PNG decode {png_ms:.3f} ms per image")
     base = ["--params_folder", pfolder, "--dataset_path", data] + caps
     for mode, extra in (("run", []), ("chunked", ["--chunked", "--chunk_size", "16"]),
@@ -1879,11 +1909,12 @@ def kitti_params() -> VioParams:
 @contextlib.contextmanager
 def timed_lk():
     """Wrap `lk.lk_pyramid_cuda` for one run: CUDA events around each call
-    (the kernel's in-run time, launch included) and the last call's level
-    shapes and window rule. The launch counter then lives on the wrapper
-    (the kernel's wrapper adds to `lk.lk_pyramid_cuda.launches`, the
-    module's name); it starts at 0."""
-    rec = {"events": []}
+    (the kernel's in-run time, launch included), the last call's level
+    shapes and window rule, and per (win, search_rows) its calls. The
+    launch and route counters then live on the wrapper (the kernel's
+    wrapper adds to `lk.lk_pyramid_cuda.launches` and `.routes`, the
+    module's name); they start at 0."""
+    rec = {"events": [], "rules": collections.Counter()}
     orig = lk.lk_pyramid_cuda
 
     def wrapped(prev_pyr, *a, **kw):
@@ -1894,15 +1925,16 @@ def timed_lk():
         rec["events"].append((start, end))
         rec.update(shapes=[tuple(p.shape) for p in prev_pyr], win=kw["win"],
                    search_rows=kw["search_rows"])
+        rec["rules"][(kw["win"], kw["search_rows"])] += 1
         return out
 
-    wrapped.launches = 0
+    wrapped.launches, wrapped.routes, wrapped.smem = 0, collections.Counter(), {}
     lk.lk_pyramid_cuda = wrapped
     try:
         yield rec
     finally:
         lk.lk_pyramid_cuda = orig
-        rec["launches"] = wrapped.launches
+        rec["launches"], rec["routes"] = wrapped.launches, wrapped.routes
     torch.cuda.synchronize()
     rec["ms"] = [s.elapsed_time(e) for s, e in rec["events"]]
 
@@ -1970,8 +2002,9 @@ def kitti_phase(dev, path: dict, kern: dict, work: str) -> dict:
         modes = {lv.level: lv.mode for lv in plan}
         if modes[0] != "gather":
             raise AssertionError(f"KITTI {name}: level 0 is {modes[0]}, not the gather mode (B1)")
-        if rec["launches"] != r["launches"]:
-            raise AssertionError("KITTI: the timed wrapper missed launches")
+        if rec["launches"] != r["launches"] or len(rec["rules"]) != 1:
+            raise AssertionError(f"KITTI: the timed wrapper missed launches, or they took "
+                                 f"several rules: {dict(rec['rules'])}")
         kf = pipe.stats.get("VioFrontend Keyframe Rate [ms]")
         fr = pipe.stats.get("VioFrontend Frame Rate [ms]")
         row = {"run": name, "shape": [KITTI["height"], KITTI["width"]], "frames": out.n_frames,
@@ -2239,7 +2272,7 @@ def _first(inp: dict, n: int) -> tuple:
             inp["valid"][:n])
 
 
-def plain_stream_work(args: tuple) -> tuple:
+def plain_stream_work(args: tuple, kw: dict = LK_KW) -> tuple:
     """One stream's lk_pyramid_cuda arguments (2-D planes) through the
     plain version: (pts, ok, levels with the inputs `lk_work` counts)."""
     seen = []
@@ -2250,22 +2283,22 @@ def plain_stream_work(args: tuple) -> tuple:
         return out
 
     prev, cur, grads, pts, init, valid = args
-    out, ok, lv = lk.track_pyramid(level_seen, prev, cur, pts, init, valid, grads, **LK_KW)
+    out, ok, lv = lk.track_pyramid(level_seen, prev, cur, pts, init, valid, grads, **kw)
     return out, ok, [{**level, **s} for level, s in zip(lv, seen)]
 
 
-def compare_fleet_lk(inp: dict, n_streams: int, label: str) -> dict:
+def compare_fleet_lk(inp: dict, n_streams: int, label: str, kw: dict = LK_KW) -> dict:
     """ONE launch for n_streams streams against the plain version per
     stream (phase 1's gate: median and max |d| < 0.01 px over the
     keypoints both track, the same `ok`), and against n_streams
     single-stream launches bit for bit."""
     args = _first(inp, n_streams)
-    out_k, ok_k, it_k = lk.lk_pyramid_cuda(*args, **LK_KW)
+    out_k, ok_k, it_k = lk.lk_pyramid_cuda(*args, **kw)
     per_stream = unstack_trees(args, n_streams)
-    singles = [lk.lk_pyramid_cuda(*a, **LK_KW) for a in per_stream]
+    singles = [lk.lk_pyramid_cuda(*a, **kw) for a in per_stream]
     d, agree, modes, tracked_both = [], [], None, 0
     for b in range(n_streams):
-        out_p, ok_p, levels = plain_stream_work(per_stream[b])
+        out_p, ok_p, levels = plain_stream_work(per_stream[b], kw)
         modes = [lv["mode"] for lv in levels]
         both = ok_k[b] & ok_p
         tracked_both += int(both.sum())
@@ -2447,6 +2480,194 @@ def fleet_phase(dev, path: dict, n_frames: int = FLEET_FRAMES, size: dict | None
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the staging codecs and LK windows wider than 54 px
+# ---------------------------------------------------------------------------
+
+CODECS = ("raw", "delta4", "delta4c", "delta3")
+#: The codecs' own sequence: phase 2's 752x480 scene at 0.05 m/s (0.225 px
+#: of flow a frame), where ~1.2 % of the temporal deltas escape delta4's
+#: nibbles (MicroEuroc: ~0.9 %, kimera_vio_tpu/ops/frame_codec.py:7-8). On
+#: phase 3's sequence (0.5 m/s, 2.25 px a frame) ~81 % escape: every codec
+#: declines it and stages raw.
+CODEC_VX = 0.05
+CHUNK = 16
+SUPER_BATCH_BYTES = 32 * 1024 * 1024  # run_chunked's default
+WIDE_WINS = ((61, "752x480"), (101, "752x480"), (151, "752x480"), (61, "1241x376"))
+
+
+@contextlib.contextmanager
+def stage_codec(codec: str):
+    """KIMERA_STAGE_CODEC set to `codec` for the block, then restored."""
+    old = os.environ.get("KIMERA_STAGE_CODEC")
+    os.environ["KIMERA_STAGE_CODEC"] = codec
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("KIMERA_STAGE_CODEC")
+        else:
+            os.environ["KIMERA_STAGE_CODEC"] = old
+
+
+def landed(pipe) -> dict:
+    """Super-batches per codec the decline chain landed on in a run."""
+    return {t.split()[2]: pipe.stats.get(t).count for t in pipe.stats.tags()
+            if t.startswith("stage codec ")}
+
+
+def codec_cli_runs(dev, label: str, data: str, pfolder: str, gt, work: str) -> dict:
+    """The CLI's --chunked mode on one EuRoC folder under each codec, raw
+    first. Gates: check_cli_run's, and each codec's keyframe stamps equal
+    to raw's, positions and quaternions bit for bit."""
+    base = ["--params_folder", pfolder, "--dataset_path", data, "--max_features", "256",
+            "--max_landmarks", "384", "--device", dev.type, "--chunked", "--chunk_size", str(CHUNK)]
+    rows, raw = {}, None
+    for codec in CODECS:
+        out_dir = os.path.join(work, f"{label}_{codec}")
+        with stage_codec(codec), recording_pipeline() as rec:
+            lk.lk_pyramid_cuda.launches = 0
+            rc = cli_main(base + ["--log_output", "--output_path", out_dir])
+            launches = lk.lk_pyramid_cuda.launches
+        row = check_cli_run(f"{label} {codec}", rec, rc, launches, gt, out_dir)
+        run = rec["runs"][0]
+        row["landed"] = landed(run["pipe"])
+        out = run["out"]
+        if raw is None:
+            raw = out
+        elif not (out.stamps_ns == raw.stamps_ns
+                  and np.array_equal(np.stack(out.positions), np.stack(raw.positions))
+                  and np.array_equal(np.stack(out.quats_wxyz), np.stack(raw.quats_wxyz))):
+            raise AssertionError(f"{label} {codec}: the trajectory differs from raw staging's")
+        rows[codec] = row
+    return rows
+
+
+def first_batch_decode(dev, data: str, pfolder: str, codec: str) -> dict:
+    """The first super-batch of `data` staged in `codec` and in raw
+    through the pipeline's own stager, decoded on the card: the frames
+    must equal raw's byte for byte and the IMU rows bit for bit. Returns
+    its wire MB, the stager's ms (decode, encode, pack), the copy's ms
+    and the decode ms (CUDA events, mean of 5 after 2 warm-ups)."""
+    params = VioParams.from_folder(pfolder)
+    params.max_features, params.max_landmarks = 256, 384
+    pipe = StereoImuPipeline(params, device=dev)
+    prov = EurocDataProvider(data)
+    rest = [p for p in list(prov.frames())[1:] if p.get("imu") is not None]
+    img = prov.load_image(rest[0]["left_path"])
+    F = stereo_pipeline.super_batch_frames(codec, CHUNK, SUPER_BATCH_BYTES, 2 * img.nbytes)
+    batch = rest[:F]
+    side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+    staged = {c: pipe._stage(prov, batch, side, c) for c in ("raw", codec)}
+    if side is not None:
+        side.synchronize()
+    st = staged[codec]
+    if st.codec != codec:
+        raise AssertionError(f"{codec}: the first super-batch landed on {st.codec}")
+    frames_raw, aux_raw = pipe._materialize(staged["raw"])
+    decode_ms = time_ms(lambda: pipe._materialize(st), reps=5)
+    frames, aux = pipe._materialize(st)
+    torch.cuda.synchronize()
+    if not (frames.dtype == torch.uint8 and torch.equal(frames, frames_raw)
+            and torch.equal(aux.view(torch.int32), aux_raw.view(torch.int32))):
+        raise AssertionError(f"{codec}: the decoded super-batch differs from the raw one")
+    return {"codec": codec, "frames": len(batch), "wire_mb": st.host.numel() / 1e6,
+            "raw_mb": staged["raw"].host.numel() / 1e6, "stage_ms": st.encode_ms,
+            "h2d_ms": st.copy[0].elapsed_time(st.copy[1]) if st.copy else None,
+            "decode_ms": decode_ms}
+
+
+def codec_phase(dev, path: dict, work: str, n_frames: int = 80) -> dict:
+    """Phase 10 (a): the codecs through the CLI's --chunked mode on phase
+    3's folder (every codec declines) and on CODEC_VX's folder (every
+    super-batch in the codec named), then each codec's first super-batch
+    decoded on the card. One [codec] line per codec."""
+    res = {"phase3": codec_cli_runs(dev, "phase3", path["euroc"], path["euroc_params"],
+                                    path["gt"], work)}
+    for codec, row in res["phase3"].items():
+        if set(row["landed"]) != {"raw"}:
+            raise AssertionError(f"phase3 {codec}: staged {row['landed']}, expected raw only")
+    params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+    params.pipeline.parallel_run = True
+    provider = SyntheticStereoProvider(n_frames=n_frames, vx=CODEC_VX)
+    data, pfolder, _ = write_folders(os.path.join(work, "codec_slow"), provider, params)
+    res["slow"] = codec_cli_runs(dev, "slow", data, pfolder, provider.ground_truth, work)
+    raw = res["slow"]["raw"]
+    for codec in CODECS:
+        row = res["slow"][codec]
+        if set(row["landed"]) != {codec}:
+            raise AssertionError(f"slow {codec}: staged {row['landed']}, expected {codec} only")
+        first = first_batch_decode(dev, data, pfolder, codec) if codec != "raw" else {}
+        line = {"codec": codec, "super_batches": row["super_batches"],
+                "wire_mb_per_super_batch": row["stage wire [MB]"],
+                "encode_ms_per_super_batch": row["stage encode [ms]"],
+                "h2d_ms_per_super_batch": row["stage h2d [ms]"],
+                "frames_per_s": row["frames_per_s"], "raw_frames_per_s": raw["frames_per_s"],
+                "phase3_frames_per_s": res["phase3"][codec]["frames_per_s"],
+                "phase3_landed": res["phase3"][codec]["landed"], "lk_launches": row["lk_launches"],
+                "first_super_batch": first}
+        res[codec] = line
+        log(f"[codec] {json.dumps(line)}")
+    return res
+
+
+def wide_inputs(dev, win: int, size: str) -> tuple:
+    """Phase 1's 752x480 pair or the 1241x376 pair, with the valid
+    keypoints farther than win / 2 + 2 px from the border (the final
+    in-image gate fails the others on both sides)."""
+    prev_pyr, cur_pyr, uv, valid = (main_lk_inputs(dev) if size == "752x480"
+                                    else kitti_lk_inputs(dev, margin=win / 2 + 2))
+    H, W = prev_pyr[0].shape
+    m = win / 2 + 2
+    keep = valid & (uv[:, 0] >= m) & (uv[:, 0] < W - m) & (uv[:, 1] >= m) & (uv[:, 1] < H - m)
+    pts = uv[keep].contiguous()
+    return prev_pyr, cur_pyr, pts, torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+
+
+def wide_phase(dev, path: dict) -> dict:
+    """Phase 10 (b): the kernel's wide path (`lk_wide`) against the plain
+    version with the gather rule; B = 4 streams at win 61 in one launch;
+    a sequential run() at phase 2's configuration with klt_win_size 61."""
+    res = {}
+    for win, size in WIDE_WINS:
+        label = f"{size} win {win} gather rule"
+        lk.lk_pyramid_cuda.routes.clear()
+        r = compare_lk(*wide_inputs(dev, win, size), label, win=win, search_rows=None)
+        if any(lv["mode"] != "xla" for lv in r["levels"]):
+            raise AssertionError(f"{label}: the gather rule tracks every level as an XLA level")
+        # The route and shared memory the launcher chose, as it reported them.
+        routes = dict(lk.lk_pyramid_cuda.routes)
+        if len(routes) != 1 or not next(iter(routes)).startswith("lk_wide"):
+            raise AssertionError(f"{label}: launches by route {routes}, expected one lk_wide route")
+        r["launcher_route"] = next(iter(routes))
+        r["smem_bytes"] = lk.lk_pyramid_cuda.smem[r["launcher_route"]]
+        res[label] = r
+        log(f"[wide] {json.dumps({k: r[k] for k in ('label', 'win', 'launcher_route', 'smem_bytes', 'tracked', 'median_abs_err', 'max_abs_err', 'ms', 'ms_no_steps', 'plain_ms', 'bound_ms', 'bound_by')})}")
+    if {r["launcher_route"] for r in res.values()} != {"lk_wide shared", "lk_wide global"}:
+        raise AssertionError("phase 10 should run both of lk_wide's routes")
+    kw = {**LK_KW, "win": 61, "search_rows": None}
+    res["fleet"] = compare_fleet_lk(fleet_lk_inputs(dev, 4), 4, "752x480 B=4 win 61", kw)
+    log(f"[wide] {json.dumps(res['fleet'])}")
+    p = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+    p.frontend.klt_win_size = 61
+    provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
+    with timed_lk() as rec:
+        row, out, pipe = run_variant("klt_win_61", lambda: StereoImuPipeline(
+            p, parallel_run=False, device=dev), provider, provider.ground_truth,
+            path["frames_per_s"], 0.05)
+    if (dict(rec["rules"]) != {(61, None): row["lk_launches"]}
+            or dict(rec["routes"]) != {"lk_wide shared": row["lk_launches"]}):
+        raise AssertionError(f"klt_win_61: launches by (win, search_rows) {dict(rec['rules'])}, "
+                             f"by route {dict(rec['routes'])}")
+    if out.n_keyframes < 1:
+        raise AssertionError("klt_win_61: no keyframe")
+    row["lk_launch_and_kernel_ms_per_frame"] = float(np.mean(rec["ms"]))
+    row["lk_launches_by_route"] = dict(rec["routes"])
+    res["run"] = row
+    log(f"[wide] {json.dumps(row)}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
@@ -2462,7 +2683,7 @@ def main() -> int:
     t0 = time.perf_counter()
     so, ptxas = lk.build_kernel()
     log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
-    kernel = "?"
+    kernel, build = "?", {}
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '\S*?lk_pyramid_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                       line)
@@ -2470,6 +2691,7 @@ def main() -> int:
             kernel = "lk_pyramid_kernel<win {}, search_rows {}, max_win {}>".format(*m.groups())
         elif "registers" in line or "spill" in line:
             log(f"[build] {kernel}: {line.strip()}")
+            build.setdefault(kernel, []).append(line.strip())
 
     t = time.perf_counter()
     kern = kernel_phase(dev)
@@ -2479,13 +2701,13 @@ def main() -> int:
     log(f"[phase] path {time.perf_counter() - t:.1f} s")
     work = tempfile.mkdtemp(prefix="kimera_smoke_")
     try:
-        return _phases(dev, kern, path, work)
+        return _phases(dev, kern, path, work, build)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _phases(dev, kern: dict, path: dict, work: str) -> int:
-    """Phases 3-9, the kernel table and the result line."""
+def _phases(dev, kern: dict, path: dict, work: str, build: dict) -> int:
+    """Phases 3-10, the kernel table and the result line."""
     t = time.perf_counter()
     cli_res = cli_phase(dev, path, work)
     log(f"[phase] cli {time.perf_counter() - t:.1f} s")
@@ -2509,6 +2731,10 @@ def _phases(dev, kern: dict, path: dict, work: str) -> int:
     t = time.perf_counter()
     fleet_res = fleet_phase(dev, path)
     log(f"[phase] fleet {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    codec_res = codec_phase(dev, path, work)
+    wide_res = wide_phase(dev, path)
+    log(f"[phase] codecs and wide windows {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -2561,6 +2787,19 @@ def _phases(dev, kern: dict, path: dict, work: str) -> int:
         "wide": {label: {k: r[k] for k in ("win", "search_rows", "max_abs_err", "median_abs_err",
                                            "ms", "plain_ms", "bound_ms", "bound_by")}
                  for label, r in opt_res["wide"].items()},
+        # Phase 10: the lk_wide mode (<0, 0, 0>: the gather rule over 54 px),
+        # per shape and window, its launches in the win-61 run, and the
+        # launches of the --chunked runs under each staging codec.
+        "wide_gather": {label: {**{k: r[k] for k in (
+            "win", "launcher_route", "smem_bytes", "max_abs_err", "median_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by")}, "library_ms": None}
+            for label, r in wide_res.items() if label not in ("fleet", "run")},
+        "wide_gather_ptxas": build.get("lk_pyramid_kernel<win 0, search_rows 0, max_win 0>"),
+        "wide_gather_fleet_max_abs_err": wide_res["fleet"]["max_abs_err"],
+        "launches_wide_run": wide_res["run"]["lk_launches"],
+        "launches_wide_run_by_route": wide_res["run"]["lk_launches_by_route"],
+        "launches_codecs": {f"{seq} {codec}": r["lk_launches"]
+                            for seq in ("phase3", "slow") for codec, r in codec_res[seq].items()},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,9 @@ package); `--gflag log_frontend_images=1` writes one feature-track
 overlay PNG per keyframe under `<output_path>/frontend_images/`, also
 with `--chunked`. `--enable_mesher` on a mono params folder raises
 NotImplementedError (the mono pipeline has no mesher, as in the JAX
-package).
+package). `--chunked` stages its frames in the codec that the
+`KIMERA_STAGE_CODEC` environment variable names (`raw`, the default,
+`delta4`, `delta4c` or `delta3`; `run_chunked`, ops/frame_codec.py).
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--parallel_run", type=int, default=None,
                     help="override PipelineParams.parallel_run")
     ap.add_argument("--chunked", action="store_true",
-                    help="offline mode: staged super-batches, one copy each")
+                    help="offline mode: staged super-batches, one copy each "
+                    "(codec: KIMERA_STAGE_CODEC, default raw)")
     ap.add_argument("--chunk_size", type=int, default=16)
     ap.add_argument("--equalize_image", action="store_true",
                     help="histogram-equalize input images (also read from "

@@ -65,6 +65,19 @@
 //      offsets the four planes of every level by the level's stride between
 //      streams' planes, and the keypoint and output indices by N. One stream
 //      is B = 1 of the same kernel.
+//   6. Windows wider than 54 px take the gather rule only (every level an
+//      XLA level, as the JAX package's default tracker runs them), in a
+//      fourth instantiation, <0, 0, 0> (`lk_wide`). Per-thread pixel arrays
+//      would grow with the window, so nothing there scales with it: each
+//      thread walks the window in strides of the block, and the blended
+//      template and gradients (3 win^2 floats) live in dynamic shared
+//      memory while they fit in the block's opt-in limit (up to 139 px on
+//      an H100); wider windows blend them again from the level planes in
+//      global memory (L2) on every step. Both routes compute the same
+//      values in the same order; on an H100 the shared one is 1.3x (61 px)
+//      to 2.0x (101 px) faster (scripts/lk_kernel_ab.py). The search window
+//      and the level planes are read from global memory: no staging, no
+//      prefetch. lk_pyramid_launch reports the route it chose.
 // TMA does not fit: level rows (94, 47, 311, 621, 1241 floats...) are not
 // multiples of 16 bytes, and its out-of-bounds fill is zeros, not the edge
 // replication the reference uses. Tensor cores have nothing to do: a step is
@@ -80,7 +93,7 @@ namespace {
 constexpr int kLanes = 128;     // search-window width (the TPU lane width)
 constexpr int kMaxLevels = 8;
 constexpr int kMaxWin = 32;     // largest window of the narrow generic instantiation
-constexpr int kMaxWinWide = 54; // largest window of the wide one, and of any launch
+constexpr int kMaxWinWide = 54; // largest window of the wide one, and of the window rule
 // Threads per block (one block per keypoint). Of 96, 192 and 288, which
 // split a 24x24 window evenly, 192 was the fastest on an H100.
 constexpr int kThreads = 192;
@@ -107,6 +120,7 @@ struct Table {
   int win, search_rows, max_iter;
   float eps2, min_eig_thresh;
   int stage_floats;      // floats of the staging buffer
+  int tmpl_smem;         // lk_wide: the template and gradients in shared memory
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -211,12 +225,173 @@ __device__ __forceinline__ int next_active(const Table& tab, int e) {
   return e;
 }
 
+// Bilinear blend at (ya + xa) of an edge-clamped 2x2 neighbourhood, in the
+// plain version's term order.
+__device__ __forceinline__ float blend4(const float* P, int ya, int yb, int xa, int xb,
+                                        float w00, float w01, float w10, float w11) {
+  return w00 * P[ya + xa] + w01 * P[ya + xb] + w10 * P[yb + xa] + w11 * P[yb + xb];
+}
+
+// The gather rule at windows wider than kMaxWinWide (design note 6): one
+// keypoint of one stream per block, every level an XLA level or skipped.
+// Thread t owns window pixels p = t, t + kThreads, ...; (r, c) walks them
+// without a division.
+__device__ __forceinline__ void lk_wide(const Table& tab, const float* __restrict__ prev_pts,
+                                        const float* __restrict__ init_pts,
+                                        const uint8_t* __restrict__ valid,
+                                        float* __restrict__ out_pts,
+                                        uint8_t* __restrict__ out_ok,
+                                        int32_t* __restrict__ out_iters) {
+  const int win = tab.win;
+  const int npx = win * win;
+  const float half = (win - 1) * 0.5f;
+  const int pad = win / 2 + 2;
+  const bool in_smem = tab.tmpl_smem != 0;
+
+  extern __shared__ __align__(16) float smem[];
+  float4* s_part = reinterpret_cast<float4*>(smem);  // 2 x kWarps
+  float* s_t = smem + 8 * kWarps;                    // tmpl, gx, gy: 3 x npx
+
+  const int k = blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int r0 = tid / win, c0 = tid - r0 * win;
+  const int dr = kThreads / win, dc = kThreads - dr * win;
+
+  float px = prev_pts[2 * k], py = prev_pts[2 * k + 1];
+  float cx = init_pts[2 * k], cy = init_pts[2 * k + 1];
+  const bool vk = valid[k] != 0;
+  bool ok = vk;
+  int parity = 0;
+
+  for (int e = 0; e < tab.n; ++e) {
+    const Level& L = tab.lv[e];
+    const int lvl = tab.n - 1 - e;
+    px = px * L.scale;
+    py = py * L.scale;
+    cx = cx * L.scale;
+    cy = cy * L.scale;
+    if (L.mode == kSkip) {
+      if (tid == 0) out_iters[(size_t)k * tab.n + lvl] = 0;
+      continue;
+    }
+    const int H = L.H, W = L.W;
+    const size_t off = b * L.stride;
+    const float* prev = L.prev + off;
+    const float* gxp = L.gx + off;
+    const float* gyp = L.gy + off;
+    const float* cur = L.cur + off;
+
+    // ---- template, gradients, G ------------------------------------------
+    int t_ox, t_oy;
+    float ftx, fty;
+    bool frac_ok;
+    tile_origin(L, win, px, py, t_ox, t_oy, ftx, fty, frac_ok);
+    const float v00 = (1.f - ftx) * (1.f - fty), v01 = ftx * (1.f - fty);
+    const float v10 = (1.f - ftx) * fty, v11 = ftx * fty;
+    float g[3] = {0.f, 0.f, 0.f};
+    {
+      int r = r0, c = c0;
+      for (int p = tid; p < npx; p += kThreads) {
+        const int ya = clampi(t_oy + r, 0, H - 1) * W, yb = clampi(t_oy + r + 1, 0, H - 1) * W;
+        const int xa = clampi(t_ox + c, 0, W - 1), xb = clampi(t_ox + c + 1, 0, W - 1);
+        const float tx = blend4(gxp, ya, yb, xa, xb, v00, v01, v10, v11);
+        const float ty = blend4(gyp, ya, yb, xa, xb, v00, v01, v10, v11);
+        if (in_smem) {
+          s_t[p] = blend4(prev, ya, yb, xa, xb, v00, v01, v10, v11);
+          s_t[npx + p] = tx;
+          s_t[2 * npx + p] = ty;
+        }
+        g[0] += tx * tx;
+        g[1] += tx * ty;
+        g[2] += ty * ty;
+        r += dr;
+        c += dc;
+        if (c >= win) {
+          c -= win;
+          ++r;
+        }
+      }
+    }
+    block_sum<3>(g, s_part, parity);  // its barrier also publishes s_t
+    const float sxx = g[0], sxy = g[1], syy = g[2];
+    const float det = sxx * syy - sxy * sxy;
+    const float half_tr = 0.5f * (sxx + syy);
+    const float min_eig = (half_tr - sqrtf(fmaxf(half_tr * half_tr - det, 0.f))) / (float)npx;
+    const bool good = (min_eig > tab.min_eig_thresh) && vk && frac_ok;
+    const float safe_det = fabsf(det) > 1e-12f ? det : 1.f;
+    const float inv00 = syy / safe_det, inv01 = -sxy / safe_det, inv11 = sxx / safe_det;
+
+    // ---- Gauss-Newton steps, exiting at this keypoint's convergence --------
+    int it = 0;
+    while (good && it < tab.max_iter) {
+      const float x0f = (cx + (float)pad) - half, y0f = (cy + (float)pad) - half;
+      const float x0 = floorf(x0f), y0 = floorf(y0f);
+      const float fx = x0f - x0, fy = y0f - y0;
+      const int xi = clampi((int)x0, 0, W + 2 * pad - win - 1) - pad;
+      const int yi = clampi((int)y0, 0, H + 2 * pad - win - 1) - pad;
+      const float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
+      const float w10 = (1.f - fx) * fy, w11 = fx * fy;
+      float bs[2] = {0.f, 0.f};
+      int r = r0, c = c0;
+      for (int p = tid; p < npx; p += kThreads) {
+        const int ya = clampi(yi + r, 0, H - 1) * W, yb = clampi(yi + r + 1, 0, H - 1) * W;
+        const int xa = clampi(xi + c, 0, W - 1), xb = clampi(xi + c + 1, 0, W - 1);
+        const float v = blend4(cur, ya, yb, xa, xb, w00, w01, w10, w11);
+        float t, tx, ty;
+        if (in_smem) {
+          t = s_t[p];
+          tx = s_t[npx + p];
+          ty = s_t[2 * npx + p];
+        } else {
+          const int ta = clampi(t_oy + r, 0, H - 1) * W, tb = clampi(t_oy + r + 1, 0, H - 1) * W;
+          const int sa = clampi(t_ox + c, 0, W - 1), sb = clampi(t_ox + c + 1, 0, W - 1);
+          t = blend4(prev, ta, tb, sa, sb, v00, v01, v10, v11);
+          tx = blend4(gxp, ta, tb, sa, sb, v00, v01, v10, v11);
+          ty = blend4(gyp, ta, tb, sa, sb, v00, v01, v10, v11);
+        }
+        const float dI = v - t;
+        bs[0] += dI * tx;
+        bs[1] += dI * ty;
+        r += dr;
+        c += dc;
+        if (c >= win) {
+          c -= win;
+          ++r;
+        }
+      }
+      block_sum<2>(bs, s_part, parity);
+      const float dx = -(inv00 * bs[0] + inv01 * bs[1]);
+      const float dy = -(inv01 * bs[0] + inv11 * bs[1]);
+      cx = cx + dx;
+      cy = cy + dy;
+      ++it;
+      if (dx * dx + dy * dy < tab.eps2) break;
+    }
+    if (L.keep_ok) ok = ok && good;
+    if (tid == 0) out_iters[(size_t)k * tab.n + lvl] = it;
+    __syncthreads();  // every read of this level's s_t precedes the next level's writes
+  }
+
+  if (tid == 0) {
+    const float half0 = win * 0.5f;
+    const bool in_img = cx >= half0 && cx < (float)tab.W0 - half0 && cy >= half0 &&
+                        cy < (float)tab.H0 - half0;
+    out_pts[2 * k] = cx;
+    out_pts[2 * k + 1] = cy;
+    out_ok[k] = (ok && in_img) ? 1 : 0;
+  }
+}
+
+// The tiled instantiations (design notes 1-5): each thread holds its
+// window pixels in registers, the tiles are staged in shared memory.
 template <int WIN, int SR, int MAXWIN>
-__global__ void __launch_bounds__(kThreads)
-lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ prev_pts,
-                  const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
-                  float* __restrict__ out_pts, uint8_t* __restrict__ out_ok,
-                  int32_t* __restrict__ out_iters) {
+__device__ __forceinline__ void lk_tiles(const Table& tab, const float* __restrict__ prev_pts,
+                                         const float* __restrict__ init_pts,
+                                         const uint8_t* __restrict__ valid,
+                                         float* __restrict__ out_pts,
+                                         uint8_t* __restrict__ out_ok,
+                                         int32_t* __restrict__ out_iters) {
   constexpr int kPPT = ((WIN > 0 ? WIN * WIN : MAXWIN * MAXWIN) + kThreads - 1) / kThreads;
   constexpr bool kExact = WIN > 0 && (WIN * WIN) % kThreads == 0;
   const int win = WIN > 0 ? WIN : tab.win;
@@ -444,9 +619,25 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
 }
 
 template <int WIN, int SR, int MAXWIN>
+__global__ void __launch_bounds__(kThreads)
+lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ prev_pts,
+                  const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
+                  float* __restrict__ out_pts, uint8_t* __restrict__ out_ok,
+                  int32_t* __restrict__ out_iters) {
+  if constexpr (MAXWIN == 0)
+    lk_wide(tab, prev_pts, init_pts, valid, out_pts, out_ok, out_iters);
+  else
+    lk_tiles<WIN, SR, MAXWIN>(tab, prev_pts, init_pts, valid, out_pts, out_ok, out_iters);
+}
+
+// What a launch ran: which instantiation (and lk_wide's route), and the
+// dynamic shared memory it asked for. lk_pyramid_launch writes both.
+enum Route { kRoute24 = 0, kRouteNarrow, kRouteWide54, kRouteWideShared, kRouteWideGlobal };
+
+template <int WIN, int SR, int MAXWIN>
 int launch(const Table& tab, size_t smem, int N, int B, const void* prev_pts,
            const void* init_pts, const void* valid, void* out_pts, void* out_ok, void* out_iters,
-           cudaStream_t stream) {
+           cudaStream_t stream, Route route, int* out_route) {
   auto kernel = lk_pyramid_kernel<WIN, SR, MAXWIN>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
@@ -456,7 +647,12 @@ int launch(const Table& tab, size_t smem, int N, int B, const void* prev_pts,
   kernel<<<dim3(N, B), kThreads, smem, stream>>>(
       tab, (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid,
       (float*)out_pts, (uint8_t*)out_ok, (int32_t*)out_iters);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) {
+    out_route[0] = route;
+    out_route[1] = (int)smem;
+  }
+  return (int)e;
 }
 
 }  // namespace
@@ -467,16 +663,17 @@ int launch(const Table& tab, size_t smem, int N, int B, const void* prev_pts,
 // scales: 1 per level. Points (B, N, 2), valid (B, N). Outputs: pts (B, N,
 // 2) float32, ok (B, N) uint8, iters (B, N, n_levels) int32 indexed by level
 // number. search_rows is read only when a level takes the
-// window rule (modes kVmem and kGather); the gather rule passes 0.
+// window rule (modes kVmem and kGather); the gather rule passes 0. Windows
+// over kMaxWinWide take the gather rule only (lk_wide). out_route (2 ints)
+// receives the launch's Route and its dynamic shared memory in bytes.
 extern "C" int lk_pyramid_launch(const void* const* planes, const long long* strides,
                                  const int* ints, const float* scales, int n_levels, int H0,
                                  int W0, const void* prev_pts, const void* init_pts,
                                  const void* valid, void* out_pts, void* out_ok,
                                  void* out_iters, int N, int n_streams, int win,
                                  int search_rows, int max_iter, float eps2,
-                                 float min_eig_thresh, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || win < 2 || win > kMaxWinWide)
-    return (int)cudaErrorInvalidValue;
+                                 float min_eig_thresh, void* stream, int* out_route) {
+  if (n_levels < 1 || n_levels > kMaxLevels || win < 2) return (int)cudaErrorInvalidValue;
   if (n_streams < 1 || n_streams > 65535) return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
   Table tab = {};
@@ -505,12 +702,23 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const long long* str
     if (L.mode < kSkip || L.mode > kGather) return (int)cudaErrorInvalidValue;
     any_window = any_window || L.mode == kVmem || L.mode == kGather;
   }
-  if (any_window && search_rows < win + 2) return (int)cudaErrorInvalidValue;
+  if (any_window && (search_rows < win + 2 || win > kMaxWinWide))
+    return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (win > kMaxWinWide) {
+    // lk_wide: the warps' partials, and the template and gradients if they fit.
+    const size_t part = sizeof(float) * 8 * (size_t)kWarps;
+    const size_t tmpl = sizeof(float) * 3 * (size_t)win * win;
+    tab.tmpl_smem = part + tmpl <= (size_t)optin;
+    return launch<0, 0, 0>(tab, part + (tab.tmpl_smem ? tmpl : 0), N, n_streams, prev_pts,
+                           init_pts, valid, out_pts, out_ok, out_iters, s,
+                           tab.tmpl_smem ? kRouteWideShared : kRouteWideGlobal, out_route);
+  }
   // Shared memory: the warps' partials, the staging buffer, two tile buffers.
   const size_t fixed =
       sizeof(float) * (8 * (size_t)kWarps + 2 * 3 * (size_t)(win + 1) * (win + 1));
@@ -524,15 +732,14 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const long long* str
   }
   tab.stage_floats = (int)stage;
   const size_t smem = fixed + sizeof(float) * stage;
-  const cudaStream_t s = (cudaStream_t)stream;
   if (win == 24 && search_rows == 56)
     return launch<24, 56, 24>(tab, smem, N, n_streams, prev_pts, init_pts, valid, out_pts,
-                              out_ok, out_iters, s);
+                              out_ok, out_iters, s, kRoute24, out_route);
   if (win <= kMaxWin)
     return launch<0, 0, kMaxWin>(tab, smem, N, n_streams, prev_pts, init_pts, valid, out_pts,
-                                 out_ok, out_iters, s);
+                                 out_ok, out_iters, s, kRouteNarrow, out_route);
   return launch<0, 0, kMaxWinWide>(tab, smem, N, n_streams, prev_pts, init_pts, valid,
-                                   out_pts, out_ok, out_iters, s);
+                                   out_pts, out_ok, out_iters, s, kRouteWide54, out_route);
 }
 
 extern "C" const char* lk_error_string(int code) {

@@ -251,9 +251,6 @@ class StereoFrontend:
 
     def __init__(self, cfg: FrontendConfig, stereo: StereoCamera, pim_params: imu.PimParams,
                  device: torch.device):
-        if device.type == "cuda" and cfg.klt_win > LK_MAX_WIN:
-            raise ValueError(f"klt_win_size {cfg.klt_win}: the LK kernel takes windows up to "
-                             f"{LK_MAX_WIN} px, the widest the Pallas tracker admits")
         self.cfg = cfg
         self.stereo = stereo
         self.pim_params = pim_params
@@ -413,10 +410,13 @@ class StereoFrontend:
             feats.uv, feats.mask, R_cam_raw.mT[..., None, :, :], self.K_raw, self.K_raw_inv,
             self.left.width, self.left.height,
         )
+        # Windows the Pallas window rule cannot take (over 54 px) track with
+        # the gather rule, the JAX package's default tracker's rule.
+        wide = {"search_rows": None} if cfg.klt_win > LK_MAX_WIN else {}
         tracked_uv, ok = klt_track_lk(
             list(state.lkf_pyramid), cur_pyr, feats.uv, init_uv, feats.mask,
             win=cfg.klt_win, max_iter=cfg.klt_max_iter, eps=cfg.klt_eps,
-            prev_grads=list(state.lkf_grads), device=self.device,
+            prev_grads=list(state.lkf_grads), device=self.device, **wide,
         )
         ok = ok & feats.mask & (feats.ages < cfg.max_feature_age)
         tracked_rect, tracked_versors = self._rect_and_versors(tracked_uv)

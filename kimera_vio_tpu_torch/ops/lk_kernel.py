@@ -43,6 +43,7 @@ fallback between the two.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -105,9 +106,12 @@ def level_mode(H: int, W: int, win: int, search_rows: int | None):
 
 _MODE_CODES = {"skip": 0, "xla": 1, "vmem": 2, "gather": 3}  # csrc/lk_kernel.cu: Mode
 _MAX_LEVELS = 8  # csrc/lk_kernel.cu: kMaxLevels
-# csrc/lk_kernel.cu: kMaxWinWide. The widest window the Pallas tracker
-# admits: its search-window clip search_rows - win - 2 (pallas/lk_kernel.py:
-# 177-181) must stay >= 0 at its fixed 56 rows.
+# csrc/lk_kernel.cu: Route, what a launch ran (instantiation, lk_wide's route).
+ROUTES = ("<24, 56, 24>", "<0, 0, 32>", "<0, 0, 54>", "lk_wide shared", "lk_wide global")
+# csrc/lk_kernel.cu: kMaxWinWide. The widest window of the window rule, as
+# of the Pallas tracker: its search-window clip search_rows - win - 2
+# (pallas/lk_kernel.py:177-181) must stay >= 0 at its fixed 56 rows. Wider
+# windows take the gather rule (search_rows=None), at any width.
 MAX_WIN = 54
 
 
@@ -392,7 +396,7 @@ def _lib() -> ctypes.CDLL:
         P, P, P,  # out_pts, out_ok, out_iters
         I, I, I, I, I,  # N, n_streams, win, search_rows, max_iter
         Fl, Fl,  # eps^2, min_eig_thresh
-        P,  # stream
+        P, P,  # stream, out_route
     ]
     lib.lk_pyramid_launch.restype = I
     lib.lk_error_string.argtypes = [I]
@@ -415,24 +419,31 @@ def lk_pyramid_cuda(
     """Track one frame of every stream, every level, in ONE launch of the
     CUDA kernel. Computes what `track_pyramid(lk_level_plain, ...)`
     computes (the window sums in another order), with the window rule of
-    `klt_track_pallas` at `search_rows`, or with `search_rows=None` the
-    gather rule (every level an XLA level); windows of 2-54 px.
+    `klt_track_pallas` at `search_rows` (windows of 2-54 px), or with
+    `search_rows=None` the gather rule (every level an XLA level; any
+    window of 2 px or more, above 54 px in the kernel's `lk_wide` path).
 
     Levels (B, H, W) with keypoints (B, N, 2) and `valid` (B, N) track B
     streams; (H, W) levels with (N, 2) keypoints are one stream (B = 1
     views). Returns (pts (..., N, 2) float32, ok (..., N) bool, iters
     (..., N, n_levels) int32: the Gauss-Newton steps per level, indexed by
     level number), with the inputs' leading axes. Adds one to
-    `lk_pyramid_cuda.launches` per launch, whatever B."""
+    `lk_pyramid_cuda.launches` per launch, whatever B, and to
+    `lk_pyramid_cuda.routes[route]` for the route the launcher chose (a
+    name of ROUTES); `lk_pyramid_cuda.smem[route]` holds the dynamic
+    shared memory in bytes that route's last launch asked for."""
     n = len(prev_pyr)
     if n == 0 or len(cur_pyr) != n or len(prev_grads) != n:
         raise ValueError("need one prev, cur and gradient pair per level")
     if n > _MAX_LEVELS:
         raise ValueError(f"at most {_MAX_LEVELS} pyramid levels, got {n}")
-    if not 2 <= win <= MAX_WIN:
+    if win < 2:
+        raise ValueError(f"win {win}: the kernel takes windows of 2 px or more")
+    if search_rows is not None and win > MAX_WIN:
         raise ValueError(
-            f"win {win}: the kernel takes 2 <= win <= {MAX_WIN}, the widest window the "
-            f"Pallas tracker admits (its clip search_rows - win - 2 must stay >= 0 at 56 rows)")
+            f"win {win}: the window rule takes 2 <= win <= {MAX_WIN}, the widest window the "
+            f"Pallas tracker admits (its clip search_rows - win - 2 must stay >= 0 at 56 rows); "
+            f"wider windows take the gather rule (search_rows=None)")
     if search_rows is not None and search_rows < win + 2:
         raise ValueError(f"search_rows {search_rows} < win + 2 = {win + 2}")
     dev = prev_pyr[0].device
@@ -483,21 +494,27 @@ def lk_pyramid_cuda(
         return out_pts, out_ok, out_iters
     lib = _lib()
     H0, W0 = prev_pyr[0].shape[-2:]
+    route = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         rc = lib.lk_pyramid_launch(
             planes, strides, ints, scales, n, H0, W0,
             prev_pts.data_ptr(), init_pts.data_ptr(), valid.data_ptr(),
             out_pts.data_ptr(), out_ok.data_ptr(), out_iters.data_ptr(),
             N, B, win, search_rows or 0, max_iter, float(eps * eps), float(min_eig_thresh),
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, route,
         )
     if rc != 0:
         raise RuntimeError(f"LK kernel launch failed: {lib.lk_error_string(rc).decode()}")
     lk_pyramid_cuda.launches += 1
+    name = ROUTES[route[0]]
+    lk_pyramid_cuda.routes[name] += 1
+    lk_pyramid_cuda.smem[name] = route[1]
     return out_pts, out_ok, out_iters
 
 
 lk_pyramid_cuda.launches = 0
+lk_pyramid_cuda.routes = collections.Counter()
+lk_pyramid_cuda.smem = {}
 
 
 # ---------------------------------------------------------------------------

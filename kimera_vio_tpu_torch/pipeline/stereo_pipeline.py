@@ -84,8 +84,12 @@ back to /tmp/viz_out); `visualize_mesh_2d` adds the mesher's image-plane
 mesh over the keyframe's left image. Both write behind the frame loop,
 as the mesher reads its rows.
 
-`run_chunked` stages raw frames only (the JAX package's
-KIMERA_STAGE_CODEC codecs are not ported).
+`run_chunked` stages each super-batch in the codec that
+`KIMERA_STAGE_CODEC` names when it is called (ops/frame_codec.py): `raw`
+(the port's default), `delta4`, `delta4c` or `delta3`; any other value
+stages delta4, and a batch a codec declines goes down the JAX package's
+chain (delta4c -> delta4 -> raw, delta3 -> delta4 -> raw). The codecs
+are lossless, so the trajectory does not depend on the choice.
 """
 
 from __future__ import annotations
@@ -116,6 +120,7 @@ from kimera_vio_tpu_torch.initial.time_alignment import CrossCorrTimeAligner
 from kimera_vio_tpu_torch.mesher import mesher as mm
 from kimera_vio_tpu_torch.mesher.mesh_optimization import optimize_mesh
 from kimera_vio_tpu_torch.mesher.plane_tracker import PlaneTracker
+from kimera_vio_tpu_torch.ops import frame_codec as fc
 from kimera_vio_tpu_torch.ops import ransac
 from kimera_vio_tpu_torch.ops.stereo_matching import dense_depth
 from kimera_vio_tpu_torch.pipeline.lcd_module import LcdModule
@@ -127,18 +132,44 @@ from kimera_vio_tpu_torch.utils.stats import StatsCollector
 from kimera_vio_tpu_torch.visualizer.visualizer import Visualizer3D, make_display
 
 
-class Staged(NamedTuple):
-    """One staged super-batch of `run_chunked`: frames then IMU blocks in
-    one buffer."""
+#: `KIMERA_STAGE_CODEC` wire factors: a codec's super-batch holds
+#: super_batch_bytes of frames at factor[0] / factor[1] of their raw bytes
+#: (the JAX package's sizing, so the rebase origins fall where it puts them).
+_WIRE_FACTOR = {"raw": (1, 1), "delta3": (9, 20)}
+_DELTA_FACTOR = (3, 5)
 
+
+def super_batch_frames(codec: str, chunk_size: int, super_batch_bytes: int,
+                       frame_bytes: int) -> int:
+    """Frames in one of `run_chunked`'s super-batches: whole chunks of at
+    most `super_batch_bytes` of frames at the codec's wire factor, at
+    least one chunk."""
+    num, den = _WIRE_FACTOR.get(codec, _DELTA_FACTOR)
+    return max(chunk_size,
+               super_batch_bytes // max(frame_bytes * num // den, 1) // chunk_size * chunk_size)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+class Staged(NamedTuple):
+    """One staged super-batch of `run_chunked`: its wire parts in one
+    buffer, each at a 16-byte aligned offset. Parts by codec: raw
+    `frames`, `aux`; delta4 `base`, `packed`, `esc_idx`, `esc_val`, `aux`;
+    delta3 `base`, `t1`, `t2`, `t3`, `aux`; delta4c `wire` (the IMU rows
+    ride in it)."""
+
+    codec: str  # "raw", "delta4", "delta4c" or "delta3"
     shape: tuple  # frames (F, 2, H, W)
-    aux_shape: tuple  # IMU blocks (F, B*8): acc, gyr, dt, mask
-    aux_offset: int  # byte offset of the IMU blocks (16-byte aligned)
     dtype: torch.dtype  # of the frames
+    aux_shape: tuple  # IMU blocks (F, B*8): acc, gyr, dt, mask
+    parts: dict  # name -> (byte offset, numpy dtype, shape)
+    n_tok: int  # delta4c: gap tokens on the wire (0 for the others)
     buf: torch.Tensor  # the buffer on the pipeline's device
     host: torch.Tensor  # its host copy (pinned on CUDA)
     copy: tuple | None  # CUDA events (start, done) around the copy
-    encode_ms: float  # decode + pack on the stager thread
+    encode_ms: float  # decode, encode and pack on the stager thread
 
 
 @dataclass
@@ -1060,9 +1091,11 @@ class StereoImuPipeline:
                            visualize=self.enable_visualizer)
 
     # ------------------------------------------------------------------
-    def _stage(self, provider, batch, side_stream) -> Staged:
-        """Stager thread: decode one super-batch, pack its frames and IMU
-        blocks into one host buffer and start its copy to the device.
+    def _stage(self, provider, batch, side_stream, codec: str = "raw") -> Staged:
+        """Stager thread: decode one super-batch, encode its frames in
+        `codec` (or the codec its decline chain lands on), pack the wire
+        and the IMU blocks into one host buffer and start its copy to the
+        device.
 
         The IMU rows are the JAX package's aux layout without its last
         column, the rebased stamp: the step takes the stamp from the
@@ -1078,24 +1111,58 @@ class StereoImuPipeline:
         # right image is an RGB-D depth image (the left one is widened).
         dtype = np.result_type(left_imgs[0].dtype, right_imgs[0].dtype)
         B = batch[0]["imu"].acc.shape[0]
-        # Frames, then the IMU rows at a 16-byte aligned offset.
-        n_img = F * 2 * H * W * dtype.itemsize
-        offset = -(-n_img // 16) * 16
-        host = torch.empty(offset + F * B * 8 * 4, dtype=torch.uint8,
-                           pin_memory=self.device.type == "cuda")
-        buf = host.numpy()
-        frames = buf[:n_img].view(dtype).reshape(shape)
-        aux = buf[offset:].view(np.float32).reshape(F, B * 8)
+        aux = np.empty((F, B * 8), np.float32)
         for i, p in enumerate(batch):
-            frames[i, 0] = left_imgs[i]
-            frames[i, 1] = right_imgs[i]
             blk = p["imu"]
             aux[i, :B * 3] = blk.acc.numpy().ravel()
             aux[i, B * 3:B * 6] = blk.gyr.numpy().ravel()
             aux[i, B * 6:B * 7] = blk.dt.numpy()
             aux[i, B * 7:] = blk.mask.numpy()
-        staged = Staged(shape, aux.shape, offset, torch.from_numpy(frames[:0]).dtype,
-                        host, host, None, (time.perf_counter() - tic) * 1e3)
+
+        # The JAX package's decline chain: delta4c needs every plane to be
+        # a uint8 array; delta4c and delta3 fall to delta4, delta4 to raw.
+        parts, used, n_tok, imgs = None, "raw", 0, None
+        if codec == "delta4c":
+            planes = [im for pair in zip(left_imgs, right_imgs) for im in pair]
+            if all(isinstance(im, np.ndarray) and im.dtype == np.uint8 for im in planes):
+                enc = fc.encode_delta4c_planes(planes, 2, shape, aux)
+                if enc is not None:
+                    parts, used, n_tok = [("wire", enc["buf"])], "delta4c", enc["n_tok"]
+        if parts is None and codec != "raw":
+            imgs = np.stack([np.stack(left_imgs), np.stack(right_imgs)], axis=1)
+            enc = fc.encode_delta3(imgs) if codec == "delta3" else None
+            if enc is not None:
+                parts, used = [(k, enc[k]) for k in ("base", "t1", "t2", "t3")], "delta3"
+            else:
+                enc = fc.encode_delta4(imgs)
+                if enc is not None:
+                    parts = [(k, enc[k]) for k in ("base", "packed", "esc_idx", "esc_val")]
+                    used = "delta4"
+            if parts is not None:
+                parts.append(("aux", aux))
+        if parts is None:
+            parts = [("frames", imgs), ("aux", aux)]  # imgs None: filled from the images below
+
+        layout, end = {}, 0
+        for name, arr in parts:
+            part_shape, part_dtype = (shape, dtype) if arr is None else (arr.shape, arr.dtype)
+            start = -(-end // 16) * 16
+            layout[name] = (start, np.dtype(part_dtype), tuple(part_shape))
+            end = start + int(np.prod(part_shape)) * np.dtype(part_dtype).itemsize
+        host = torch.empty(end, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        hb = host.numpy()
+        for name, arr in parts:
+            start, part_dtype, part_shape = layout[name]
+            dst = hb[start:start + int(np.prod(part_shape)) * part_dtype.itemsize]
+            dst = dst.view(part_dtype).reshape(part_shape)
+            if arr is not None:
+                dst[...] = arr
+            else:  # raw frames straight from the decoded images
+                for i in range(F):
+                    dst[i, 0] = left_imgs[i]
+                    dst[i, 1] = right_imgs[i]
+        staged = Staged(used, shape, _torch_dtype(dtype), aux.shape,
+                        layout, n_tok, host, host, None, (time.perf_counter() - tic) * 1e3)
         if side_stream is None:
             return staged
         # One copy per super-batch on the side stream; events bracket it so
@@ -1109,17 +1176,33 @@ class StereoImuPipeline:
 
     def _materialize(self, staged: Staged):
         """A staged super-batch -> (frames (F, 2, H, W), IMU rows (F, B*8)
-        float32) on the device, once its copy has arrived."""
+        float32) on the device, once its copy has arrived: the codec's
+        decode runs on the current stream."""
         self.stats.add("stage encode [ms]", staged.encode_ms)
         self.stats.add("stage wire [MB]", staged.host.numel() / 1e6)
+        self.stats.add(f"stage codec {staged.codec} [#]", 1.0)  # where the decline chain landed
         buf = staged.buf
         if staged.copy is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(staged.copy[1])
             buf.record_stream(cur)  # allocated on the side stream, used here
-        n_img = int(np.prod(staged.shape)) * staged.dtype.itemsize
-        return (buf[:n_img].view(staged.dtype).view(staged.shape),
-                buf[staged.aux_offset:].view(torch.float32).view(staged.aux_shape))
+
+        def part(name):
+            start, dtype, shape = staged.parts[name]
+            n = int(np.prod(shape)) * dtype.itemsize
+            return buf[start:start + n].view(_torch_dtype(dtype)).view(shape)
+
+        if staged.codec == "delta4c":
+            return fc.decode_delta4c(part("wire"), staged.shape, staged.n_tok, staged.aux_shape)
+        if staged.codec == "delta4":
+            frames = fc.decode_delta4(part("base"), part("packed"), part("esc_idx"),
+                                      part("esc_val"), staged.shape)
+        elif staged.codec == "delta3":
+            frames = fc.decode_delta3(part("base"), part("t1"), part("t2"), part("t3"),
+                                      staged.shape)
+        else:
+            frames = part("frames")
+        return frames, part("aux")
 
     def _release(self, staged: Staged):
         """After a super-batch's frames: make sure its copy has completed
@@ -1134,10 +1217,11 @@ class StereoImuPipeline:
         if ms > 0:
             self.stats.add("stage h2d [MB/s]", staged.host.numel() / 1e6 / (ms * 1e-3))
 
-    def _staged_frames(self, provider, chunk_size: int, super_batch_bytes: int):
+    def _staged_frames(self, provider, chunk_size: int, super_batch_bytes: int, codec: str):
         """run_chunked()'s frame source: the first frame loaded directly,
-        the rest in super-batches of whole chunks staged by a background
-        thread, each with the rebase origin of its first frame."""
+        the rest in super-batches of whole chunks staged in `codec` by a
+        background thread, each with the rebase origin of its first
+        frame."""
         dev = self.device
         packets = list(provider.frames())
         if not packets:
@@ -1149,11 +1233,10 @@ class StereoImuPipeline:
         left0 = provider.load_image(first["left_path"])
         right0 = provider.load_image(first["right_path"]) if "right_path" in first else left0
         rest = [p for p in packets[1:] if p.get("imu") is not None]
-        C = chunk_size
-        super_frames = C
+        super_frames = chunk_size
         if rest:
             frame_bytes = 2 * left0.size * np.result_type(left0.dtype, right0.dtype).itemsize
-            super_frames = max(C, super_batch_bytes // frame_bytes // C * C)
+            super_frames = super_batch_frames(codec, chunk_size, super_batch_bytes, frame_bytes)
         supers = [rest[i:i + super_frames] for i in range(0, len(rest), super_frames)]
         # Rebase origin per super-batch, a function of the stamps alone.
         origins_ns, shift_s = [], 0.0
@@ -1162,7 +1245,8 @@ class StereoImuPipeline:
             origins_ns.append(t0_ns + int(round(shift_s * 1e9)))
 
         side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
-        staged = PrefetchIterator(supers, lambda batch: self._stage(provider, batch, side), depth=2)
+        staged = PrefetchIterator(supers, lambda batch: self._stage(provider, batch, side, codec),
+                                  depth=2)
         try:
             left = torch.from_numpy(left0).to(dev)
             right = torch.from_numpy(right0).to(dev) if "right_path" in first else left
@@ -1189,9 +1273,11 @@ class StereoImuPipeline:
                     super_batch_bytes: int = 32 * 1024 * 1024) -> PipelineOutput:
         """Offline mode: stage the sequence in super-batches of whole
         chunks of `chunk_size` frames (at most `super_batch_bytes` of
-        frames, at least one chunk), one host-to-device copy each, on a
-        background thread; step each frame on the device; read the
-        keyframe states back once at the end.
+        frames at the codec's wire factor, at least one chunk), one
+        host-to-device copy each, on a background thread; step each frame
+        on the device; read the keyframe states back once at the end.
+        `KIMERA_STAGE_CODEC`, read at each call, names the staging codec
+        (`raw` by default; see the module docstring).
 
         Stamps enter the step as `run()` gives them, so the trajectory is
         `run()`'s. `collect_aux=True` drives loop closure and the mesher
@@ -1215,7 +1301,9 @@ class StereoImuPipeline:
             raise NotImplementedError("run_chunked does not support online initialization")
         if getattr(provider, "odometry", None) is not None:
             raise NotImplementedError("run_chunked does not support external odometry")
-        return self._drive(provider, self._staged_frames(provider, chunk_size, super_batch_bytes),
+        codec = os.environ.get("KIMERA_STAGE_CODEC", "raw")
+        return self._drive(provider, self._staged_frames(provider, chunk_size, super_batch_bytes,
+                                                         codec),
                            verbose, defer_readback=True,
                            aux_drain=((chunk_size, 0 if self.use_regular_vio else chunk_size)
                                       if collect_aux else None))

@@ -2,15 +2,23 @@
 """Time the LK pyramid kernel built from two CUDA sources on one card.
 
     python3 scripts/lk_kernel_ab.py --other OTHER/kimera_vio_tpu_torch/csrc/lk_kernel.cu
+    python3 scripts/lk_kernel_ab.py --replace OLD NEW [--replace ...] \\
+        --case 61:none:752x480 --case 101:none:752x480
 
-Builds `--other` with the same nvcc flags as this checkout's
-csrc/lk_kernel.cu (the C interface `lk_pyramid_launch` must be the same),
-then times one 752x480 frame of the main path (chip_smoke.main_lk_inputs:
-5 levels, 256 keypoints, win 24, 56-row search window) through each
-library in turns: other, this, this, other, `--rounds` times. Each time is
-the device time of a CUDA-graph replay of one launch (chip_smoke.graph_ms).
-Both libraries' outputs must be identical. Prints the card's name and
-power limit, then one JSON line. Needs a card; exits 2 without one.
+Builds the other library with the same nvcc flags as this checkout's
+csrc/lk_kernel.cu (the C interface `lk_pyramid_launch` must be the same):
+from `--other`, or from this checkout's source with each `--replace` OLD
+text (which must occur exactly once) replaced by NEW. Then times one frame
+of each `--case` WIN:SEARCH_ROWS:SIZE (SEARCH_ROWS `none` is the gather
+rule; SIZE 752x480 or 1241x376) through each library in turns: other,
+this, this, other, `--rounds` times. The default case is the main path
+(chip_smoke.main_lk_inputs: 752x480, 5 levels, 256 keypoints, win 24, 56-row
+search window); other cases take chip_smoke.wide_inputs (keypoints more than
+win / 2 + 2 px inside). Each time is the device time of a CUDA-graph replay
+of one launch (chip_smoke.graph_ms). The outputs must be identical, or with
+`--tol` the same `ok` and positions within TOL px. Prints the card's name
+and power limit, then one JSON line per case with the route each library's
+launcher chose. Needs a card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -30,6 +38,24 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from kimera_vio_tpu_torch.ops import lk_kernel as lk  # noqa: E402
 from kimera_vio_tpu_torch.ops import optical_flow as of  # noqa: E402
+
+SOURCE = os.path.join(os.path.dirname(lk.__file__), os.pardir, "csrc", "lk_kernel.cu")
+
+
+def other_source(args) -> str:
+    """The other library's source: `--other`, or this checkout's source
+    with the `--replace` edits, written into _build/."""
+    if args.other:
+        return args.other
+    text = open(SOURCE).read()
+    for old, new in args.replace:
+        if text.count(old) != 1:
+            raise ValueError(f"--replace: {old!r} occurs {text.count(old)} times, not once")
+        text = text.replace(old, new)
+    lk._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = lk._BUILD_DIR / f"lk_other_{hashlib.sha256(text.encode()).hexdigest()[:16]}.cu"
+    src.write_text(text)
+    return str(src)
 
 
 def build_other(src: str) -> ctypes.CDLL:
@@ -52,9 +78,33 @@ def build_other(src: str) -> ctypes.CDLL:
     return other
 
 
+def parse_case(text: str) -> tuple:
+    win, sr, size = text.split(":")
+    return int(win), None if sr == "none" else int(sr), size
+
+
+def compare(outs: dict, tol: float) -> dict:
+    """The two libraries' outputs: identical, or (with tol) the same ok and
+    positions within tol px where ok."""
+    (pa, oka, ita), (pb, okb, itb) = outs["this"], outs["other"]
+    identical = torch.equal(pa, pb) and torch.equal(oka, okb) and torch.equal(ita, itb)
+    d = torch.linalg.norm(pa - pb, dim=-1)[oka & okb]
+    max_d = float(d.max()) if d.numel() else 0.0
+    if not identical and not (tol > 0 and torch.equal(oka, okb) and max_d < tol):
+        raise AssertionError(f"the two kernels' outputs differ (max {max_d} px, tol {tol})")
+    return {"outputs_identical": identical, "max_abs_diff": max_d, "tracked": int(oka.sum())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True, help="the other lk_kernel.cu")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--other", help="the other lk_kernel.cu")
+    src.add_argument("--replace", nargs=2, action="append", metavar=("OLD", "NEW"),
+                     help="the other source: this one with OLD replaced by NEW")
+    ap.add_argument("--case", action="append", type=parse_case,
+                    help="WIN:SEARCH_ROWS:SIZE, e.g. 61:none:752x480 (default 24:56:752x480)")
+    ap.add_argument("--tol", type=float, default=0.0,
+                    help="largest |d| in px between the outputs (default 0: identical)")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -64,29 +114,36 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda")
-    libs = {"this": lk._lib(), "other": build_other(args.other)}
-    prev_pyr, cur_pyr, uv, valid = chip_smoke.main_lk_inputs(dev)
-    grads = [of._grad(p) for p in prev_pyr]
-    call = (prev_pyr, cur_pyr, grads, uv, uv, valid)
+    libs = {"this": lk._lib(), "other": build_other(other_source(args))}
+    for win, sr, size in args.case or [(24, 56, "752x480")]:
+        if (win, sr, size) == (24, 56, "752x480"):
+            prev_pyr, cur_pyr, uv, valid = chip_smoke.main_lk_inputs(dev)
+        else:
+            prev_pyr, cur_pyr, uv, valid = chip_smoke.wide_inputs(dev, win, size)
+        grads = [of._grad(p) for p in prev_pyr]
+        call = (prev_pyr, cur_pyr, grads, uv, uv, valid)
+        kw = {**chip_smoke.LK_KW, "win": win, "search_rows": sr}
 
-    def run(name):
-        lk._lib = lambda: libs[name]  # the wrapper's library, swapped
-        return lk.lk_pyramid_cuda(*call, **chip_smoke.LK_KW)
+        def run(name):
+            lk._lib = lambda: libs[name]  # the wrapper's library, swapped
+            return lk.lk_pyramid_cuda(*call, **kw)
 
-    outs = {name: run(name) for name in libs}
-    torch.cuda.synchronize()
-    for a, b in zip(outs["this"], outs["other"]):
-        if not torch.equal(a, b):
-            raise AssertionError("the two kernels' outputs differ")
-    times = {"other": [], "this": []}
-    for _ in range(args.rounds):
-        for name in ("other", "this", "this", "other"):
-            times[name].append(chip_smoke.graph_ms(lambda n=name: run(n)))
-    res = {"card": smi, "shape": "752x480 5 levels 256 keypoints win 24 search_rows 56",
-           "ms": times, "mean_ms": {k: sum(v) / len(v) for k, v in times.items()},
-           "outputs_identical": True}
-    res["this_over_other"] = res["mean_ms"]["this"] / res["mean_ms"]["other"]
-    print(json.dumps(res))
+        routes = {}
+        outs = {}
+        for name in libs:
+            lk.lk_pyramid_cuda.routes.clear()
+            outs[name] = run(name)
+            routes[name] = {r: lk.lk_pyramid_cuda.smem[r] for r in lk.lk_pyramid_cuda.routes}
+        torch.cuda.synchronize()
+        res = {"card": smi, "shape": f"{size} win {win} search_rows {sr}",
+               "routes_and_smem_bytes": routes, **compare(outs, args.tol)}
+        times = {"other": [], "this": []}
+        for _ in range(args.rounds):
+            for name in ("other", "this", "this", "other"):
+                times[name].append(chip_smoke.graph_ms(lambda n=name: run(n)))
+        res.update(ms=times, mean_ms={k: sum(v) / len(v) for k, v in times.items()})
+        res["this_over_other"] = res["mean_ms"]["this"] / res["mean_ms"]["other"]
+        print(json.dumps(res), flush=True)
     return 0
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch port on one card, in turns.
 
-    python3 scripts/tree_ab.py --path OTHER_ROOT [--fleet OTHER_ROOT] [--rounds 2]
+    python3 scripts/tree_ab.py --path OTHER_ROOT [--fleet OTHER_ROOT]
+        [--stage OTHER_ROOT] [--rounds 2]
 
 Every measurement is a fresh process that imports the package (and
 chip_smoke.py) from one checkout's root, builds that checkout's LK kernel
@@ -15,7 +16,13 @@ and warms up before it times anything:
     streams of 40 frames (needs a checkout that has the fleet): the
     batched frame step ms on fleet frames without a keyframe (host
     clock, each step ending in `torch.cuda.synchronize`), the keyframe ms
-    per keyframing stream and stream-frames/s.
+    per keyframing stream and stream-frames/s;
+  * `--stage`: `run_chunked`'s stager, `StereoImuPipeline._stage`, on 64
+    frames of chip_smoke's 0.05 m/s 752x480 scene (CODEC_VX, rounded to
+    uint8 and rendered before timing) in each `KIMERA_STAGE_CODEC` codec,
+    three super-batches a codec with the last two alive (the prefetch
+    depth): the stager's own ms (image loads, encode, pack, pinned
+    allocation) and the copy's ms (CUDA events), medians of the three.
 
 Each round runs other, this, this, other for each comparison given. Prints
 the card's name and power limit, one JSON line per process, then one
@@ -118,10 +125,54 @@ def fleet_runs(runs: int) -> dict:
     return {"runs": rows}
 
 
+CODECS = ("raw", "delta4", "delta4c", "delta3")
+
+
+def stage_runs(runs: int) -> dict:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from kimera_vio_tpu_torch.dataprovider.synthetic import (
+        SyntheticStereoProvider,
+        synthetic_params,
+    )
+    from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
+
+    dev = torch.device("cuda")
+    pipe = StereoImuPipeline(synthetic_params(nr_states=10, max_features=256, max_landmarks=384),
+                             device=dev)
+    prov = SyntheticStereoProvider(n_frames=65, vx=cs.CODEC_VX)
+    batch = list(prov.frames())[1:65]
+    images = {p[k]: np.clip(prov.load_image(p[k]), 0, 255).astype(np.uint8)
+              for p in batch for k in ("left_path", "right_path")}
+    frames = type("Frames", (), {"load_image": staticmethod(images.__getitem__)})
+    side = torch.cuda.Stream(device=dev)
+    rows = []
+    for r in range(runs + 1):  # the first warms up
+        row, alive = {}, []
+        for codec in CODECS:
+            stage_ms, copy_ms = [], []
+            for _ in range(3):
+                st = pipe._stage(frames, batch, side, codec)
+                alive = (alive + [st])[-2:]
+                side.synchronize()
+                if st.codec != codec:
+                    raise AssertionError(f"{codec}: the super-batch landed on {st.codec}")
+                stage_ms.append(st.encode_ms)
+                copy_ms.append(st.copy[0].elapsed_time(st.copy[1]))
+            row[f"{codec}_stage_ms"] = statistics.median(stage_ms)
+            row[f"{codec}_copy_ms"] = statistics.median(copy_ms)
+            row[f"{codec}_wire_mb"] = st.host.numel() / 1e6
+        if r:
+            rows.append(row)
+    return {"runs": rows}
+
+
 def worker(root: str, what: str, runs: int) -> int:
     sys.path.insert(0, root)
     os.chdir(root)
-    res = path_runs(runs) if what == "path" else fleet_runs(runs)
+    res = {"path": path_runs, "fleet": fleet_runs, "stage": stage_runs}[what](runs)
     print(json.dumps(res))
     return 0
 
@@ -139,13 +190,16 @@ def measure(root: str, what: str, runs: int) -> dict:
 def summary(what: str, sides: dict) -> dict:
     import numpy as np
 
-    keys = ("frames_per_s", "frame_ms", "keyframe_ms") if what == "path" else (
-        "stream_frames_per_s", "frame_step_ms", "keyframe_ms_per_stream")
+    keys = {"path": ("frames_per_s", "frame_ms", "keyframe_ms"),
+            "fleet": ("stream_frames_per_s", "frame_step_ms", "keyframe_ms_per_stream"),
+            "stage": tuple(f"{c}_{k}" for c in CODECS for k in ("stage_ms", "copy_ms"))}[what]
     res = {"compare": what}
     for side, runs in sides.items():
         for k in keys:
             res[f"{side}_{k}"] = [r[k] for r in runs]
             res[f"{side}_{k}_median"] = statistics.median(r[k] for r in runs)
+    if what == "stage":
+        return res
     pos = {side: [np.array(r["positions"]) for r in runs] for side, runs in sides.items()}
     res["max_abs_dpos_m"] = max(float(np.abs(a - b).max())
                                 for a in pos["this"] for b in pos["other"])
@@ -156,9 +210,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", help="the other checkout's root for the phase-2 comparison")
     ap.add_argument("--fleet", help="the other checkout's root for the fleet comparison")
+    ap.add_argument("--stage", help="the other checkout's root for the stager comparison")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--runs", type=int, default=2, help="timed runs per process")
-    ap.add_argument("--worker", choices=("path", "fleet"), help=argparse.SUPPRESS)
+    ap.add_argument("--worker", choices=("path", "fleet", "stage"), help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -172,7 +227,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
     plan = [(what, os.path.abspath(other)) for what, other in
-            (("path", args.path), ("fleet", args.fleet)) if other]
+            (("path", args.path), ("fleet", args.fleet), ("stage", args.stage)) if other]
     sides = {what: {"this": [], "other": []} for what, _ in plan}
     for rnd in range(args.rounds):
         for side in ("other", "this", "this", "other"):

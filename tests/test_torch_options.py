@@ -39,9 +39,10 @@ function and the port's counterpart; each test states its tolerance.
   * LK at win 41: the plain tracker against `klt_track_pallas(...,
     interpret=True)` at the repository's tolerance (median < 0.05 px,
     tests/test_optical_flow.py:183-186), the gather rule against the JAX
-    `klt_track` within 1e-3 px; `lk_pyramid_cuda` admits 33-54 px and
-    refuses 55 with its reason, and so does a frontend built for the
-    card.
+    `klt_track` within 1e-3 px; `lk_pyramid_cuda` admits 33-54 px, refuses
+    55 and 101 px with the window rule and its reason, and takes them with
+    the gather rule; so does a frontend built for the card (windows over
+    54 px: tests/test_torch_wide_window.py).
 """
 
 import dataclasses
@@ -494,24 +495,44 @@ def test_lk_pyramid_cuda_admits_windows_up_to_54(win, search_rows):
                             min_eig_thresh=1e-4, search_rows=search_rows)
 
 
-@pytest.mark.parametrize("search_rows", [56, None])
-def test_lk_pyramid_cuda_refuses_windows_above_54(search_rows):
+@pytest.mark.parametrize("win", [55, 101])
+def test_lk_pyramid_cuda_refuses_windows_above_54(win):
+    """The window rule (search_rows 56) refuses windows over 54 px."""
     pyr = tof.build_pyramid(torch.zeros(120, 160), 2)
     pts = torch.zeros(4, 2)
-    with pytest.raises(ValueError, match=r"win 55: .*<= 54.*search_rows - win - 2"):
+    with pytest.raises(ValueError, match=rf"win {win}: .*<= 54.*search_rows - win - 2"):
         tlk.lk_pyramid_cuda(pyr, pyr, [(p, p) for p in pyr], pts, pts,
-                            torch.ones(4, dtype=torch.bool), win=55, max_iter=30, eps=0.1,
-                            min_eig_thresh=1e-4, search_rows=search_rows)
+                            torch.ones(4, dtype=torch.bool), win=win, max_iter=30, eps=0.1,
+                            min_eig_thresh=1e-4, search_rows=56)
 
 
-def test_frontend_refuses_windows_above_54_on_the_card():
-    """A CUDA frontend refuses klt_win_size 55 when it is built (no card
-    is needed to reach the check); on the CPU the plain tracker takes it."""
+@pytest.mark.parametrize("win", [55, 61, 101, 151])
+def test_lk_pyramid_cuda_admits_wider_windows_with_the_gather_rule(win):
+    """The gather rule (search_rows=None) takes any window: the argument
+    check passes (the call then stops at the CPU tensors)."""
+    pyr = tof.build_pyramid(torch.zeros(120, 160), 2)
+    pts = torch.zeros(4, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tlk.lk_pyramid_cuda(pyr, pyr, [(p, p) for p in pyr], pts, pts,
+                            torch.ones(4, dtype=torch.bool), win=win, max_iter=30, eps=0.1,
+                            min_eig_thresh=1e-4, search_rows=None)
+
+
+@pytest.mark.parametrize("win", [55, 101])
+def test_frontend_takes_windows_above_54_on_the_card(win):
+    """A frontend built for the card takes klt_win_size over 54 (it tracks
+    them with the gather rule, tests/test_torch_wide_window.py). Without a
+    card its constructor gets past the window and stops at its first
+    tensor on the card; on the CPU the plain tracker takes the window."""
     p = vio_params_from_dict(dataclasses.asdict(j_synthetic_params(width=320, height=240)))
-    p.frontend.klt_win_size = 55
+    p.frontend.klt_win_size = win
     cfg = FrontendConfig.from_params(p.frontend, max_features=64)
     stereo = tcam.StereoCamera.from_params(p.left_cam, p.right_cam, device="cpu")
     pim = timu.PimParams.from_params(p.imu, device="cpu")
-    with pytest.raises(ValueError, match="klt_win_size 55: .* up to 54 px"):
-        vision_frontend.StereoFrontend(cfg, stereo, pim, torch.device("cuda"))
-    vision_frontend.StereoFrontend(cfg, stereo, pim, torch.device("cpu"))
+    if torch.cuda.is_available():
+        fe = vision_frontend.StereoFrontend(cfg, stereo, pim, torch.device("cuda"))
+        assert fe.cfg.klt_win == win
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            vision_frontend.StereoFrontend(cfg, stereo, pim, torch.device("cuda"))
+    assert vision_frontend.StereoFrontend(cfg, stereo, pim, torch.device("cpu")).cfg.klt_win == win

@@ -48,6 +48,17 @@ from kimera_vio_tpu_torch.ops.lk_kernel import klt_track_lk
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
 from kimera_vio_tpu_torch.utils.logger import compute_ate
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the test workers share the machine's cores,
+    and these small tensors gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _spec = importlib.util.spec_from_file_location(
     "torch_variants", os.path.join(os.path.dirname(__file__), "test_torch_variants.py"))
 _tv = importlib.util.module_from_spec(_spec)

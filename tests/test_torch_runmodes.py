@@ -115,7 +115,7 @@ def test_stage_packs_frames_and_imu_blocks(moving):
     provider = EurocDataProvider(moving, max_imu_per_frame=32)
     batch = list(provider.frames())[1:6]
     staged = pipe._stage(provider, batch, None)
-    assert staged.aux_offset % 16 == 0 and staged.aux_shape == (5, 32 * 8)
+    assert staged.parts["aux"][0] % 16 == 0 and staged.aux_shape == (5, 32 * 8)
     frames, aux = pipe._materialize(staged)
     assert frames.dtype == torch.uint8 and frames.shape == (5, 2, 240, 320)
     for i, p in enumerate(batch):

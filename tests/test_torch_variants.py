@@ -67,6 +67,17 @@ from kimera_vio_tpu_torch.pipeline.mono_pipeline import MonoImuPipeline, mono_ri
 from kimera_vio_tpu_torch.pipeline.rgbd_pipeline import RgbdImuPipeline
 from kimera_vio_tpu_torch.utils.logger import compute_ate
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the test workers share the machine's cores,
+    and these small tensors gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIZE = dict(width=160, height=120, fx=120.0)
 N_FRAMES = 30
 
