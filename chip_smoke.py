@@ -233,18 +233,22 @@ Phases:
      codec: super-batches, wire MB, stager ms (PNG decode, encode, pack)
      and copy ms per super-batch, the first super-batch's decode ms (CUDA
      events, mean of 5), frames/s beside raw's. (b) The kernel's `lk_wide`
-     mode (the gather rule over 54 px) against the plain version, phase
-     1's gate, at 752x480 win 61, 101 (template in shared memory) and 151
-     (re-blended from global memory), and 1241x376 win 61, keypoints more
-     than win/2 + 2 px inside; per row its graph-replay ms, bound, plain
-     ms, and the route and dynamic shared memory the launcher reported
-     (each row's launches through one lk_wide route, both routes over the
-     rows; ptxas registers and spills at the build); B = 4 streams at win
-     61 in one launch against plain per stream and four single launches
-     bit for bit; a sequential `run()` at phase 2's configuration with
-     klt_win_size 61 (gates: LK launches = tracked frames, every launch
-     with the gather rule at 61 px through the shared route, ATE < 0.05
-     m). One `[wide]` line per row and run.
+     mode (the gather rule over 54 px: `lk_wide_kernel`, one thread-block
+     cluster per keypoint) against the plain version, phase 1's gate, at
+     752x480 win 61, 101, 151 and 401 (the global route) and 1241x376 win
+     61, keypoints more than win/2 + 2 px inside; per row its graph-replay ms, no-step ms, longest
+     chain of steps and us a step on it, bound and plain ms, and the plan
+     the launcher reported (route, cluster size, threads and band rows per
+     block, shared memory, clusters the card holds at once). Gates: every
+     launch of a row through the route of `lk.wide_plan(win, opt-in
+     bytes)`, a cluster of two or more blocks, the report equal to that
+     plan, and the routes over the rows those wide_plan gives (ptxas
+     registers and spills at the build); B = 4 streams at win 61 in one
+     launch against plain per stream and four single launches bit for bit;
+     a sequential `run()` at phase 2's configuration with klt_win_size 61
+     (gates: LK launches = tracked frames, every launch with the gather
+     rule at 61 px through wide_plan's route and plan, ATE < 0.05 m). One
+     `[wide]` line per row and run.
 """
 
 from __future__ import annotations
@@ -1928,13 +1932,14 @@ def timed_lk():
         rec["rules"][(kw["win"], kw["search_rows"])] += 1
         return out
 
-    wrapped.launches, wrapped.routes, wrapped.smem = 0, collections.Counter(), {}
+    wrapped.launches, wrapped.routes, wrapped.report = 0, collections.Counter(), {}
     lk.lk_pyramid_cuda = wrapped
     try:
         yield rec
     finally:
         lk.lk_pyramid_cuda = orig
         rec["launches"], rec["routes"] = wrapped.launches, wrapped.routes
+        rec["report"] = wrapped.report
     torch.cuda.synchronize()
     rec["ms"] = [s.elapsed_time(e) for s, e in rec["events"]]
 
@@ -2493,7 +2498,15 @@ CODECS = ("raw", "delta4", "delta4c", "delta3")
 CODEC_VX = 0.05
 CHUNK = 16
 SUPER_BATCH_BYTES = 32 * 1024 * 1024  # run_chunked's default
-WIDE_WINS = ((61, "752x480"), (101, "752x480"), (151, "752x480"), (61, "1241x376"))
+#: lk_wide's rows: the shared route at 61-151 px; at 401 px (level 0 only:
+#: 480 >= 403) no band fits shared memory, so the global route runs.
+WIDE_WINS = ((61, "752x480"), (101, "752x480"), (151, "752x480"), (61, "1241x376"),
+             (401, "752x480"))
+#: What each phase 10 (b) row prints on its [wide] line.
+WIDE_KEYS = ("label", "win", "launcher_route", "clusters", "threads", "band_rows", "smem_bytes",
+             "active_clusters", "launches_through_route", "tracked", "median_abs_err",
+             "max_abs_err", "ms", "ms_no_steps", "max_chain_steps",
+             "us_per_step_on_longest_chain", "plain_ms", "bound_ms", "bound_by")
 
 
 @contextlib.contextmanager
@@ -2624,27 +2637,54 @@ def wide_inputs(dev, win: int, size: str) -> tuple:
     return prev_pyr, cur_pyr, pts, torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
 
 
+def optin_bytes(dev) -> int:
+    """The card's opt-in shared memory per block, as PyTorch reads it."""
+    return int(torch.cuda.get_device_properties(dev).shared_memory_per_block_optin)
+
+
+def check_wide_report(label: str, win: int, optin: int) -> dict:
+    """The launches since the route counters were cleared: every one through
+    the route of `lk.wide_plan(win, optin)`, a cluster of C >= 2 blocks,
+    and the launcher's last report of it (route, C, threads, band rows,
+    shared memory) equal to that plan. Returns the report."""
+    plan = lk.wide_plan(win, optin)
+    routes = dict(lk.lk_pyramid_cuda.routes)
+    rep = lk.lk_pyramid_cuda.report.get(plan.route)
+    if routes.keys() != {plan.route} or rep is None or rep.get("plan") != plan:
+        raise AssertionError(f"{label}: launches by route {routes}, report {rep}; "
+                             f"wide_plan({win}, {optin}) gives {plan}")
+    if rep["optin"] != optin or plan.clusters < 2 or rep["active_clusters"] < 1:
+        raise AssertionError(f"{label}: report {rep}: expected a cluster route on {optin} B")
+    return rep
+
+
 def wide_phase(dev, path: dict) -> dict:
     """Phase 10 (b): the kernel's wide path (`lk_wide`) against the plain
-    version with the gather rule; B = 4 streams at win 61 in one launch;
-    a sequential run() at phase 2's configuration with klt_win_size 61."""
+    version with the gather rule, each row's launches through the plan
+    `wide_plan` gives; B = 4 streams at win 61 in one launch; a sequential
+    run() at phase 2's configuration with klt_win_size 61."""
     res = {}
+    optin = optin_bytes(dev)
     for win, size in WIDE_WINS:
         label = f"{size} win {win} gather rule"
         lk.lk_pyramid_cuda.routes.clear()
+        lk.lk_pyramid_cuda.report.clear()
         r = compare_lk(*wide_inputs(dev, win, size), label, win=win, search_rows=None)
         if any(lv["mode"] != "xla" for lv in r["levels"]):
             raise AssertionError(f"{label}: the gather rule tracks every level as an XLA level")
-        # The route and shared memory the launcher chose, as it reported them.
-        routes = dict(lk.lk_pyramid_cuda.routes)
-        if len(routes) != 1 or not next(iter(routes)).startswith("lk_wide"):
-            raise AssertionError(f"{label}: launches by route {routes}, expected one lk_wide route")
-        r["launcher_route"] = next(iter(routes))
-        r["smem_bytes"] = lk.lk_pyramid_cuda.smem[r["launcher_route"]]
+        # The plan the launcher took, as it reported it, against wide_plan.
+        rep = check_wide_report(label, win, optin)
+        plan = rep["plan"]
+        r.update(launcher_route=plan.route, smem_bytes=plan.smem, clusters=plan.clusters,
+                 threads=plan.threads, band_rows=plan.band_rows,
+                 active_clusters=rep["active_clusters"], optin_bytes=optin,
+                 launches_through_route=lk.lk_pyramid_cuda.routes[plan.route])
         res[label] = r
-        log(f"[wide] {json.dumps({k: r[k] for k in ('label', 'win', 'launcher_route', 'smem_bytes', 'tracked', 'median_abs_err', 'max_abs_err', 'ms', 'ms_no_steps', 'plain_ms', 'bound_ms', 'bound_by')})}")
-    if {r["launcher_route"] for r in res.values()} != {"lk_wide shared", "lk_wide global"}:
-        raise AssertionError("phase 10 should run both of lk_wide's routes")
+        log(f"[wide] {json.dumps({k: r[k] for k in WIDE_KEYS})}")
+    routes = {r["launcher_route"] for r in res.values()}
+    planned = {lk.wide_plan(win, optin).route for win, _ in WIDE_WINS}
+    if routes != planned:
+        raise AssertionError(f"phase 10 ran the routes {routes}; wide_plan gives {planned}")
     kw = {**LK_KW, "win": 61, "search_rows": None}
     res["fleet"] = compare_fleet_lk(fleet_lk_inputs(dev, 4), 4, "752x480 B=4 win 61", kw)
     log(f"[wide] {json.dumps(res['fleet'])}")
@@ -2655,14 +2695,18 @@ def wide_phase(dev, path: dict) -> dict:
         row, out, pipe = run_variant("klt_win_61", lambda: StereoImuPipeline(
             p, parallel_run=False, device=dev), provider, provider.ground_truth,
             path["frames_per_s"], 0.05)
+    plan = lk.wide_plan(61, optin)
     if (dict(rec["rules"]) != {(61, None): row["lk_launches"]}
-            or dict(rec["routes"]) != {"lk_wide shared": row["lk_launches"]}):
+            or dict(rec["routes"]) != {plan.route: row["lk_launches"]}
+            or rec["report"].get(plan.route, {}).get("plan") != plan or plan.clusters < 2):
         raise AssertionError(f"klt_win_61: launches by (win, search_rows) {dict(rec['rules'])}, "
-                             f"by route {dict(rec['routes'])}")
+                             f"by route {dict(rec['routes'])}, report {rec['report']}; "
+                             f"wide_plan(61, {optin}) gives {plan}")
     if out.n_keyframes < 1:
         raise AssertionError("klt_win_61: no keyframe")
     row["lk_launch_and_kernel_ms_per_frame"] = float(np.mean(rec["ms"]))
     row["lk_launches_by_route"] = dict(rec["routes"])
+    row["lk_plan"] = plan._asdict()
     res["run"] = row
     log(f"[wide] {json.dumps(row)}")
     return res
@@ -2689,6 +2733,8 @@ def main() -> int:
                       line)
         if m:
             kernel = "lk_pyramid_kernel<win {}, search_rows {}, max_win {}>".format(*m.groups())
+        elif re.search(r"Compiling entry function '\S*?lk_wide_kernel", line):
+            kernel = "lk_wide_kernel"
         elif "registers" in line or "spill" in line:
             log(f"[build] {kernel}: {line.strip()}")
             build.setdefault(kernel, []).append(line.strip())
@@ -2790,17 +2836,36 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict) -> int:
         # Phase 10: the lk_wide mode (<0, 0, 0>: the gather rule over 54 px),
         # per shape and window, its launches in the win-61 run, and the
         # launches of the --chunked runs under each staging codec.
-        "wide_gather": {label: {**{k: r[k] for k in (
-            "win", "launcher_route", "smem_bytes", "max_abs_err", "median_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by")}, "library_ms": None}
-            for label, r in wide_res.items() if label not in ("fleet", "run")},
-        "wide_gather_ptxas": build.get("lk_pyramid_kernel<win 0, search_rows 0, max_win 0>"),
+        "wide_gather": {label: {**{k: r[k] for k in WIDE_KEYS if k != "label"},
+                                "library_ms": None}
+                        for label, r in wide_res.items() if label not in ("fleet", "run")},
+        "wide_gather_ptxas": build.get("lk_wide_kernel"),
         "wide_gather_fleet_max_abs_err": wide_res["fleet"]["max_abs_err"],
         "launches_wide_run": wide_res["run"]["lk_launches"],
         "launches_wide_run_by_route": wide_res["run"]["lk_launches_by_route"],
         "launches_codecs": {f"{seq} {codec}": r["lk_launches"]
                             for seq in ("phase3", "slow") for codec, r in codec_res[seq].items()},
     }]
+    # lk_wide_kernel (the gather rule over 54 px, one thread-block cluster
+    # per keypoint): its own path is the 61 px run; its numbers are the
+    # 752x480 61 px row (the other rows are under lk_pyramid's wide_gather).
+    w61 = wide_res["752x480 win 61 gather rule"]
+    kernels.append({
+        "name": "lk_wide",
+        "route": "cuda",
+        "source": "kimera_vio_tpu_torch/csrc/lk_kernel.cu",
+        "replaces": "kimera_vio_tpu/ops/optical_flow.py:92",
+        "launches": wide_res["run"]["lk_launches"],
+        "launch_route": {k: w61[k] for k in ("launcher_route", "clusters", "threads",
+                                             "band_rows", "smem_bytes", "active_clusters")},
+        "max_abs_err": w61["max_abs_err"],
+        "ms": w61["ms"],
+        "plain_ms": w61["plain_ms"],
+        "bound_ms": w61["bound_ms"],
+        "bound_by": w61["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes pyramidal LK
+        "ptxas": build.get("lk_wide_kernel"),
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // Pyramidal forward-additive Lucas-Kanade: one launch tracks one frame of
 // each of B streams, every pyramid level coarse to fine; one multi-warp
-// block per keypoint and stream (grid N x B).
+// block per keypoint and stream (grid N x B), or over 54 px one
+// thread-block cluster (design note 6).
 //
 // Replaces, in one kernel:
 //   * kimera_vio_tpu/ops/pallas/lk_kernel.py:_level_kernel_vmem (:332,
@@ -67,17 +68,37 @@
 //      is B = 1 of the same kernel.
 //   6. Windows wider than 54 px take the gather rule only (every level an
 //      XLA level, as the JAX package's default tracker runs them), in a
-//      fourth instantiation, <0, 0, 0> (`lk_wide`). Per-thread pixel arrays
-//      would grow with the window, so nothing there scales with it: each
-//      thread walks the window in strides of the block, and the blended
-//      template and gradients (3 win^2 floats) live in dynamic shared
-//      memory while they fit in the block's opt-in limit (up to 139 px on
-//      an H100); wider windows blend them again from the level planes in
-//      global memory (L2) on every step. Both routes compute the same
-//      values in the same order; on an H100 the shared one is 1.3x (61 px)
-//      to 2.0x (101 px) faster (scripts/lk_kernel_ab.py). The search window
-//      and the level planes are read from global memory: no staging, no
-//      prefetch. lk_pyramid_launch reports the route it chose.
+//      kernel of their own, `lk_wide_kernel`: one thread-block cluster of C
+//      blocks per keypoint and stream (grid C*N x B, cluster C x 1 x 1).
+//      One block cannot hold such a keypoint: at 101 px its template and
+//      gradients alone take 122 KB, so one block would fill an SM, and its
+//      192 threads would blend 53 pixels each on every step. Block `rank`
+//      of the cluster owns a band of band_rows window rows: it blends its
+//      band's template and gradients into its own shared memory once per
+//      level, and on every step resamples only its band of `cur`. A thread
+//      takes kRun horizontally adjacent pixels of one band row at a time:
+//      it loads their 2 (kRun + 1) edge-clamped `cur` neighbours once and
+//      blends each pixel from registers, in the plain version's term order
+//      (so each pixel's value is unchanged); a run's template and gradients
+//      are one float4 each, read again only by the thread that blended
+//      them. A step's two sums (the setup's three) cross the cluster once:
+//      each warp's lanes 0..C-1 send its butterfly-reduced partial into its
+//      own slot of every block of the cluster (distributed shared memory,
+//      st.async), each store counted on the receiving block's mbarrier;
+//      a block waits only for its own slots to fill, then every thread adds
+//      all C x warps slots in the same order, so every block holds the same
+//      bits and takes the same exit decision. On an H100 that is a quarter
+//      faster than a barrier.cluster a step (scripts/lk_kernel_ab.py). The
+//      slots are double-buffered (`cluster_sum`).
+//      The launch plan (C, threads, band rows, shared memory) is a pure
+//      function of the window and the card's opt-in shared memory
+//      (`plan_wide`; its Python twin is ops/lk_kernel.py:wide_plan): the
+//      fewest waves of a 256-keypoint frame, then the fewest runs a
+//      thread. Where no band fits in shared memory even at C = 8, the
+//      template is blended again from the level planes on every step
+//      (the global route). A cluster the card cannot hold
+//      (cudaOccupancyMaxActiveClusters) or a refused launch returns an
+//      error; there is no other route. lk_pyramid_launch reports the plan.
 // TMA does not fit: level rows (94, 47, 311, 621, 1241 floats...) are not
 // multiples of 16 bytes, and its out-of-bounds fill is zeros, not the edge
 // replication the reference uses. Tensor cores have nothing to do: a step is
@@ -85,8 +106,11 @@
 //
 // Plain C interface, loaded with ctypes; the launch returns cudaGetLastError.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -99,6 +123,21 @@ constexpr int kMaxWinWide = 54; // largest window of the wide one, and of the wi
 constexpr int kThreads = 192;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// lk_wide_kernel (design note 6) and its launch plan, `plan_wide`. The
+// plan's Python twin (ops/lk_kernel.py:wide_plan) reads the same values; a
+// CPU test parses them from this file.
+constexpr int kRun = 4;  // adjacent pixels a thread blends at a time: one float4 per plane
+static_assert(kRun == 4, "lk_wide_kernel keeps a run's pixels of each plane in one float4");
+constexpr int kWideClusters[] = {1, 2, 4, 8};     // the portable cluster sizes
+constexpr int kWideThreads[] = {128, 256, 512};   // threads per block
+constexpr int kWideMaxThreads = 512;
+constexpr int kWideMinBlocks = 2;  // launch bounds: ptxas keeps the kernel within kWideRegs
+constexpr int kWideRegs = 65536 / (kWideMaxThreads * kWideMinBlocks) / 8 * 8;
+constexpr int kWideKeypoints = 256;  // keypoints a frame at the configured max_features
+constexpr int kSms = 132;            // an H100 SXM's SMs
+constexpr int kSmThreads = 2048, kSmBlocks = 32, kSmRegs = 65536;
+constexpr int kBlockSmemReserve = 1024;  // shared memory an SM reserves for each block
 
 enum Mode : int { kSkip = 0, kXla = 1, kVmem = 2, kGather = 3 };
 
@@ -121,6 +160,7 @@ struct Table {
   float eps2, min_eig_thresh;
   int stage_floats;      // floats of the staging buffer
   int tmpl_smem;         // lk_wide: the template and gradients in shared memory
+  int band_rows;         // lk_wide: window rows of each block of a cluster
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -225,44 +265,190 @@ __device__ __forceinline__ int next_active(const Table& tab, int e) {
   return e;
 }
 
-// Bilinear blend at (ya + xa) of an edge-clamped 2x2 neighbourhood, in the
-// plain version's term order.
-__device__ __forceinline__ float blend4(const float* P, int ya, int yb, int xa, int xb,
-                                        float w00, float w01, float w10, float w11) {
-  return w00 * P[ya + xa] + w01 * P[ya + xb] + w10 * P[yb + xa] + w11 * P[yb + xb];
+// The kRun pixels of one window row starting at window column c0, sampled
+// at integer origin (ox, oy) of an (H, W) plane with weights w..: pixel m
+// is the bilinear blend of its edge-clamped 2x2 neighbourhood in the plain
+// version's term order; neighbouring pixels share their loads, and a run
+// inside the plane's columns needs no clamp.
+__device__ __forceinline__ void blend_run(const float* P, int H, int W, int ox, int oy, int row,
+                                          int c0, float w00, float w01, float w10, float w11,
+                                          float (&v)[kRun]) {
+  const float* ra = P + (size_t)clampi(oy + row, 0, H - 1) * W;
+  const float* rb = P + (size_t)clampi(oy + row + 1, 0, H - 1) * W;
+  const int x0 = ox + c0;
+  float a[kRun + 1], b[kRun + 1];
+  if (x0 >= 0 && x0 + kRun < W) {
+#pragma unroll
+    for (int m = 0; m <= kRun; ++m) {
+      a[m] = ra[x0 + m];
+      b[m] = rb[x0 + m];
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m <= kRun; ++m) {
+      const int x = clampi(x0 + m, 0, W - 1);
+      a[m] = ra[x];
+      b[m] = rb[x];
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kRun; ++m) v[m] = w00 * a[m] + w01 * a[m + 1] + w10 * b[m] + w11 * b[m + 1];
+}
+
+// Zero the gradients of a run's pixels from column `left` on (past the
+// window's last column): such a pixel then adds exactly 0 to every sum.
+__device__ __forceinline__ void zero_past(float (&tx)[kRun], float (&ty)[kRun], int left) {
+#pragma unroll
+  for (int m = 0; m < kRun; ++m) {
+    if (m >= left) {
+      tx[m] = 0.f;
+      ty[m] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The address `addr` of this block's shared memory in the block of cluster
+// rank `rank`.
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// The reduction state of one block: two slot buffers of n_slots float4
+// (one per warp of the cluster) with one mbarrier each, used in turns.
+struct ClusterSum {
+  float4* slots;
+  unsigned long long* bars;
+  int n_slots, C, rank;
+  int n = 0;  // reductions so far: buffer n & 1, its phase (n >> 1) & 1
+};
+
+// Sum K values over the cluster. Each warp reduces its lanes with a
+// butterfly (every lane ends with the same bits); lanes 0..C-1 then send
+// the warp's partial into its slot of block `lane` (slot rank * warps +
+// warp) with st.async, which counts its 16 bytes on that block's mbarrier.
+// Thread 0 of each block arms its own mbarrier for n_slots x 16 bytes; every
+// thread waits for that phase and adds the n_slots slots in the same order,
+// so every block of the cluster holds the same bits and takes the same
+// exit decision. No cluster-wide barrier: a block waits only for the data
+// it reads. Two buffers are enough: a block sends into buffer n & 1 again
+// (reduction n + 2) only after it has received every warp's reduction
+// n + 1, which each warp sends after its reads of reduction n.
+template <int K>
+__device__ __forceinline__ void cluster_sum(float (&v)[K], ClusterSum& cs) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) v[i] += __shfl_xor_sync(kFull, v[i], o);
+  }
+  const int p = cs.n & 1;
+  const unsigned phase = (cs.n >> 1) & 1;
+  float4* buf = cs.slots + p * cs.n_slots;
+  const unsigned bar = smem_addr(cs.bars + p);
+  if (threadIdx.x == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(cs.n_slots * 16)
+                 : "memory");
+  const int lane = threadIdx.x & 31;
+  if (lane < cs.C) {
+    float y = 0.f, z = 0.f;
+    if constexpr (K > 1) y = v[1];
+    if constexpr (K > 2) z = v[2];
+    const unsigned dst =
+        cluster_addr(smem_addr(buf + cs.rank * (blockDim.x >> 5) + (threadIdx.x >> 5)), lane);
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+        "[%5];\n" ::"r"(dst),
+        "f"(v[0]), "f"(y), "f"(z), "f"(0.f), "r"(cluster_addr(bar, lane))
+        : "memory");
+  }
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred P;\n mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+  }
+  float4 s = buf[0];
+  for (int j = 1; j < cs.n_slots; ++j) {
+    const float4 t = buf[j];
+    s.x += t.x;
+    s.y += t.y;
+    s.z += t.z;
+  }
+  v[0] = s.x;
+  if constexpr (K > 1) v[1] = s.y;
+  if constexpr (K > 2) v[2] = s.z;
+  ++cs.n;
 }
 
 // The gather rule at windows wider than kMaxWinWide (design note 6): one
-// keypoint of one stream per block, every level an XLA level or skipped.
-// Thread t owns window pixels p = t, t + kThreads, ...; (r, c) walks them
-// without a division.
-__device__ __forceinline__ void lk_wide(const Table& tab, const float* __restrict__ prev_pts,
-                                        const float* __restrict__ init_pts,
-                                        const uint8_t* __restrict__ valid,
-                                        float* __restrict__ out_pts,
-                                        uint8_t* __restrict__ out_ok,
-                                        int32_t* __restrict__ out_iters) {
+// cluster per keypoint of one stream, every level an XLA level or skipped.
+// Block `rank` owns window rows rank * band_rows onward; its runs (kRun
+// adjacent pixels of one band row) are numbered row-major, and thread t
+// takes runs t, t + blockDim.x, ...; (r, j) walks them without a division.
+// Every store into a block's shared memory from the cluster is one that
+// block's own waits count (the blocks take the same decisions, so they
+// make the same reductions), so no block exits while another can still
+// write into its shared memory.
+__global__ void __launch_bounds__(kWideMaxThreads, kWideMinBlocks)
+lk_wide_kernel(const __grid_constant__ Table tab, const float* __restrict__ prev_pts,
+               const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
+               float* __restrict__ out_pts, uint8_t* __restrict__ out_ok,
+               int32_t* __restrict__ out_iters) {
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const bool lead = rank == 0 && tid == 0;  // writes the keypoint's outputs
+  const int n_slots = C * (T >> 5);
   const int win = tab.win;
   const int npx = win * win;
   const float half = (win - 1) * 0.5f;
   const int pad = win / 2 + 2;
   const bool in_smem = tab.tmpl_smem != 0;
+  const int nrun = (win + kRun - 1) / kRun;  // runs a row
+  const int row0 = rank * tab.band_rows;
+  const int n_items = min(tab.band_rows, win - row0) * nrun;  // this block's runs
+  const int S = tab.band_rows * nrun;  // runs of a template plane
 
   extern __shared__ __align__(16) float smem[];
-  float4* s_part = reinterpret_cast<float4*>(smem);  // 2 x kWarps
-  float* s_t = smem + 8 * kWarps;                    // tmpl, gx, gy: 3 x npx
+  ClusterSum cs;
+  cs.bars = reinterpret_cast<unsigned long long*>(smem);  // 2 mbarriers
+  cs.slots = reinterpret_cast<float4*>(smem) + 1;         // 2 x n_slots
+  cs.n_slots = n_slots;
+  cs.C = C;
+  cs.rank = rank;
+  // tmpl, gx, gy: 3 planes of S runs, one float4 per run (its kRun pixels;
+  // pixels past the window's last column hold 0, so they add nothing).
+  float4* s_t = cs.slots + 2 * n_slots;
 
-  const int k = blockIdx.y * gridDim.x + blockIdx.x;
+  const int k = blockIdx.y * (gridDim.x / C) + blockIdx.x / C;
   const size_t b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int r0 = tid / win, c0 = tid - r0 * win;
-  const int dr = kThreads / win, dc = kThreads - dr * win;
+  const int r0 = tid / nrun, j0 = tid - r0 * nrun;
+  const int dr = T / nrun, dj = T - dr * nrun;
 
   float px = prev_pts[2 * k], py = prev_pts[2 * k + 1];
   float cx = init_pts[2 * k], cy = init_pts[2 * k + 1];
   const bool vk = valid[k] != 0;
   bool ok = vk;
-  int parity = 0;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(cs.bars + i))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Every block of the cluster runs, its mbarriers armed, before any block
+  // sends into it.
+  cluster.sync();
 
   for (int e = 0; e < tab.n; ++e) {
     const Level& L = tab.lv[e];
@@ -272,7 +458,7 @@ __device__ __forceinline__ void lk_wide(const Table& tab, const float* __restric
     cx = cx * L.scale;
     cy = cy * L.scale;
     if (L.mode == kSkip) {
-      if (tid == 0) out_iters[(size_t)k * tab.n + lvl] = 0;
+      if (lead) out_iters[(size_t)k * tab.n + lvl] = 0;
       continue;
     }
     const int H = L.H, W = L.W;
@@ -291,29 +477,37 @@ __device__ __forceinline__ void lk_wide(const Table& tab, const float* __restric
     const float v10 = (1.f - ftx) * fty, v11 = ftx * fty;
     float g[3] = {0.f, 0.f, 0.f};
     {
-      int r = r0, c = c0;
-      for (int p = tid; p < npx; p += kThreads) {
-        const int ya = clampi(t_oy + r, 0, H - 1) * W, yb = clampi(t_oy + r + 1, 0, H - 1) * W;
-        const int xa = clampi(t_ox + c, 0, W - 1), xb = clampi(t_ox + c + 1, 0, W - 1);
-        const float tx = blend4(gxp, ya, yb, xa, xb, v00, v01, v10, v11);
-        const float ty = blend4(gyp, ya, yb, xa, xb, v00, v01, v10, v11);
+      int r = r0, j = j0;
+      for (int i = tid; i < n_items; i += T) {
+        const int c0 = j * kRun;
+        float tx[kRun], ty[kRun];
+        blend_run(gxp, H, W, t_ox, t_oy, row0 + r, c0, v00, v01, v10, v11, tx);
+        blend_run(gyp, H, W, t_ox, t_oy, row0 + r, c0, v00, v01, v10, v11, ty);
+        zero_past(tx, ty, win - c0);
         if (in_smem) {
-          s_t[p] = blend4(prev, ya, yb, xa, xb, v00, v01, v10, v11);
-          s_t[npx + p] = tx;
-          s_t[2 * npx + p] = ty;
+          float t[kRun];
+          blend_run(prev, H, W, t_ox, t_oy, row0 + r, c0, v00, v01, v10, v11, t);
+          s_t[i] = make_float4(t[0], t[1], t[2], t[3]);
+          s_t[S + i] = make_float4(tx[0], tx[1], tx[2], tx[3]);
+          s_t[2 * S + i] = make_float4(ty[0], ty[1], ty[2], ty[3]);
         }
-        g[0] += tx * tx;
-        g[1] += tx * ty;
-        g[2] += ty * ty;
+#pragma unroll
+        for (int m = 0; m < kRun; ++m) {
+          g[0] += tx[m] * tx[m];
+          g[1] += tx[m] * ty[m];
+          g[2] += ty[m] * ty[m];
+        }
         r += dr;
-        c += dc;
-        if (c >= win) {
-          c -= win;
+        j += dj;
+        if (j >= nrun) {
+          j -= nrun;
           ++r;
         }
       }
     }
-    block_sum<3>(g, s_part, parity);  // its barrier also publishes s_t
+    // The steps read only the runs each thread wrote itself: s_t needs no
+    // barrier, within a level or between levels.
+    cluster_sum<3>(g, cs);
     const float sxx = g[0], sxy = g[1], syy = g[2];
     const float det = sxx * syy - sxy * sxy;
     const float half_tr = 0.5f * (sxx + syy);
@@ -333,34 +527,36 @@ __device__ __forceinline__ void lk_wide(const Table& tab, const float* __restric
       const float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
       const float w10 = (1.f - fx) * fy, w11 = fx * fy;
       float bs[2] = {0.f, 0.f};
-      int r = r0, c = c0;
-      for (int p = tid; p < npx; p += kThreads) {
-        const int ya = clampi(yi + r, 0, H - 1) * W, yb = clampi(yi + r + 1, 0, H - 1) * W;
-        const int xa = clampi(xi + c, 0, W - 1), xb = clampi(xi + c + 1, 0, W - 1);
-        const float v = blend4(cur, ya, yb, xa, xb, w00, w01, w10, w11);
-        float t, tx, ty;
+      int r = r0, j = j0;
+      for (int i = tid; i < n_items; i += T) {
+        const int c0 = j * kRun;
+        float v[kRun], t[kRun], tx[kRun], ty[kRun];
+        blend_run(cur, H, W, xi, yi, row0 + r, c0, w00, w01, w10, w11, v);
         if (in_smem) {
-          t = s_t[p];
-          tx = s_t[npx + p];
-          ty = s_t[2 * npx + p];
+          const float4 t4 = s_t[i], x4 = s_t[S + i], y4 = s_t[2 * S + i];
+          t[0] = t4.x, t[1] = t4.y, t[2] = t4.z, t[3] = t4.w;
+          tx[0] = x4.x, tx[1] = x4.y, tx[2] = x4.z, tx[3] = x4.w;
+          ty[0] = y4.x, ty[1] = y4.y, ty[2] = y4.z, ty[3] = y4.w;
         } else {
-          const int ta = clampi(t_oy + r, 0, H - 1) * W, tb = clampi(t_oy + r + 1, 0, H - 1) * W;
-          const int sa = clampi(t_ox + c, 0, W - 1), sb = clampi(t_ox + c + 1, 0, W - 1);
-          t = blend4(prev, ta, tb, sa, sb, v00, v01, v10, v11);
-          tx = blend4(gxp, ta, tb, sa, sb, v00, v01, v10, v11);
-          ty = blend4(gyp, ta, tb, sa, sb, v00, v01, v10, v11);
+          blend_run(prev, H, W, t_ox, t_oy, row0 + r, c0, v00, v01, v10, v11, t);
+          blend_run(gxp, H, W, t_ox, t_oy, row0 + r, c0, v00, v01, v10, v11, tx);
+          blend_run(gyp, H, W, t_ox, t_oy, row0 + r, c0, v00, v01, v10, v11, ty);
+          zero_past(tx, ty, win - c0);
         }
-        const float dI = v - t;
-        bs[0] += dI * tx;
-        bs[1] += dI * ty;
+#pragma unroll
+        for (int m = 0; m < kRun; ++m) {
+          const float dI = v[m] - t[m];
+          bs[0] += dI * tx[m];
+          bs[1] += dI * ty[m];
+        }
         r += dr;
-        c += dc;
-        if (c >= win) {
-          c -= win;
+        j += dj;
+        if (j >= nrun) {
+          j -= nrun;
           ++r;
         }
       }
-      block_sum<2>(bs, s_part, parity);
+      cluster_sum<2>(bs, cs);
       const float dx = -(inv00 * bs[0] + inv01 * bs[1]);
       const float dy = -(inv01 * bs[0] + inv11 * bs[1]);
       cx = cx + dx;
@@ -369,11 +565,10 @@ __device__ __forceinline__ void lk_wide(const Table& tab, const float* __restric
       if (dx * dx + dy * dy < tab.eps2) break;
     }
     if (L.keep_ok) ok = ok && good;
-    if (tid == 0) out_iters[(size_t)k * tab.n + lvl] = it;
-    __syncthreads();  // every read of this level's s_t precedes the next level's writes
+    if (lead) out_iters[(size_t)k * tab.n + lvl] = it;
   }
 
-  if (tid == 0) {
+  if (lead) {
     const float half0 = win * 0.5f;
     const bool in_img = cx >= half0 && cx < (float)tab.W0 - half0 && cy >= half0 &&
                         cy < (float)tab.H0 - half0;
@@ -624,20 +819,30 @@ lk_pyramid_kernel(const __grid_constant__ Table tab, const float* __restrict__ p
                   const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
                   float* __restrict__ out_pts, uint8_t* __restrict__ out_ok,
                   int32_t* __restrict__ out_iters) {
-  if constexpr (MAXWIN == 0)
-    lk_wide(tab, prev_pts, init_pts, valid, out_pts, out_ok, out_iters);
-  else
-    lk_tiles<WIN, SR, MAXWIN>(tab, prev_pts, init_pts, valid, out_pts, out_ok, out_iters);
+  lk_tiles<WIN, SR, MAXWIN>(tab, prev_pts, init_pts, valid, out_pts, out_ok, out_iters);
 }
 
-// What a launch ran: which instantiation (and lk_wide's route), and the
-// dynamic shared memory it asked for. lk_pyramid_launch writes both.
+// What a launch ran: which instantiation or, for lk_wide, where its
+// template lives (the cluster shape is in the rest of the report).
 enum Route { kRoute24 = 0, kRouteNarrow, kRouteWide54, kRouteWideShared, kRouteWideGlobal };
+
+// The launch report, out_route[kReportInts]: the route, the dynamic shared
+// memory per block in bytes, the cluster size, the threads per block, the
+// window rows per block, the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0 where not queried) and the opt-in
+// shared memory per block the plan read.
+constexpr int kReportInts = 7;
+
+void report(int* out, int route, int smem, int clusters, int threads, int band_rows, int active,
+            int optin) {
+  const int r[kReportInts] = {route, smem, clusters, threads, band_rows, active, optin};
+  for (int i = 0; i < kReportInts; ++i) out[i] = r[i];
+}
 
 template <int WIN, int SR, int MAXWIN>
 int launch(const Table& tab, size_t smem, int N, int B, const void* prev_pts,
            const void* init_pts, const void* valid, void* out_pts, void* out_ok, void* out_iters,
-           cudaStream_t stream, Route route, int* out_route) {
+           cudaStream_t stream, Route route, int optin, int* out_route) {
   auto kernel = lk_pyramid_kernel<WIN, SR, MAXWIN>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
@@ -648,10 +853,98 @@ int launch(const Table& tab, size_t smem, int N, int B, const void* prev_pts,
       tab, (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid,
       (float*)out_pts, (uint8_t*)out_ok, (int32_t*)out_iters);
   const cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess) {
-    out_route[0] = route;
-    out_route[1] = (int)smem;
+  if (e == cudaSuccess) report(out_route, route, (int)smem, 1, kThreads, tab.win, 0, optin);
+  return (int)e;
+}
+
+struct WidePlan {
+  int route;  // kRouteWideShared or kRouteWideGlobal; -1: no plan
+  int clusters, threads, band_rows, smem;
+};
+
+long lmin(long a, long b) { return a < b ? a : b; }
+
+// lk_wide_kernel's launch plan (design note 6), a pure function of the
+// window and the opt-in shared memory per block; ops/lk_kernel.py:wide_plan
+// is its twin. A candidate is a cluster size C and a block size T: each
+// block holds ceil(win / C) window rows, its two mbarriers (16 bytes) and
+// 2 x C x warps reduction slots, and on the shared route its band's
+// template and gradients (3 x kRun floats per run). An SM holds the blocks that its threads, its
+// registers (at kWideRegs a thread), its 32 block slots and its shared
+// memory (the opt-in bytes and one reserve) allow; the card holds kSms
+// times that over C keypoints at once. The shared route wins wherever a
+// candidate fits it. Then the fewest waves of a kWideKeypoints frame (as
+// many keypoints resident at once as the card holds), then the fewest runs
+// per thread, then the larger cluster (smaller blocks).
+WidePlan plan_wide(int win, int optin) {
+  const long nrun = (win + kRun - 1) / kRun;
+  WidePlan best = {-1, 0, 0, 0, 0};
+  long best_waves = 0, best_items = 0;
+  for (int shared = 1; shared >= 0 && best.route < 0; --shared) {
+    for (const int C : kWideClusters) {
+      const long R = (win + C - 1) / C;
+      for (const int T : kWideThreads) {
+        const long smem = 16L * (1 + 2 * C * (T / 32)) + (shared ? 4L * 3 * kRun * R * nrun : 0);
+        if (smem > optin) continue;
+        long blocks = lmin(lmin(kSmBlocks, kSmThreads / T), kSmRegs / ((long)T * kWideRegs));
+        blocks = lmin(blocks, (optin + kBlockSmemReserve) / (smem + kBlockSmemReserve));
+        const long resident = kSms * blocks / C;
+        if (resident < 1) continue;
+        const long waves = (kWideKeypoints + resident - 1) / resident;
+        const long items = (R * nrun + T - 1) / T;
+        if (best.route < 0 || waves < best_waves ||
+            (waves == best_waves && (items < best_items ||
+                                     (items == best_items && C > best.clusters)))) {
+          best = {shared ? kRouteWideShared : kRouteWideGlobal, C, T, (int)R, (int)smem};
+          best_waves = waves;
+          best_items = items;
+        }
+      }
+    }
   }
+  return best;
+}
+
+// Launch lk_wide_kernel on plan_wide's plan: one cluster per keypoint and
+// stream, through cudaLaunchKernelEx with a cluster dimension (a CUDA graph
+// captures it like any launch). A cluster the card cannot hold at all
+// (cudaOccupancyMaxActiveClusters < 1) is an error.
+int launch_wide(Table& tab, int optin, int N, int B, const void* prev_pts, const void* init_pts,
+                const void* valid, void* out_pts, void* out_ok, void* out_iters,
+                cudaStream_t stream, int* out_route) {
+  const WidePlan p = plan_wide(tab.win, optin);
+  if (p.route < 0) return (int)cudaErrorInvalidConfiguration;
+  tab.tmpl_smem = p.route == kRouteWideShared;
+  tab.band_rows = p.band_rows;
+  cudaError_t e = cudaSuccess;
+  if (p.smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(lk_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.clusters * N, B);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, lk_wide_kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (active < 1) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, lk_wide_kernel, (const Table)tab, (const float*)prev_pts,
+                         (const float*)init_pts, (const uint8_t*)valid, (float*)out_pts,
+                         (uint8_t*)out_ok, (int32_t*)out_iters);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  // The route as the kernel reads it (tab.tmpl_smem), not as planned.
+  if (e == cudaSuccess)
+    report(out_route, tab.tmpl_smem ? kRouteWideShared : kRouteWideGlobal, p.smem, p.clusters,
+           p.threads, p.band_rows, active, optin);
   return (int)e;
 }
 
@@ -664,8 +957,8 @@ int launch(const Table& tab, size_t smem, int N, int B, const void* prev_pts,
 // 2) float32, ok (B, N) uint8, iters (B, N, n_levels) int32 indexed by level
 // number. search_rows is read only when a level takes the
 // window rule (modes kVmem and kGather); the gather rule passes 0. Windows
-// over kMaxWinWide take the gather rule only (lk_wide). out_route (2 ints)
-// receives the launch's Route and its dynamic shared memory in bytes.
+// over kMaxWinWide take the gather rule only (lk_wide_kernel). out_route
+// (kReportInts ints) receives the launch report (see `report`).
 extern "C" int lk_pyramid_launch(const void* const* planes, const long long* strides,
                                  const int* ints, const float* scales, int n_levels, int H0,
                                  int W0, const void* prev_pts, const void* init_pts,
@@ -710,15 +1003,9 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const long long* str
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (win > kMaxWinWide) {
-    // lk_wide: the warps' partials, and the template and gradients if they fit.
-    const size_t part = sizeof(float) * 8 * (size_t)kWarps;
-    const size_t tmpl = sizeof(float) * 3 * (size_t)win * win;
-    tab.tmpl_smem = part + tmpl <= (size_t)optin;
-    return launch<0, 0, 0>(tab, part + (tab.tmpl_smem ? tmpl : 0), N, n_streams, prev_pts,
-                           init_pts, valid, out_pts, out_ok, out_iters, s,
-                           tab.tmpl_smem ? kRouteWideShared : kRouteWideGlobal, out_route);
-  }
+  if (win > kMaxWinWide)
+    return launch_wide(tab, optin, N, n_streams, prev_pts, init_pts, valid, out_pts, out_ok,
+                       out_iters, s, out_route);
   // Shared memory: the warps' partials, the staging buffer, two tile buffers.
   const size_t fixed =
       sizeof(float) * (8 * (size_t)kWarps + 2 * 3 * (size_t)(win + 1) * (win + 1));
@@ -734,12 +1021,13 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const long long* str
   const size_t smem = fixed + sizeof(float) * stage;
   if (win == 24 && search_rows == 56)
     return launch<24, 56, 24>(tab, smem, N, n_streams, prev_pts, init_pts, valid, out_pts,
-                              out_ok, out_iters, s, kRoute24, out_route);
+                              out_ok, out_iters, s, kRoute24, optin, out_route);
   if (win <= kMaxWin)
     return launch<0, 0, kMaxWin>(tab, smem, N, n_streams, prev_pts, init_pts, valid, out_pts,
-                                 out_ok, out_iters, s, kRouteNarrow, out_route);
+                                 out_ok, out_iters, s, kRouteNarrow, optin, out_route);
   return launch<0, 0, kMaxWinWide>(tab, smem, N, n_streams, prev_pts, init_pts, valid,
-                                   out_pts, out_ok, out_iters, s, kRouteWide54, out_route);
+                                   out_pts, out_ok, out_iters, s, kRouteWide54, optin,
+                                   out_route);
 }
 
 extern "C" const char* lk_error_string(int code) {

@@ -106,13 +106,81 @@ def level_mode(H: int, W: int, win: int, search_rows: int | None):
 
 _MODE_CODES = {"skip": 0, "xla": 1, "vmem": 2, "gather": 3}  # csrc/lk_kernel.cu: Mode
 _MAX_LEVELS = 8  # csrc/lk_kernel.cu: kMaxLevels
-# csrc/lk_kernel.cu: Route, what a launch ran (instantiation, lk_wide's route).
+# csrc/lk_kernel.cu: Route, what a launch ran (the instantiation or, for
+# lk_wide, where its template lives).
 ROUTES = ("<24, 56, 24>", "<0, 0, 32>", "<0, 0, 54>", "lk_wide shared", "lk_wide global")
+_REPORT_INTS = 7  # csrc/lk_kernel.cu: kReportInts
 # csrc/lk_kernel.cu: kMaxWinWide. The widest window of the window rule, as
 # of the Pallas tracker: its search-window clip search_rows - win - 2
 # (pallas/lk_kernel.py:177-181) must stay >= 0 at its fixed 56 rows. Wider
 # windows take the gather rule (search_rows=None), at any width.
 MAX_WIN = 54
+
+
+# csrc/lk_kernel.cu: the constants of lk_wide_kernel's launch plan
+# (tests/test_torch_wide_plan.py parses them from the source).
+_RUN = 4                         # kRun: adjacent pixels a thread blends at a time
+_WIDE_CLUSTERS = (1, 2, 4, 8)    # kWideClusters
+_WIDE_THREADS = (128, 256, 512)  # kWideThreads
+_WIDE_MAX_THREADS = 512          # kWideMaxThreads
+_WIDE_MIN_BLOCKS = 2             # kWideMinBlocks
+_WIDE_REGS = 65536 // (_WIDE_MAX_THREADS * _WIDE_MIN_BLOCKS) // 8 * 8  # kWideRegs
+_WIDE_KEYPOINTS = 256            # kWideKeypoints
+_SMS = 132                       # kSms
+_SM_THREADS, _SM_BLOCKS, _SM_REGS = 2048, 32, 65536
+_BLOCK_SMEM_RESERVE = 1024       # kBlockSmemReserve
+
+
+class WidePlan(NamedTuple):
+    """How `lk_wide_kernel` (windows over 54 px) is launched: `route` (a
+    name of ROUTES: the template in shared memory or re-blended from the
+    level planes), `clusters` blocks per keypoint, `threads` per block,
+    `band_rows` window rows per block (block r holds rows r * band_rows
+    onward) and `smem` dynamic shared memory per block in bytes."""
+
+    route: str
+    clusters: int
+    threads: int
+    band_rows: int
+    smem: int
+
+
+def wide_plan(win: int, optin_bytes: int) -> WidePlan | None:
+    """The launch plan of `lk_wide_kernel`, the twin of csrc/lk_kernel.cu's
+    `plan_wide` (the launcher reports the plan it took; chip_smoke.py holds
+    the report to this). Candidates are a cluster size C and a block size T:
+    a block holds ceil(win / C) window rows, two mbarriers (16 bytes) and
+    2 x C x warps reduction slots (16 bytes each), and on the shared route
+    its band's template and gradients (3 x _RUN floats per run of _RUN
+    pixels). An SM holds the blocks its threads, registers, block slots and
+    shared memory allow; the card holds _SMS times that over C keypoints at
+    once. The shared route wins wherever a candidate fits it; then the
+    fewest waves of a _WIDE_KEYPOINTS frame, then the fewest runs per
+    thread, then the larger cluster. None if no candidate fits."""
+    nrun = -(-win // _RUN)
+    for shared in (True, False):
+        best, best_key = None, None
+        for C in _WIDE_CLUSTERS:
+            R = -(-win // C)
+            for T in _WIDE_THREADS:
+                smem = 16 * (1 + 2 * C * (T // 32)) + (4 * 3 * _RUN * R * nrun if shared else 0)
+                if smem > optin_bytes:
+                    continue
+                blocks = min(_SM_BLOCKS, _SM_THREADS // T, _SM_REGS // (T * _WIDE_REGS),
+                             (optin_bytes + _BLOCK_SMEM_RESERVE) // (smem + _BLOCK_SMEM_RESERVE))
+                resident = _SMS * blocks // C
+                if resident < 1:
+                    continue
+                waves = -(-_WIDE_KEYPOINTS // resident)
+                runs_per_thread = -(-(R * nrun) // T)
+                key = (-waves, -runs_per_thread, C)
+                if best_key is None or key > best_key:
+                    best_key = key
+                    best = WidePlan("lk_wide shared" if shared else "lk_wide global",
+                                    C, T, R, smem)
+        if best is not None:
+            return best
+    return None
 
 
 class LevelPlan(NamedTuple):
@@ -421,7 +489,8 @@ def lk_pyramid_cuda(
     computes (the window sums in another order), with the window rule of
     `klt_track_pallas` at `search_rows` (windows of 2-54 px), or with
     `search_rows=None` the gather rule (every level an XLA level; any
-    window of 2 px or more, above 54 px in the kernel's `lk_wide` path).
+    window of 2 px or more, above 54 px in the kernel's `lk_wide` path: one
+    thread-block cluster per keypoint, launched as `wide_plan` gives).
 
     Levels (B, H, W) with keypoints (B, N, 2) and `valid` (B, N) track B
     streams; (H, W) levels with (N, 2) keypoints are one stream (B = 1
@@ -430,8 +499,12 @@ def lk_pyramid_cuda(
     level number), with the inputs' leading axes. Adds one to
     `lk_pyramid_cuda.launches` per launch, whatever B, and to
     `lk_pyramid_cuda.routes[route]` for the route the launcher chose (a
-    name of ROUTES); `lk_pyramid_cuda.smem[route]` holds the dynamic
-    shared memory in bytes that route's last launch asked for."""
+    name of ROUTES); `lk_pyramid_cuda.report[route]` holds that route's
+    last launch report: the dynamic shared memory per block in bytes it
+    asked for (`smem`) and, on the lk_wide routes, its `plan` (a
+    WidePlan), the clusters the card holds at once (`active_clusters`) and
+    the opt-in shared memory the launcher read (`optin`). A library that
+    reports only the route and shared memory gives `smem` alone."""
     n = len(prev_pyr)
     if n == 0 or len(cur_pyr) != n or len(prev_grads) != n:
         raise ValueError("need one prev, cur and gradient pair per level")
@@ -494,7 +567,7 @@ def lk_pyramid_cuda(
         return out_pts, out_ok, out_iters
     lib = _lib()
     H0, W0 = prev_pyr[0].shape[-2:]
-    route = (ctypes.c_int * 2)()
+    route = (ctypes.c_int * _REPORT_INTS)(*([-1] * _REPORT_INTS))
     with torch.cuda.device(dev):
         rc = lib.lk_pyramid_launch(
             planes, strides, ints, scales, n, H0, W0,
@@ -508,13 +581,17 @@ def lk_pyramid_cuda(
     lk_pyramid_cuda.launches += 1
     name = ROUTES[route[0]]
     lk_pyramid_cuda.routes[name] += 1
-    lk_pyramid_cuda.smem[name] = route[1]
+    rep = {"smem": route[1]}
+    if name.startswith("lk_wide") and route[2] >= 0:
+        rep.update(plan=WidePlan(name, route[2], route[3], route[4], route[1]),
+                   active_clusters=route[5], optin=route[6])
+    lk_pyramid_cuda.report[name] = rep
     return out_pts, out_ok, out_iters
 
 
 lk_pyramid_cuda.launches = 0
 lk_pyramid_cuda.routes = collections.Counter()
-lk_pyramid_cuda.smem = {}
+lk_pyramid_cuda.report = {}
 
 
 # ---------------------------------------------------------------------------

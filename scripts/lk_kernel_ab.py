@@ -17,8 +17,15 @@ search window); other cases take chip_smoke.wide_inputs (keypoints more than
 win / 2 + 2 px inside). Each time is the device time of a CUDA-graph replay
 of one launch (chip_smoke.graph_ms). The outputs must be identical, or with
 `--tol` the same `ok` and positions within TOL px. Prints the card's name
-and power limit, then one JSON line per case with the route each library's
-launcher chose. Needs a card; exits 2 without one.
+and power limit, then one JSON line per case with the route and shared
+memory each library's launcher chose, each side's time with no Gauss-Newton
+step and its µs a step on the longest chain and, where its launcher reports them
+(`lk_pyramid_cuda.report`), the cluster size, threads and band rows of the
+plan and the clusters the card holds at once. Needs a card; exits 2
+without one.
+
+A sweep over lk_wide's cluster size: `--replace` the plan's candidates,
+e.g. "kWideClusters[] = {1, 2, 4, 8}" by "kWideClusters[] = {4}".
 """
 
 from __future__ import annotations
@@ -95,6 +102,44 @@ def compare(outs: dict, tol: float) -> dict:
     return {"outputs_identical": identical, "max_abs_diff": max_d, "tracked": int(oka.sum())}
 
 
+def profiled_ms(fn, reps: int = 20) -> float:
+    """Mean device time of the LK kernel over `reps` CUDA-graph replays of
+    fn(), from a torch.profiler trace (the kernel alone, without the gaps
+    between replays)."""
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    times = [e.device_time_total / e.count for e in prof.key_averages()
+             if "lk_" in e.key and e.count and e.device_time_total > 0]
+    if not times:
+        raise RuntimeError("the profiler trace holds no LK kernel with device time")
+    return max(times) / 1e3
+
+
+def route_report(route: str) -> dict:
+    """The last launch's shared memory on `route` and, where the library
+    reports it, its plan and the clusters the card holds at once."""
+    rep = lk.lk_pyramid_cuda.report[route]
+    res = {"smem_bytes": rep["smem"]}
+    if "plan" in rep:
+        plan = rep["plan"]
+        res.update(clusters=plan.clusters, threads=plan.threads, band_rows=plan.band_rows,
+                   active_clusters=rep["active_clusters"])
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     src = ap.add_mutually_exclusive_group(required=True)
@@ -106,6 +151,9 @@ def main() -> int:
     ap.add_argument("--tol", type=float, default=0.0,
                     help="largest |d| in px between the outputs (default 0: identical)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--profile", action="store_true",
+                    help="also each side's mean device time of the kernel in a torch.profiler "
+                         "trace of 20 graph replays")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("lk_kernel_ab: needs a CUDA card", file=sys.stderr)
@@ -124,16 +172,17 @@ def main() -> int:
         call = (prev_pyr, cur_pyr, grads, uv, uv, valid)
         kw = {**chip_smoke.LK_KW, "win": win, "search_rows": sr}
 
-        def run(name):
+        def run(name, **over):
             lk._lib = lambda: libs[name]  # the wrapper's library, swapped
-            return lk.lk_pyramid_cuda(*call, **kw)
+            return lk.lk_pyramid_cuda(*call, **{**kw, **over})
 
         routes = {}
         outs = {}
         for name in libs:
             lk.lk_pyramid_cuda.routes.clear()
+            lk.lk_pyramid_cuda.report.clear()
             outs[name] = run(name)
-            routes[name] = {r: lk.lk_pyramid_cuda.smem[r] for r in lk.lk_pyramid_cuda.routes}
+            routes[name] = {r: route_report(r) for r in lk.lk_pyramid_cuda.routes}
         torch.cuda.synchronize()
         res = {"card": smi, "shape": f"{size} win {win} search_rows {sr}",
                "routes_and_smem_bytes": routes, **compare(outs, args.tol)}
@@ -143,6 +192,17 @@ def main() -> int:
                 times[name].append(chip_smoke.graph_ms(lambda n=name: run(n)))
         res.update(ms=times, mean_ms={k: sum(v) / len(v) for k, v in times.items()})
         res["this_over_other"] = res["mean_ms"]["this"] / res["mean_ms"]["other"]
+        # Each side's launch with no Gauss-Newton step (setup on every level)
+        # and its cost a step on the longest chain of steps.
+        for name in libs:
+            no_step = chip_smoke.graph_ms(lambda n=name: run(n, max_iter=0))
+            chain = int(outs[name][2].sum(dim=-1).max())
+            res.setdefault("no_step_ms", {})[name] = no_step
+            res.setdefault("max_chain_steps", {})[name] = chain
+            res.setdefault("us_per_step", {})[name] = (
+                1e3 * (res["mean_ms"][name] - no_step) / max(chain, 1))
+        if args.profile:
+            res["profiled_kernel_ms"] = {name: profiled_ms(lambda n=name: run(n)) for name in libs}
         print(json.dumps(res), flush=True)
     return 0
 
