@@ -13,9 +13,9 @@ RGB-D, online initialization, pose sources, time alignment), the
 mesher with RegularVIO, the options it used to refuse, the KITTI and
 live providers, the debug overlays, the visualizer and the playground,
 a fleet of eight streams through one batched frame step, the staging
-codecs of the CLI's --chunked mode and LK windows wider than 54 px, and
-checks the results. Every failure ends the run
-with a non-zero exit code and no result line. Printed, in order: the
+codecs of the CLI's --chunked mode, LK windows wider than 54 px and the
+fleet over a (data, model) mesh of devices, and checks the results.
+Every failure ends the run with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
 path, the phases' lines, one JSON line with the kernel table, and last
 the JSON result line.
@@ -249,6 +249,35 @@ Phases:
      (gates: LK launches = tracked frames, every launch with the gather
      rule at 61 px through wide_plan's route and plan, ATE < 0.05 m). One
      `[wide]` line per row and run.
+ 11. mesh: `FleetVio` over a (data, model) mesh, the counterpart of the
+     JAX package's __graft_entry__.dryrun_multichip. Phase 9's first
+     four streams and configuration (752x480, 256 features, 10-keyframe
+     horizon, 384 landmarks, 40 frames) on `devices=[cuda:0] * 4,
+     model_shards=2`: two data rows of two streams, each stream's
+     landmark table in two shards of 192 rows; where the machine has two
+     or more cards, also on the real cards, a (D, 1) mesh and, where D >=
+     4, a (D/2, 2) mesh (D = 4 where there are four, else 2). Gates per
+     run: LK launches = fleet frames x data rows, each device counting one
+     launch per fleet frame for each row it leads
+     (`lk_pyramid_cuda.launches_by_device`); the keyframe flags of phase
+     9's B = 4 one-device run, positions within 1e-4 m of it, each
+     stream's landmark ids equal to its ids there on every frame up to the
+     first on which its frontend gave other keypoints (the batched frame
+     step's arithmetic depends on the row's batch size, and model shards
+     sum the smart-factor system in another order; through the bias fed
+     back to the frontend a track can flip); the single-stream runs'
+     keyframe flags and positions within 1e-3 m (phase 9's, reused); ATE
+     < 0.05 m per stream. On a mesh with model shards also the model axis
+     on identical inputs (`shard_check`): each stream of phase 9's final
+     B = 4 state, its table split over the last mesh row's devices, with
+     its last keyframe's measurements (every other id made new): the
+     table after `update_landmarks` and `shift_landmarks` equal to the
+     plain table's bit for bit, the Gauss-Newton system within 1e-5 of
+     its largest entry. One `[mesh]` line per run: the mesh's devices,
+     each card's name and power limit, stream-frames/s beside phase 9's
+     at B = 4, the batched frame step ms and keyframe ms per keyframing
+     stream (as phase 9), and the ms per keyframe of the smoother's
+     cross-shard copies and sums (CUDA events around each call).
 """
 
 from __future__ import annotations
@@ -269,7 +298,13 @@ import torch
 
 from kimera_vio_tpu_torch import __main__ as cli
 from kimera_vio_tpu_torch.common.geometry import quat_to_rot
-from kimera_vio_tpu_torch.common.types import ImuBlock, stack_trees, unstack_trees
+from kimera_vio_tpu_torch.common.types import (
+    ImuBlock,
+    replace,
+    stack_trees,
+    tree_map,
+    unstack_trees,
+)
 from kimera_vio_tpu_torch.config import flags as cli_flags
 from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.dataprovider import png
@@ -1916,8 +1951,8 @@ def timed_lk():
     (the kernel's in-run time, launch included), the last call's level
     shapes and window rule, and per (win, search_rows) its calls. The
     launch and route counters then live on the wrapper (the kernel's
-    wrapper adds to `lk.lk_pyramid_cuda.launches` and `.routes`, the
-    module's name); they start at 0."""
+    wrapper adds to `lk.lk_pyramid_cuda.launches`, `.launches_by_device`
+    and `.routes`, the module's name); they start at 0."""
     rec = {"events": [], "rules": collections.Counter()}
     orig = lk.lk_pyramid_cuda
 
@@ -1933,6 +1968,7 @@ def timed_lk():
         return out
 
     wrapped.launches, wrapped.routes, wrapped.report = 0, collections.Counter(), {}
+    wrapped.launches_by_device = collections.Counter()
     lk.lk_pyramid_cuda = wrapped
     try:
         yield rec
@@ -2386,18 +2422,27 @@ def fleet_gold(dev, params, streams: list) -> list:
     return streams
 
 
-def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float) -> dict:
-    """The first n_streams streams through FleetVio, every step ending in
-    `torch.cuda.synchronize`, the LK counter set to 0 just before. Gates:
-    one LK launch per fleet frame; per stream and frame the single-stream
-    run's keyframe flag and position within 1e-3 m; ATE < 0.05 m per
-    stream; at least one frame that mixes keyframing and tracking streams
-    (B > 1); final positions apart (B > 1)."""
+def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devices=None,
+              model_shards: int = 1) -> tuple[dict, dict]:
+    """The first n_streams streams through FleetVio on a mesh (`devices`
+    reshaped to rows of `model_shards`; one device, `dev`, by default),
+    every step ending in `torch.cuda.synchronize` of every device of the
+    mesh, the LK counters set to 0 just before. Gates: one LK launch per
+    data row per fleet frame, each on its row's first device; per stream
+    and frame the single-stream run's keyframe flag and position within
+    1e-3 m; ATE < 0.05 m per stream; at least one frame that mixes
+    keyframing and tracking streams (B > 1); final positions apart (B >
+    1). Returns (row, {per frame: keyframe flags, positions, landmark ids,
+    keypoint ids; the final state and the backend configuration})."""
     from kimera_vio_tpu_torch.parallel import FleetVio
 
     sel = streams[:n_streams]
     n_frames = len(sel[0]["frames"])
-    fleet = FleetVio(params, n_streams, device=dev)
+    fleet = FleetVio(params, n_streams, devices=devices or [dev], model_shards=model_shards)
+    cards = sorted({d for row in fleet.mesh for d in row}, key=str)
+    name = f"fleet B={n_streams}" + (
+        f" mesh {len(fleet.mesh)}x{len(fleet.mesh[0])} on {','.join(map(str, cards))}"
+        if devices else "")
     state = fleet.init(torch.stack([st["frames"][0][0] for st in sel]),
                        torch.stack([st["frames"][0][1] for st in sel]),
                        stack_trees([st["nav"] for st in sel]),
@@ -2407,22 +2452,29 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float) -> di
         fr = [st["frames"][k] for st in sel]
         inputs.append((torch.stack([f[0] for f in fr]), torch.stack([f[1] for f in fr]),
                        stack_trees([f[2] for f in fr]), [f[3] for f in fr]))
-    kf, pos, step_ms = [], [], []
-    torch.cuda.synchronize()
+    kf, pos, ids, step_ms = [], [], [], []
+    for d in cards:
+        torch.cuda.synchronize(d)
     lk.lk_pyramid_cuda.launches = 0
+    lk.lk_pyramid_cuda.launches_by_device.clear()
     t0 = time.perf_counter()
     for args in inputs:
         tic = time.perf_counter()
         state, out = fleet.step(state, *args)
-        torch.cuda.synchronize()
+        for d in cards:
+            torch.cuda.synchronize(d)
         step_ms.append((time.perf_counter() - tic) * 1e3)
         kf.append(out["is_keyframe"])
         pos.append(out["pos"])
+        ids.append((out["lmk_ids"], torch.where(out["kp_mask"], out["kp_ids"], -1)))
     wall = time.perf_counter() - t0
     launches = lk.lk_pyramid_cuda.launches
-    if launches != n_frames - 1:
-        raise AssertionError(f"fleet B={n_streams}: LK launches {launches} != {n_frames - 1} "
-                             "fleet frames")
+    by_device = dict(lk.lk_pyramid_cuda.launches_by_device)
+    want = collections.Counter(str(row[0]) for row in fleet.mesh)
+    want = {d: c * (n_frames - 1) for d, c in want.items()}
+    if launches != (n_frames - 1) * len(fleet.mesh) or by_device != want:
+        raise AssertionError(f"{name}: LK launches {launches} ({by_device}) != "
+                             f"{n_frames - 1} fleet frames x {len(fleet.mesh)} data rows ({want})")
     kf = np.stack(kf)  # (frames, B)
     pos = torch.stack(pos).cpu().numpy()  # (frames, B, 3)
     n_kf = kf.sum(1)
@@ -2430,8 +2482,8 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float) -> di
     ate, max_dpos = [], 0.0
     for b, st in enumerate(sel):
         if not np.array_equal(kf[:, b], st["gold_kf"]):
-            raise AssertionError(f"fleet B={n_streams}: stream {b}'s keyframe flags differ from "
-                                 "its single-stream run")
+            raise AssertionError(f"{name}: stream {b}'s keyframe flags differ from its "
+                                 "single-stream run")
         max_dpos = max(max_dpos, float(np.abs(pos[:, b] - st["gold_pos"]).max()))
         stamps = [st["frames"][0][4]] + [st["frames"][k + 1][4] for k in np.flatnonzero(kf[:, b])]
         est = np.concatenate([st["nav"].pos.cpu().numpy()[None], pos[kf[:, b], b]])
@@ -2439,32 +2491,37 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float) -> di
         ate.append(compute_ate(np.array(stamps), est, gt.stamps_ns, gt.positions,
                                align=False)["rmse"])
     if not max_dpos < 1e-3:
-        raise AssertionError(f"fleet B={n_streams}: positions {max_dpos} m from the "
-                             "single-stream runs'")
+        raise AssertionError(f"{name}: positions {max_dpos} m from the single-stream runs'")
     if not (np.isfinite(pos).all() and max(ate) < 0.05):
-        raise AssertionError(f"fleet B={n_streams}: ATE rmse {ate} (gate 0.05 m)")
+        raise AssertionError(f"{name}: ATE rmse {ate} (gate 0.05 m)")
     if n_streams > 1:
         final = pos[-1]
         apart = min(float(np.linalg.norm(final[i] - final[j]))
                     for i in range(n_streams) for j in range(i + 1, n_streams))
         if mixed < 1 or not apart > 1e-3:
-            raise AssertionError(f"fleet B={n_streams}: {mixed} mixed frames, final positions "
+            raise AssertionError(f"{name}: {mixed} mixed frames, final positions "
                                  f"{apart} m apart")
     step_ms = np.array(step_ms)
     track_ms = float(step_ms[n_kf == 0].mean())
     kf_ms = float(np.mean((step_ms[n_kf > 0] - track_ms) / n_kf[n_kf > 0]))
-    row = {"run": f"fleet B={n_streams}", "streams": n_streams, "frames": n_frames,
-           "lk_launches": launches, "keyframes": int(n_kf.sum()), "mixed_frames": mixed,
+    row = {"run": name, "streams": n_streams, "frames": n_frames,
+           "mesh": [[str(d) for d in r] for r in fleet.mesh],
+           "lk_launches": launches, "lk_launches_by_device": by_device,
+           "keyframes": int(n_kf.sum()), "mixed_frames": mixed,
            "ate_rmse_m": ate, "max_abs_dpos_vs_single_m": max_dpos, "wall_s": wall,
            "stream_frames_per_s": n_streams * (n_frames - 1) / wall,
            "frame_step_ms": track_ms, "keyframe_ms_per_stream": kf_ms,
            "path_frames_per_s": path_fps}
-    log(f"[fleet] {json.dumps(row)}")
-    return row
+    return row, {"kf": kf, "pos": pos,
+                 "lmk_ids": torch.stack([i for i, _ in ids]).cpu().numpy(),
+                 "kp_ids": torch.stack([k for _, k in ids]).cpu().numpy(),
+                 "state": state, "cfg": fleet._pipe.backend_cfg}
 
 
 def fleet_phase(dev, path: dict, n_frames: int = FLEET_FRAMES, size: dict | None = None) -> dict:
-    """Phase 9 (see the module docstring)."""
+    """Phase 9 (see the module docstring). Keeps, for phase 11, the
+    configuration, the streams with their single-stream runs, and each
+    fleet run's trajectory."""
     res = {}
     if size is None:  # the kernel rows need the card's full-size frames
         inp = fleet_lk_inputs(dev, 8)
@@ -2480,8 +2537,160 @@ def fleet_phase(dev, path: dict, n_frames: int = FLEET_FRAMES, size: dict | None
     params = (synthetic_params(**size, nr_states=10, max_features=256, max_landmarks=384)
               if size else synthetic_params(nr_states=10, max_features=256, max_landmarks=384))
     streams = fleet_gold(dev, params, fleet_streams(dev, n_frames, size))
-    res["runs"] = {n: fleet_run(dev, params, streams, n, path["frames_per_s"])
-                   for n in sorted(FLEET_SWEEP, reverse=True)}
+    res["runs"], res["traj"] = {}, {}
+    for n in sorted(FLEET_SWEEP, reverse=True):
+        res["runs"][n], res["traj"][n] = fleet_run(dev, params, streams, n, path["frames_per_s"])
+        log(f"[fleet] {json.dumps(res['runs'][n])}")
+    res["params"], res["streams"] = params, streams
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the fleet's data x model mesh
+# ---------------------------------------------------------------------------
+
+MESH_STREAMS = 4
+
+
+@contextlib.contextmanager
+def timed_shard_ops():
+    """The smoother's cross-shard work timed: `_shard_inputs` (the
+    configuration and window copied to a shard's device) and
+    `_sum_partials` (the partial systems copied to the row's device and
+    summed) wrapped in CUDA events on the device each ends on. Yields the
+    list of (start, end) event pairs."""
+    from kimera_vio_tpu_torch.backend import smoother as sm
+
+    events = []
+    orig = sm._shard_inputs, sm._sum_partials
+
+    def timed(fn, dev_arg):
+        def run(*args):
+            with torch.cuda.device(args[dev_arg]):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args)
+                end.record()
+            events.append((start, end))
+            return out
+        return run
+
+    sm._shard_inputs, sm._sum_partials = timed(orig[0], 2), timed(orig[1], 1)
+    try:
+        yield events
+    finally:
+        sm._shard_inputs, sm._sum_partials = orig
+
+
+def shard_check(cfg, state, devices: list) -> dict:
+    """The model axis on identical inputs: each stream of a one-device
+    fleet's final state, its landmark table split over `devices` (a mesh
+    row; the window copied to its first device) against the plain table.
+    Measurements: the stream's last keyframe's (its frontend's keypoint
+    ids and stereo measurements), every other id made new so that free
+    rows are taken, into the newest slot. Gates: `update_landmarks` and
+    `shift_landmarks` gathered equal to the plain table's bit for bit; the
+    Gauss-Newton system and gradient assembled 1 cm off the window's
+    states within 1e-5 of their largest entries (the smart-factor sum in
+    another order)."""
+    from kimera_vio_tpu_torch.backend import smoother as sm
+
+    to = devices[0]
+    fields = ("ids", "obs_uvd", "obs_mask", "pts", "pts_ok")
+    n = state.win.rot.shape[0]
+    rel = {"H": 0.0, "g": 0.0}
+    new_ids = 0
+    for win, lmk, fe in zip(*(unstack_trees(t, n) for t in (state.win, state.lmk,
+                                                            state.fe_state))):
+        win, lmk = (tree_map(lambda x: x.to(to), t) for t in (win, lmk))
+        sharded = sm.shard_landmarks(lmk, devices)
+        ids = fe.lkf_features.ids.to(to)
+        ids = torch.where((torch.arange(ids.shape[0], device=to) % 2 == 1) & (ids >= 0),
+                          ids + 1_000_000, ids)
+        meas = (ids, fe.lkf_uvd.to(to), fe.lkf_uvd_mask.to(to) & (ids >= 0))
+        new_ids += int((meas[2] & ~torch.isin(ids, lmk.ids)).sum())
+        slot = max(win.n - 1, 0)
+        pairs = [(sm.update_landmarks(lmk, *meas, slot), sm.update_landmarks(sharded, *meas, slot))]
+        pairs.append(tuple(sm.shift_landmarks(t) for t in pairs[0]))
+        for plain, split in pairs:
+            for f in fields:
+                if not torch.equal(getattr(split, f).to(to), getattr(plain, f)):
+                    raise AssertionError(f"shard check on {devices}: {f} differs from the "
+                                         "plain table's")
+        # 1 cm off the solution, so that the gradient is not the noise
+        # around zero of a converged window.
+        win = replace(win, pos=win.pos + 0.01)
+        H, g, _ = sm._assemble(cfg, win, lmk)
+        Hs, gs, _ = sm._assemble(cfg, win, sharded)
+        rel["H"] = max(rel["H"], float((Hs - H).abs().max() / H.abs().max()))
+        rel["g"] = max(rel["g"], float((gs - g).abs().max() / g.abs().max()))
+    if not max(rel.values()) < 1e-5:
+        raise AssertionError(f"shard check on {devices}: system off by {rel} of its largest entry")
+    return {"streams": n, "new_ids": new_ids, "tables_equal": True,
+            "max_rel_dH": rel["H"], "max_rel_dg": rel["g"]}
+
+
+def mesh_phase(dev, path: dict, fleet_res: dict, cards: list, meshes=None) -> dict:
+    """Phase 11 (see the module docstring). `cards`: nvidia-smi's name and
+    power limit line of each card, by index; `meshes`: (devices,
+    model_shards) pairs, by default the module docstring's. Each run's
+    `[mesh]` line is printed after `shard_check` and before the run's
+    other gates are checked."""
+    params, streams = fleet_res["params"], fleet_res["streams"]
+    one = fleet_res["traj"][MESH_STREAMS]
+    one_row = fleet_res["runs"][MESH_STREAMS]
+    if meshes is None:
+        meshes = [([dev] * 4, 2)]
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:  # real cards as well: a (D, 1) mesh, and (D/2, 2) where D >= 4
+            real = [torch.device("cuda", i) for i in range(4 if n_cards >= 4 else 2)]
+            meshes += [(real, 1)] + ([(real, 2)] if len(real) >= 4 else [])
+    res = {}
+    for devices, model_shards in meshes:
+        with timed_shard_ops() as events:
+            row, traj = fleet_run(dev, params, streams, MESH_STREAMS, path["frames_per_s"],
+                                  devices=devices, model_shards=model_shards)
+        name = row["run"]
+        dpos = np.abs(traj["pos"] - one["pos"]).max(axis=(1, 2))  # per frame
+        ids_diff = traj["lmk_ids"] != one["lmk_ids"]  # (frames, B, L)
+        kp_diff = (traj["kp_ids"] != one["kp_ids"]).any(axis=2)  # (frames, B)
+        # Per stream, the frames on which its frontend gave the one-device
+        # run's keypoints; until then its landmark ids must agree. The
+        # batched frame step's float arithmetic depends on the row's batch
+        # size (phase 9: each stream within ~2e-6 m of its single-stream
+        # run), and model shards sum the smart-factor system in another
+        # order, which the bias fed back to the frontend carries on: the
+        # states part in the last bits, and a track can flip, from which
+        # frame on that stream's keypoints, and so its landmark ids, differ.
+        same_input = [int(np.argmax(kp_diff[:, b])) if kp_diff[:, b].any() else len(kp_diff)
+                      for b in range(MESH_STREAMS)]
+        table = (shard_check(traj["cfg"], one["state"], [torch.device(d) for d in row["mesh"][-1]])
+                 if model_shards > 1 else None)
+        shard_ms = sum(start.elapsed_time(end) for start, end in events)
+        used = sorted({d for r in row["mesh"] for d in r})
+        row.update({
+            "cards": {d: cards[torch.device(d).index or 0] for d in used},
+            "keyframe_flags_equal_one_device": bool(np.array_equal(traj["kf"], one["kf"])),
+            "max_abs_dpos_vs_one_device_m": float(dpos.max()),
+            "first_frame_dpos_nonzero": int(np.argmax(dpos > 0)) if (dpos > 0).any() else None,
+            "frames_with_the_same_keypoints": same_input,
+            "shard_check": table,
+            "lmk_ids_entries_differing": int(ids_diff.sum()),
+            "one_device_stream_frames_per_s": one_row["stream_frames_per_s"],
+            "one_device_frame_step_ms": one_row["frame_step_ms"],
+            "one_device_keyframe_ms_per_stream": one_row["keyframe_ms_per_stream"],
+            "shard_calls": len(events),
+            "shard_copy_sum_ms_per_keyframe": shard_ms / row["keyframes"]})
+        log(f"[mesh] {json.dumps(row)}")
+        if not row["keyframe_flags_equal_one_device"]:
+            raise AssertionError(f"{name}: keyframe flags differ from the one-device fleet's")
+        if not dpos.max() < 1e-4:
+            raise AssertionError(f"{name}: positions {dpos.max()} m from the one-device fleet's")
+        if any(ids_diff[:k, b].any() for b, k in enumerate(same_input)):
+            raise AssertionError(f"{name}: landmark ids differ from the one-device fleet's "
+                                 f"while the keypoints agree ({same_input} frames)")
+        res[name] = row
     return res
 
 
@@ -2718,11 +2927,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    ).stdout.strip().splitlines()
+    log(cards[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     so, ptxas = lk.build_kernel()
@@ -2747,13 +2956,13 @@ def main() -> int:
     log(f"[phase] path {time.perf_counter() - t:.1f} s")
     work = tempfile.mkdtemp(prefix="kimera_smoke_")
     try:
-        return _phases(dev, kern, path, work, build)
+        return _phases(dev, kern, path, work, build, cards)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _phases(dev, kern: dict, path: dict, work: str, build: dict) -> int:
-    """Phases 3-10, the kernel table and the result line."""
+def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) -> int:
+    """Phases 3-11, the kernel table and the result line."""
     t = time.perf_counter()
     cli_res = cli_phase(dev, path, work)
     log(f"[phase] cli {time.perf_counter() - t:.1f} s")
@@ -2781,6 +2990,9 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict) -> int:
     codec_res = codec_phase(dev, path, work)
     wide_res = wide_phase(dev, path)
     log(f"[phase] codecs and wide windows {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    fleet_mesh_res = mesh_phase(dev, path, fleet_res, cards)
+    log(f"[phase] mesh {time.perf_counter() - t:.1f} s")
 
     kernels = [{
         "name": "lk_pyramid",
@@ -2818,6 +3030,11 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict) -> int:
         "fleet_ms": {n: r["ms"] for n, r in fleet_res["rows"].items()},
         "fleet_bound_ms": {n: r["bound_ms"] for n, r in fleet_res["rows"].items()},
         "fleet_plain_ms": {n: r["plain_ms"] for n, r in fleet_res["rows"].items()},
+        # Phase 11: the data x model mesh, one launch per data row per fleet
+        # frame on the row's first device.
+        "launches_mesh": {name: r["lk_launches"] for name, r in fleet_mesh_res.items()},
+        "launches_mesh_by_device": {name: r["lk_launches_by_device"]
+                                    for name, r in fleet_mesh_res.items()},
         "fleet_max_abs_err": {"752x480": fleet_res["kernel"]["max_abs_err"],
                               "752x480 B=8": fleet_res["kernel8"]["max_abs_err"],
                               "1241x376": fleet_res["kitti"]["max_abs_err"]},

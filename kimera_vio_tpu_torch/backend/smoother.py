@@ -26,6 +26,13 @@ returns NaN; `cholesky_ex` with `info != 0` maps to the same non-finite
 step, so the recovery branch fires where it fires in JAX.
 `state_covariance` is the reference's computeStateCovariance: the newest
 state's 15x15 marginal, with a health flag.
+
+The landmark table may be split along its landmark axis over devices
+(`ShardedLandmarkTable`, the fleet's `model` mesh axis; a plain table is
+one shard): new landmarks take the same rows as in the whole table, each
+shard linearizes its landmarks on its own device, and the partial
+smart-factor systems are summed on the window's device, where the solve
+runs.
 """
 
 from __future__ import annotations
@@ -260,6 +267,61 @@ class LandmarkTable:
             pts=torch.zeros((L, 3), dtype=dtype, device=device),
             pts_ok=torch.zeros((L,), dtype=torch.bool, device=device),
         )
+
+    @property
+    def shards(self) -> tuple["LandmarkTable", ...]:
+        """A plain table is a table of one shard (`ShardedLandmarkTable`)."""
+        return (self,)
+
+    def with_shards(self, shards) -> "LandmarkTable":
+        (table,) = shards
+        return table
+
+
+# Each LandmarkTable field's landmark axis, counted from the end (a stacked
+# table has a leading stream axis).
+_LMK_AXIS = {"ids": -1, "obs_uvd": -3, "obs_mask": -2, "pts": -2, "pts_ok": -1}
+
+
+@dataclass
+class ShardedLandmarkTable:
+    """A LandmarkTable split along its landmark axis: shard m holds rows
+    [m L/M, (m+1) L/M) on its own device (the JAX fleet's `model` mesh
+    axis). The smoother's landmark functions work shard by shard; reading
+    a field (`ids`, `obs_uvd`, `obs_mask`, `pts`, `pts_ok`) concatenates
+    the shards on the first shard's device."""
+
+    shards: list  # of LandmarkTable, in row order
+
+    def with_shards(self, shards) -> "ShardedLandmarkTable":
+        return ShardedLandmarkTable(list(shards))
+
+    def _cat(self, name: str) -> torch.Tensor:
+        dev = self.shards[0].ids.device
+        return torch.cat([getattr(s, name).to(dev) for s in self.shards], dim=_LMK_AXIS[name])
+
+    ids = property(lambda self: self._cat("ids"))
+    obs_uvd = property(lambda self: self._cat("obs_uvd"))
+    obs_mask = property(lambda self: self._cat("obs_mask"))
+    pts = property(lambda self: self._cat("pts"))
+    pts_ok = property(lambda self: self._cat("pts_ok"))
+
+
+def shard_landmarks(lmk: LandmarkTable, devices) -> LandmarkTable | ShardedLandmarkTable:
+    """A table (one stream's, or stacked) split along its landmark axis
+    into len(devices) equal shards, shard m copied to devices[m]; with one
+    device, the plain table on it."""
+    M = len(devices)
+    L = lmk.ids.shape[-1]
+    if L % M:
+        raise ValueError(f"{L} landmarks do not split over {M} model shards")
+    if M == 1:
+        return tree_map(lambda x: x.to(devices[0]), lmk)
+    n = L // M
+    return ShardedLandmarkTable([
+        LandmarkTable(**{k: getattr(lmk, k).narrow(d, m * n, n).to(
+            dev, copy=True, memory_format=torch.contiguous_format) for k, d in _LMK_AXIS.items()})
+        for m, dev in enumerate(devices)])
 
 
 # ---------------------------------------------------------------------------
@@ -642,6 +704,40 @@ def _smart_factor_blocks(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pt
     return H_pose, g_pose, pts, ok
 
 
+def _shard_inputs(cfg: BackendConfig, win: Window, dev: torch.device):
+    """The configuration and window on a shard's device: copies, made for
+    each Gauss-Newton iteration, where the shard lies on another device
+    than the window."""
+    if win.pos.device == dev:
+        return cfg, win
+    return tree_map(lambda x: x.to(dev), cfg), tree_map(lambda x: x.to(dev), win)
+
+
+def _sum_partials(parts: list, dev: torch.device):
+    """The shards' (H_pose, g_pose) partials copied to `dev` and summed in
+    shard order: the counterpart of the JAX fleet's psum over `model`."""
+    H_pose, g_pose = (x.to(dev) for x in parts[0])
+    for H, g in parts[1:]:
+        H_pose = H_pose + H.to(dev)
+        g_pose = g_pose + g.to(dev)
+    return H_pose, g_pose
+
+
+def _smart_factor_system(cfg: BackendConfig, win: Window, lmk, pts_fixed=None):
+    """`_smart_factor_blocks` on each shard of the table (a plain table is
+    one shard), on the shard's device; the partial systems summed on the
+    window's device. `pts_fixed` and the returned points are one (pts, ok)
+    per shard, left on the shard. Returns (H_pose, g_pose, points)."""
+    parts, points = [], []
+    for m, shard in enumerate(lmk.shards):
+        c, w = _shard_inputs(cfg, win, shard.ids.device)
+        H, g, pts, ok = _smart_factor_blocks(c, w, shard,
+                                             None if pts_fixed is None else pts_fixed[m])
+        parts.append((H, g))
+        points.append((pts, ok))
+    return (*_sum_partials(parts, win.pos.device), points)
+
+
 def _prior_blocks(cfg: BackendConfig, win: Window):
     """Marginal-prior contribution: H += Lambda, grad += Lambda dx - g."""
     dx = local_coords(
@@ -671,14 +767,16 @@ def _add_pair_blocks(H, g, Ji, Jj, r):
     g[1 : n + 1] += torch.einsum("kri,kr->ki", Jj, r)
 
 
-def _assemble(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pts_fixed=None):
-    """The full (D,D) Gauss-Newton system at the current estimates."""
+def _assemble(cfg: BackendConfig, win: Window, lmk, pts_fixed=None):
+    """The full (D,D) Gauss-Newton system at the current estimates, on
+    the window's device. Returns (H, g, points: (pts, ok) per landmark
+    shard)."""
     K = cfg.nr_states
     D = K * S_DOF
     dev, dt = win.pos.device, win.pos.dtype
     H = torch.zeros((K, S_DOF, K, S_DOF), dtype=dt, device=dev)
     g = torch.zeros((K, S_DOF), dtype=dt, device=dev)
-    H_pose, g_pose, pts, lmk_ok = _smart_factor_blocks(cfg, win, lmk, pts_fixed)
+    H_pose, g_pose, points = _smart_factor_system(cfg, win, lmk, pts_fixed)
     H[:, 0:6, :, 0:6] += H_pose
     g[:, 0:6] += g_pose
     for Ji, Jj, r in _pair_factor_blocks(cfg, win):
@@ -690,7 +788,7 @@ def _assemble(cfg: BackendConfig, win: Window, lmk: LandmarkTable, pts_fixed=Non
     g = g + gp
     pin = (~win.mask).to(dt).repeat_interleave(S_DOF)
     H = H + torch.diag(pin)
-    return H, g, pts, lmk_ok
+    return H, g, points
 
 
 def _cho_step(A, rhs):
@@ -701,18 +799,18 @@ def _cho_step(A, rhs):
     return -torch.cholesky_solve(rhs[:, None], L)[:, 0]
 
 
-def _gn_solve(cfg: BackendConfig, win: Window, lmk: LandmarkTable):
+def _gn_solve(cfg: BackendConfig, win: Window, lmk):
     """cfg.gn_iters Gauss-Newton iterations with the reference's failure
     recovery (VioBackend::updateSmoother backup-and-recover): non-finite
     blocks are zeroed; a non-finite step is re-solved with heavy damping
     plus a prior pinning the newest state; a still-bad step is rejected.
     Iterations after the first reuse the first triangulation. Returns
-    (win, (pts, lmk_ok), n_recovered)."""
+    (win, points: (pts, lmk_ok) per landmark shard, n_recovered)."""
     K = cfg.nr_states
     n_recovered = 0
     pts_fixed = None
     for _ in range(cfg.gn_iters):
-        H, g, pts, lmk_ok = _assemble(cfg, win, lmk, pts_fixed)
+        H, g, points = _assemble(cfg, win, lmk, pts_fixed)
         D = H.shape[0]
         eye = torch.eye(D, dtype=H.dtype, device=H.device)
         finite_in = bool(torch.all(torch.isfinite(H)) & torch.all(torch.isfinite(g)))
@@ -734,12 +832,11 @@ def _gn_solve(cfg: BackendConfig, win: Window, lmk: LandmarkTable):
         rot, pos, vel, bias = retract_states(win.rot, win.pos, win.vel, win.bias, delta)
         win = replace(win, rot=rot, pos=pos, vel=vel, bias=bias)
         n_recovered += int(bad)
-        pts_fixed = (pts, lmk_ok)
+        pts_fixed = points
     return win, pts_fixed, n_recovered
 
 
-def state_covariance(cfg: BackendConfig, win: Window, lmk: LandmarkTable,
-                     return_ok: bool = False):
+def state_covariance(cfg: BackendConfig, win: Window, lmk, return_ok: bool = False):
     """Marginal covariance (15x15) of the newest state: the window's
     information inverted onto the newest block (the reference's
     VioBackend::computeStateCovariance). Jacobi equilibration, a 1e-6
@@ -752,7 +849,7 @@ def state_covariance(cfg: BackendConfig, win: Window, lmk: LandmarkTable,
     Hessian not positive definite after equilibration, a non-finite or
     non-positive variance) the numbers mean nothing."""
     D = cfg.nr_states * S_DOF
-    H, _, _, _ = _assemble(cfg, win, lmk)
+    H, _, _ = _assemble(cfg, win, lmk)
     eye = torch.eye(D, dtype=H.dtype, device=H.device)
     H = 0.5 * (H + H.T)
     d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
@@ -860,16 +957,20 @@ def _marginalize_oldest(cfg: BackendConfig, win: Window) -> Window:
 # ---------------------------------------------------------------------------
 
 
-def update_landmarks(lmk: LandmarkTable, meas_ids, meas_uvd, meas_mask, slot: int) -> LandmarkTable:
+def update_landmarks(lmk, meas_ids, meas_uvd, meas_mask, slot: int):
     """Insert this keyframe's stereo measurements into the track table:
     known ids update their row, new ids take free rows oldest-first,
-    measurements beyond capacity are dropped."""
-    L = lmk.ids.shape[0]
-    dev = lmk.ids.device
-    eq = (lmk.ids[:, None] == meas_ids[None, :]) & meas_mask[None, :] & (lmk.ids >= 0)[:, None]
+    measurements beyond capacity are dropped. The rows are chosen over
+    the whole table (a sharded one's ids gathered on its first shard's
+    device), and each shard writes the rows in its range."""
+    shards = lmk.shards
+    dev = shards[0].ids.device
+    ids_all = shards[0].ids if len(shards) == 1 else torch.cat([s.ids.to(dev) for s in shards])
+    L = ids_all.shape[0]
+    eq = (ids_all[:, None] == meas_ids[None, :]) & meas_mask[None, :] & (ids_all >= 0)[:, None]
     row_of_meas = torch.argmax(eq.to(torch.uint8), dim=0)
     found = eq.any(dim=0)
-    free = lmk.ids < 0
+    free = ids_all < 0
     new_meas = meas_mask & ~found
     free_rows = torch.argsort((~free).to(torch.uint8), stable=True)
     new_rank = torch.cumsum(new_meas.to(torch.int64), 0) - 1
@@ -877,31 +978,40 @@ def update_landmarks(lmk: LandmarkTable, meas_ids, meas_uvd, meas_mask, slot: in
     new_meas = new_meas & (new_rank < free.sum())
     rows = torch.where(new_meas, target_row, row_of_meas)
     write = meas_mask & (found | new_meas)
-    # Non-writes go to a scratch row L that is cut off afterwards (the
+    # Non-writes go to a scratch row that is cut off afterwards (the
     # reference parks them out of bounds, where JAX drops the update).
     rows_safe = torch.where(write, rows, torch.full_like(rows, L))
+    out, lo = [], 0
+    for s in shards:
+        n, sdev = s.ids.shape[0], s.ids.device
+        local = rows_safe - lo
+        local = torch.where((local >= 0) & (local < n), local, torch.full_like(local, n)).to(sdev)
+        slots = torch.full_like(local, slot)
 
-    def scatter(table, values, extra_index=()):
-        padded = torch.cat([table, table[:1]], dim=0)
-        padded[(rows_safe, *extra_index)] = values
-        return padded[:L]
+        def scatter(table, values, extra_index=()):
+            padded = torch.cat([table, table[:1]], dim=0)
+            padded[(local, *extra_index)] = values.to(sdev)
+            return padded[:n]
 
-    ids = scatter(lmk.ids, meas_ids)
-    obs_uvd = scatter(lmk.obs_uvd, meas_uvd, (torch.full_like(rows_safe, slot),))
-    obs_mask = scatter(
-        lmk.obs_mask, torch.ones_like(meas_mask), (torch.full_like(rows_safe, slot),)
-    )
-    return replace(lmk, ids=ids, obs_uvd=obs_uvd, obs_mask=obs_mask)
+        out.append(replace(
+            s, ids=scatter(s.ids, meas_ids), obs_uvd=scatter(s.obs_uvd, meas_uvd, (slots,)),
+            obs_mask=scatter(s.obs_mask, torch.ones_like(meas_mask), (slots,))))
+        lo += n
+    return lmk.with_shards(out)
 
 
-def shift_landmarks(lmk: LandmarkTable) -> LandmarkTable:
-    """Drop observations of the state leaving the window; free dead rows."""
-    obs_uvd = torch.roll(lmk.obs_uvd, -1, dims=1)
-    obs_mask = torch.roll(lmk.obs_mask, -1, dims=1)
-    obs_mask[:, -1] = False
-    alive = obs_mask.any(dim=1)
-    ids = torch.where(alive, lmk.ids, torch.full_like(lmk.ids, -1))
-    return replace(lmk, ids=ids, obs_uvd=obs_uvd, obs_mask=obs_mask, pts_ok=lmk.pts_ok & alive)
+def shift_landmarks(lmk):
+    """Drop observations of the state leaving the window; free dead rows
+    (shard by shard)."""
+    def shift(s: LandmarkTable) -> LandmarkTable:
+        obs_uvd = torch.roll(s.obs_uvd, -1, dims=1)
+        obs_mask = torch.roll(s.obs_mask, -1, dims=1)
+        obs_mask[:, -1] = False
+        alive = obs_mask.any(dim=1)
+        ids = torch.where(alive, s.ids, torch.full_like(s.ids, -1))
+        return replace(s, ids=ids, obs_uvd=obs_uvd, obs_mask=obs_mask, pts_ok=s.pts_ok & alive)
+
+    return lmk.with_shards([shift(s) for s in lmk.shards])
 
 
 # ---------------------------------------------------------------------------
@@ -959,8 +1069,8 @@ def bootstrap(cfg: BackendConfig, win: Window, nav: NavState, bias, stamp: float
     )
 
 
-def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable, *, pim: Pim,
-                 stamp: float, meas_ids, meas_uvd, meas_mask, status: int,
+def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable | ShardedLandmarkTable,
+                 *, pim: Pim, stamp: float, meas_ids, meas_uvd, meas_mask, status: int,
                  ext_R_rel=None, ext_t_rel=None, ext_valid=None,
                  btw_R_rel=None, btw_t_rel=None, btw_valid=None,
                  guess_R=None, guess_t=None, guess_valid=None,
@@ -1033,8 +1143,9 @@ def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable, *, pim: Pi
         n=min(win.n + 1, K),
     )
     lmk = update_landmarks(lmk, meas_ids, meas_uvd, meas_mask, slot)
-    win, (pts, lmk_ok), n_recovered = _gn_solve(cfg, win, lmk)
-    lmk = replace(lmk, pts=pts, pts_ok=lmk_ok)
+    win, points, n_recovered = _gn_solve(cfg, win, lmk)
+    lmk = lmk.with_shards([replace(s, pts=pts, pts_ok=ok)
+                           for s, (pts, ok) in zip(lmk.shards, points)])
 
     # Increment-chained pose (VioBackend.cpp:1348-1373).
     if slot > 0:
@@ -1054,8 +1165,8 @@ def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable, *, pim: Pi
         "pos_inc": inc_pos,
         "stamp": stamp,
         "slot": slot,
-        "lmk_points": pts,
-        "lmk_valid": lmk_ok,
+        "lmk_points": lmk.pts,
+        "lmk_valid": lmk.pts_ok,
         "lmk_ids": lmk.ids,
         "n_recovered": n_recovered,
     }

@@ -16,13 +16,13 @@ import torch
 
 from kimera_vio_tpu_torch import resolve_device
 from kimera_vio_tpu_torch.backend.regular_vio import PlaneStates
-from kimera_vio_tpu_torch.backend.smoother import LandmarkTable, Window
+from kimera_vio_tpu_torch.backend.smoother import LandmarkTable, Window, shard_landmarks
 from kimera_vio_tpu_torch.common.types import ImuBias, TrackedFeatures, stack_trees, unstack_trees
 from kimera_vio_tpu_torch.config import params as P
 from kimera_vio_tpu_torch.frontend.imu_frontend import Pim
 from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendState
 from kimera_vio_tpu_torch.mesher.plane_tracker import PlaneTracker
-from kimera_vio_tpu_torch.parallel.fleet import FleetState
+from kimera_vio_tpu_torch.parallel.fleet import FleetState, RowState
 
 _PARAM_CLASSES = {
     "pipeline": P.PipelineParams,
@@ -117,16 +117,27 @@ def state_from_numpy(window: dict, landmarks: dict, frontend: dict | None = None
 
 
 def fleet_state_from_numpy(fe_state: dict, win: dict, lmk: dict, *,
-                           device: str | torch.device = "cuda") -> FleetState:
-    """The JAX FleetState's leaves (frontend state, window, landmark table
-    as dicts of numpy arrays with a leading stream axis) -> the port's
-    FleetState on `device`: each stream through `state_from_numpy`, then
-    stacked."""
+                           device: str | torch.device = "cuda", mesh=None) -> FleetState:
+    """The JAX FleetState's leaves gathered to numpy (frontend state,
+    window, landmark table as dicts of numpy arrays with a leading stream
+    axis) -> the port's FleetState on a mesh (`FleetVio.mesh`, rows of
+    devices; one row of `device` when omitted): each stream through
+    `state_from_numpy` on its data row's first device, stacked per row,
+    and each row's landmark tables split over its devices
+    (`shard_landmarks`)."""
+    mesh = [[resolve_device(device)]] if mesh is None else mesh
     n = np.asarray(win["n"]).shape[0]
-    streams = [state_from_numpy(w, lm, fe, device=device)
-               for w, lm, fe in zip(*(unstack_trees(t, n) for t in (win, lmk, fe_state)))]
-    w, lm, fe = (stack_trees(list(part)) for part in zip(*streams))
-    return FleetState(fe_state=fe, win=w, lmk=lm)
+    if n % len(mesh):
+        raise ValueError(f"{n} streams do not divide over {len(mesh)} data rows")
+    streams = list(zip(*(unstack_trees(t, n) for t in (win, lmk, fe_state))))
+    per_row = n // len(mesh)
+    rows = []
+    for r, devs in enumerate(mesh):
+        part = [state_from_numpy(w, lm, fe, device=devs[0])
+                for w, lm, fe in streams[r * per_row:(r + 1) * per_row]]
+        w, lm, fe = (stack_trees(list(p)) for p in zip(*part))
+        rows.append(RowState(fe_state=fe, win=w, lmk=shard_landmarks(lm, devs)))
+    return FleetState(rows=rows)
 
 
 def planes_from_numpy(planes: dict, *, device: str | torch.device = "cuda") -> PlaneStates:

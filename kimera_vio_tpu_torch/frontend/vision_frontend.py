@@ -237,14 +237,19 @@ def _nanmedian_linear(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
 class Tracked:
     """`StereoFrontend.track`'s result, for one stream or B stacked: the
     tracked features, the current pyramid, the PIM since the last keyframe,
-    the gyro rotation in the rectified camera, and the policy inputs on
-    the host ((..., 2): tracked count, median disparity)."""
+    the gyro rotation in the rectified camera, and the policy inputs
+    ((..., 2): tracked count, median disparity), on the host after `read`
+    (`track_async` leaves them on the device)."""
 
     features: TrackedFeatures
     pyramid: list
     pim: imu.Pim
     R_cam: torch.Tensor
-    policy: np.ndarray
+    policy: np.ndarray | torch.Tensor
+
+    def read(self) -> "Tracked":
+        """The policy inputs copied to the host, in one transfer."""
+        return replace(self, policy=self.policy.cpu().numpy())
 
 class StereoFrontend:
     """Host orchestrator of the per-frame / per-keyframe computations."""
@@ -398,6 +403,12 @@ class StereoFrontend:
         (`stack_trees`: a leading stream axis on the state's tensors, (B,
         H, W) images, (B, n) IMU blocks) in the same launches, LK
         included (one launch)."""
+        return self.track_async(state, left_img, imu_block).read()
+
+    def track_async(self, state: FrontendState, left_img, imu_block: ImuBlock) -> Tracked:
+        """`track` with its work queued on the device and the policy
+        inputs left there (`Tracked.read` copies them), so that a caller
+        driving several devices can queue each before it waits on one."""
         cfg = self.cfg
         left_img = left_img.to(torch.float32)
         cur_pyr = of.build_pyramid(left_img, cfg.klt_max_level)
@@ -427,7 +438,7 @@ class StereoFrontend:
         )
         disp = torch.linalg.norm(tracked_uv - feats.uv, dim=-1)
         policy = torch.stack([ok.sum(-1).to(torch.float32), _nanmedian_linear(disp, ok)], -1)
-        return Tracked(cur_feats, cur_pyr, pim, R_cam, policy.cpu().numpy())
+        return Tracked(cur_feats, cur_pyr, pim, R_cam, policy)
 
     def decide(self, state: FrontendState, trk: Tracked, stamp: float) -> tuple[bool, int]:
         """The keyframe policy (VisionImuFrontend::shouldBeKeyframe) of one

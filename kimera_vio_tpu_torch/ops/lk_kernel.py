@@ -497,8 +497,9 @@ def lk_pyramid_cuda(
     views). Returns (pts (..., N, 2) float32, ok (..., N) bool, iters
     (..., N, n_levels) int32: the Gauss-Newton steps per level, indexed by
     level number), with the inputs' leading axes. Adds one to
-    `lk_pyramid_cuda.launches` per launch, whatever B, and to
-    `lk_pyramid_cuda.routes[route]` for the route the launcher chose (a
+    `lk_pyramid_cuda.launches` per launch, whatever B, to
+    `lk_pyramid_cuda.launches_by_device[str(device)]` for the device it
+    launched on, and to `lk_pyramid_cuda.routes[route]` for the route the launcher chose (a
     name of ROUTES); `lk_pyramid_cuda.report[route]` holds that route's
     last launch report: the dynamic shared memory per block in bytes it
     asked for (`smem`) and, on the lk_wide routes, its `plan` (a
@@ -579,6 +580,7 @@ def lk_pyramid_cuda(
     if rc != 0:
         raise RuntimeError(f"LK kernel launch failed: {lib.lk_error_string(rc).decode()}")
     lk_pyramid_cuda.launches += 1
+    lk_pyramid_cuda.launches_by_device[str(dev)] += 1
     name = ROUTES[route[0]]
     lk_pyramid_cuda.routes[name] += 1
     rep = {"smem": route[1]}
@@ -590,6 +592,7 @@ def lk_pyramid_cuda(
 
 
 lk_pyramid_cuda.launches = 0
+lk_pyramid_cuda.launches_by_device = collections.Counter()  # str(device) -> launches
 lk_pyramid_cuda.routes = collections.Counter()
 lk_pyramid_cuda.report = {}
 

@@ -1,3 +1,8 @@
-"""Many robot streams on one card: FleetVio."""
+"""Many robot streams over a (data, model) mesh of devices: FleetVio."""
 
-from kimera_vio_tpu_torch.parallel.fleet import FleetState, FleetVio  # noqa: F401
+from kimera_vio_tpu_torch.parallel.fleet import (  # noqa: F401
+    FleetState,
+    FleetVio,
+    RowState,
+    fleet_mesh,
+)

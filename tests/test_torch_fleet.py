@@ -474,8 +474,10 @@ def test_fleet_device_rule_and_limits():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             FleetVio(params, B)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        FleetVio(params, B, device="cpu", model_shards=2)
+    with pytest.raises(ValueError, match="must divide over the data axis"):
+        FleetVio(params, B, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="model_shards=2"):
+        FleetVio(params, B, devices=["cpu"] * 3, model_shards=2)
     fleet = FleetVio(params, B, device="cpu")
     lefts, rights, blocks, stamps = _frame(0)
     with pytest.raises(ValueError, match="3 streams"):
