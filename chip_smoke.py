@@ -277,13 +277,32 @@ Phases:
      each card's name and power limit, stream-frames/s beside phase 9's
      at B = 4, the batched frame step ms and keyframe ms per keyframing
      stream (as phase 9), and the ms per keyframe of the smoother's
-     cross-shard copies and sums (CUDA events around each call).
+     cross-shard copies and sums (CUDA events around each call). Then
+     the same four streams on `devices=[cuda:0] * 10, model_shards=5`,
+     where 5 does not divide the 384 landmarks: as in the JAX fleet the
+     tables stay whole. Gates: each row's table a plain LandmarkTable on
+     the row's first device, 78 LK launches on cuda:0, phase 9's B = 4
+     keyframe flags, positions and landmark ids bit for bit (rows change
+     no bit), ATE < 0.05 m. Last, B = 4 on one device with the three
+     switches whose outputs the fleet returns (`use_lcd`,
+     `do_fine_imu_camera_temporal_sync`, `auto_initialize: 2`), and each
+     of the four streams alone (B = 1, the same switches). Gates: the 28
+     output keys of the JAX fleet's fused step under those switches, every
+     switched field finite, LK launches = fleet frames, ATE < 0.05 m, LCD
+     features and a visual rotation on keyframes, and each stream's
+     switched fields equal to its B = 1 run's on every frame up to the
+     first on which its keypoints differ (the LCD fields bit for bit: they
+     read the stream's images only; the rest within 1e-4: the batched
+     preintegration sums in another order). One `[mesh]` and one `[fleet]`
+     line.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
+import dataclasses
 import json
 import os
 import re
@@ -2423,17 +2442,19 @@ def fleet_gold(dev, params, streams: list) -> list:
 
 
 def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devices=None,
-              model_shards: int = 1) -> tuple[dict, dict]:
+              model_shards: int = 1, gold: bool = True, label: str = "") -> tuple[dict, dict]:
     """The first n_streams streams through FleetVio on a mesh (`devices`
     reshaped to rows of `model_shards`; one device, `dev`, by default),
     every step ending in `torch.cuda.synchronize` of every device of the
     mesh, the LK counters set to 0 just before. Gates: one LK launch per
     data row per fleet frame, each on its row's first device; per stream
     and frame the single-stream run's keyframe flag and position within
-    1e-3 m; ATE < 0.05 m per stream; at least one frame that mixes
-    keyframing and tracking streams (B > 1); final positions apart (B >
-    1). Returns (row, {per frame: keyframe flags, positions, landmark ids,
-    keypoint ids; the final state and the backend configuration})."""
+    1e-3 m (unless `gold` is false: a configuration the single-stream
+    runs did not run); ATE < 0.05 m per stream; at least one frame that
+    mixes keyframing and tracking streams (B > 1); final positions apart
+    (B > 1). Returns (row, {per frame: keyframe flags, positions, landmark
+    ids, keypoint ids and every output; the final state, the backend
+    configuration and the mesh})."""
     from kimera_vio_tpu_torch.parallel import FleetVio
 
     sel = streams[:n_streams]
@@ -2442,7 +2463,7 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devic
     cards = sorted({d for row in fleet.mesh for d in row}, key=str)
     name = f"fleet B={n_streams}" + (
         f" mesh {len(fleet.mesh)}x{len(fleet.mesh[0])} on {','.join(map(str, cards))}"
-        if devices else "")
+        if devices else "") + label
     state = fleet.init(torch.stack([st["frames"][0][0] for st in sel]),
                        torch.stack([st["frames"][0][1] for st in sel]),
                        stack_trees([st["nav"] for st in sel]),
@@ -2452,7 +2473,7 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devic
         fr = [st["frames"][k] for st in sel]
         inputs.append((torch.stack([f[0] for f in fr]), torch.stack([f[1] for f in fr]),
                        stack_trees([f[2] for f in fr]), [f[3] for f in fr]))
-    kf, pos, ids, step_ms = [], [], [], []
+    kf, pos, ids, step_ms, outs = [], [], [], [], []
     for d in cards:
         torch.cuda.synchronize(d)
     lk.lk_pyramid_cuda.launches = 0
@@ -2467,6 +2488,7 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devic
         kf.append(out["is_keyframe"])
         pos.append(out["pos"])
         ids.append((out["lmk_ids"], torch.where(out["kp_mask"], out["kp_ids"], -1)))
+        outs.append(out)
     wall = time.perf_counter() - t0
     launches = lk.lk_pyramid_cuda.launches
     by_device = dict(lk.lk_pyramid_cuda.launches_by_device)
@@ -2481,10 +2503,11 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devic
     mixed = int(((n_kf > 0) & (n_kf < n_streams)).sum())
     ate, max_dpos = [], 0.0
     for b, st in enumerate(sel):
-        if not np.array_equal(kf[:, b], st["gold_kf"]):
+        if gold and not np.array_equal(kf[:, b], st["gold_kf"]):
             raise AssertionError(f"{name}: stream {b}'s keyframe flags differ from its "
                                  "single-stream run")
-        max_dpos = max(max_dpos, float(np.abs(pos[:, b] - st["gold_pos"]).max()))
+        if gold:
+            max_dpos = max(max_dpos, float(np.abs(pos[:, b] - st["gold_pos"]).max()))
         stamps = [st["frames"][0][4]] + [st["frames"][k + 1][4] for k in np.flatnonzero(kf[:, b])]
         est = np.concatenate([st["nav"].pos.cpu().numpy()[None], pos[kf[:, b], b]])
         gt = st["provider"].ground_truth
@@ -2508,14 +2531,16 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devic
            "mesh": [[str(d) for d in r] for r in fleet.mesh],
            "lk_launches": launches, "lk_launches_by_device": by_device,
            "keyframes": int(n_kf.sum()), "mixed_frames": mixed,
-           "ate_rmse_m": ate, "max_abs_dpos_vs_single_m": max_dpos, "wall_s": wall,
+           "ate_rmse_m": ate, "max_abs_dpos_vs_single_m": max_dpos if gold else None,
+           "wall_s": wall,
            "stream_frames_per_s": n_streams * (n_frames - 1) / wall,
            "frame_step_ms": track_ms, "keyframe_ms_per_stream": kf_ms,
            "path_frames_per_s": path_fps}
     return row, {"kf": kf, "pos": pos,
                  "lmk_ids": torch.stack([i for i, _ in ids]).cpu().numpy(),
                  "kp_ids": torch.stack([k for _, k in ids]).cpu().numpy(),
-                 "state": state, "cfg": fleet._pipe.backend_cfg}
+                 "state": state, "cfg": fleet._pipe.backend_cfg, "mesh": fleet.mesh,
+                 "outs": outs}
 
 
 def fleet_phase(dev, path: dict, n_frames: int = FLEET_FRAMES, size: dict | None = None) -> dict:
@@ -2550,6 +2575,16 @@ def fleet_phase(dev, path: dict, n_frames: int = FLEET_FRAMES, size: dict | None
 # ---------------------------------------------------------------------------
 
 MESH_STREAMS = 4
+UNEVEN_SHARDS = 5  # does not divide the 384 landmarks: the tables stay whole
+SWITCH_FLAGS = ("use_lcd", "do_fine_imu_camera_temporal_sync")
+SWITCHED_KEYS = ("lcd_uv", "lcd_ok", "lcd_desc", "lcd_versors", "lcd_pts3", "vis_rot_angle",
+                 "init_R_rel_body", "init_t_rel_body", "init_pim_delta_R", "init_pim_delta_v",
+                 "init_pim_delta_p", "init_pim_dR_dbg")
+# The JAX fleet's outputs under the three switches (its fused step's
+# frame_out, kimera_vio_tpu/pipeline/stereo_pipeline.py:744-787).
+FLEET_OUT_KEYS = ("is_keyframe", "n_tracked", "median_disparity", "n_mono_inliers",
+                  "n_stereo_inliers", "rot", "pos", "vel", "bias", "lmk_points", "lmk_valid",
+                  "lmk_ids", "kp_uv", "kp_ids", "kp_mask", "n_recovered") + SWITCHED_KEYS
 
 
 @contextlib.contextmanager
@@ -2597,6 +2632,7 @@ def shard_check(cfg, state, devices: list) -> dict:
     from kimera_vio_tpu_torch.backend import smoother as sm
 
     to = devices[0]
+    cfg = tree_map(lambda x: x.to(to), cfg)  # the first row's, on another card than `to`
     fields = ("ids", "obs_uvd", "obs_mask", "pts", "pts_ok")
     n = state.win.rot.shape[0]
     rel = {"H": 0.0, "g": 0.0}
@@ -2631,23 +2667,26 @@ def shard_check(cfg, state, devices: list) -> dict:
             "max_rel_dH": rel["H"], "max_rel_dg": rel["g"]}
 
 
-def mesh_phase(dev, path: dict, fleet_res: dict, cards: list, meshes=None) -> dict:
+def mesh_phase(dev, path: dict, fleet_res: dict, cards: list, meshes=None,
+               switched: bool = True) -> dict:
     """Phase 11 (see the module docstring). `cards`: nvidia-smi's name and
     power limit line of each card, by index; `meshes`: (devices,
-    model_shards) pairs, by default the module docstring's. Each run's
-    `[mesh]` line is printed after `shard_check` and before the run's
-    other gates are checked."""
+    model_shards) pairs, by default the module docstring's; `switched`:
+    also the switched-output run (`switched_fleet`). Each run's `[mesh]`
+    line is printed after `shard_check` and before the run's other gates
+    are checked."""
     params, streams = fleet_res["params"], fleet_res["streams"]
     one = fleet_res["traj"][MESH_STREAMS]
     one_row = fleet_res["runs"][MESH_STREAMS]
     if meshes is None:
-        meshes = [([dev] * 4, 2)]
+        meshes = [([dev] * 4, 2), ([dev] * 10, UNEVEN_SHARDS)]
         n_cards = torch.cuda.device_count()
         if n_cards >= 2:  # real cards as well: a (D, 1) mesh, and (D/2, 2) where D >= 4
             real = [torch.device("cuda", i) for i in range(4 if n_cards >= 4 else 2)]
             meshes += [(real, 1)] + ([(real, 2)] if len(real) >= 4 else [])
     res = {}
     for devices, model_shards in meshes:
+        split = model_shards > 1 and params.max_landmarks % model_shards == 0
         with timed_shard_ops() as events:
             row, traj = fleet_run(dev, params, streams, MESH_STREAMS, path["frames_per_s"],
                                   devices=devices, model_shards=model_shards)
@@ -2666,7 +2705,8 @@ def mesh_phase(dev, path: dict, fleet_res: dict, cards: list, meshes=None) -> di
         same_input = [int(np.argmax(kp_diff[:, b])) if kp_diff[:, b].any() else len(kp_diff)
                       for b in range(MESH_STREAMS)]
         table = (shard_check(traj["cfg"], one["state"], [torch.device(d) for d in row["mesh"][-1]])
-                 if model_shards > 1 else None)
+                 if split else None)
+        whole = None if split or model_shards == 1 else whole_tables(traj)
         shard_ms = sum(start.elapsed_time(end) for start, end in events)
         used = sorted({d for r in row["mesh"] for d in r})
         row.update({
@@ -2676,6 +2716,7 @@ def mesh_phase(dev, path: dict, fleet_res: dict, cards: list, meshes=None) -> di
             "first_frame_dpos_nonzero": int(np.argmax(dpos > 0)) if (dpos > 0).any() else None,
             "frames_with_the_same_keypoints": same_input,
             "shard_check": table,
+            "whole_tables": whole,
             "lmk_ids_entries_differing": int(ids_diff.sum()),
             "one_device_stream_frames_per_s": one_row["stream_frames_per_s"],
             "one_device_frame_step_ms": one_row["frame_step_ms"],
@@ -2690,8 +2731,98 @@ def mesh_phase(dev, path: dict, fleet_res: dict, cards: list, meshes=None) -> di
         if any(ids_diff[:k, b].any() for b, k in enumerate(same_input)):
             raise AssertionError(f"{name}: landmark ids differ from the one-device fleet's "
                                  f"while the keypoints agree ({same_input} frames)")
+        if whole is not None and not (whole["plain_on_first_device"] and dpos.max() == 0
+                                      and not ids_diff.any()):
+            raise AssertionError(f"{name}: tables {whole}, positions {dpos.max()} m and "
+                                 f"{int(ids_diff.sum())} landmark ids from the one-device "
+                                 "fleet's (its model axis holds nothing: bit for bit)")
         res[name] = row
+    if switched:
+        res["switched"] = switched_fleet(dev, path, fleet_res)
     return res
+
+
+def whole_tables(traj: dict) -> dict:
+    """A mesh whose model axis does not divide the landmark count: whether
+    each row's final table is a plain LandmarkTable with every leaf on the
+    row's first device."""
+    from kimera_vio_tpu_torch.backend import smoother as sm
+
+    ok = []
+    for row, devs in zip(traj["state"].rows, traj["mesh"]):
+        leaves = [getattr(row.lmk, f.name) for f in dataclasses.fields(sm.LandmarkTable)]
+        ok.append(type(row.lmk) is sm.LandmarkTable
+                  and all(x.device == devs[0] for x in leaves))
+    return {"rows": len(ok), "plain_on_first_device": all(ok)}
+
+
+@contextlib.contextmanager
+def fleet_switches():
+    """The two flags among the three switches whose outputs the fleet
+    returns (`auto_initialize` is a parameter), reset on the way out."""
+    try:
+        for name in SWITCH_FLAGS:
+            cli_flags.set_flag(name, True)
+        yield
+    finally:
+        for name in SWITCH_FLAGS:
+            cli_flags.set_flag(name, False)
+
+
+def switched_fleet(dev, path: dict, fleet_res: dict) -> dict:
+    """Phase 11's last run (see the module docstring): the fleet at B = 4
+    on one device with use_lcd, do_fine_imu_camera_temporal_sync and
+    auto_initialize 2, against each stream alone through a B = 1 fleet with
+    the same switches."""
+    streams = fleet_res["streams"][:MESH_STREAMS]
+    params = copy.deepcopy(fleet_res["params"])
+    params.backend.auto_initialize = 2
+    with fleet_switches():
+        row, traj = fleet_run(dev, params, streams, MESH_STREAMS, path["frames_per_s"],
+                              gold=False, label=" switched")
+        alone = [fleet_run(dev, params, [st], 1, path["frames_per_s"], gold=False,
+                           label=f" switched stream {b} alone")[1]
+                 for b, st in enumerate(streams)]
+    name = row["run"]
+    outs = traj["outs"]
+    keys = sorted(outs[0])
+    if keys != sorted(FLEET_OUT_KEYS):
+        raise AssertionError(f"{name}: outputs {keys} != the JAX fleet's {sorted(FLEET_OUT_KEYS)}")
+    new = {k: torch.stack([o[k] for o in outs]) for k in SWITCHED_KEYS}  # (frames, B, ...)
+    finite = all(bool(torch.isfinite(v).all()) for v in new.values() if v.is_floating_point())
+    kf = torch.as_tensor(traj["kf"], device=new["lcd_ok"].device)
+    lcd_kf = int(new["lcd_ok"].any(-1)[kf].sum())
+    rot_kf = int((new["vis_rot_angle"][kf] > 0).sum())
+    same, max_d, frames_held = True, {k: 0.0 for k in SWITCHED_KEYS}, []
+    for b, one in enumerate(alone):
+        kp_diff = (traj["kp_ids"][:, b] != one["kp_ids"][:, 0]).any(-1)
+        upto = int(np.argmax(kp_diff)) if kp_diff.any() else len(kp_diff)
+        frames_held.append(upto)
+        for k in SWITCHED_KEYS:
+            a = new[k][:upto, b]
+            ref = torch.stack([o[k][0] for o in one["outs"][:upto]]) if upto else a
+            d = float((a.double() - ref.double()).abs().max()) if upto else 0.0
+            max_d[k] = max(max_d[k], d)
+            same &= d == 0 if k.startswith("lcd_") else d < 1e-4
+    one_row = fleet_res["runs"][MESH_STREAMS]
+    row.update({
+        "switches": list(SWITCH_FLAGS) + ["auto_initialize=2"],
+        "output_keys": len(keys), "switched_fields_finite": finite,
+        "keyframes_with_lcd_features": lcd_kf, "keyframes_with_visual_rotation": rot_kf,
+        "frames_held_to_alone": frames_held, "max_abs_diff_vs_alone": max_d,
+        "one_device_stream_frames_per_s": one_row["stream_frames_per_s"],
+        "one_device_frame_step_ms": one_row["frame_step_ms"],
+        "one_device_keyframe_ms_per_stream": one_row["keyframe_ms_per_stream"]})
+    log(f"[fleet] {json.dumps(row)}")
+    if not finite:
+        raise AssertionError(f"{name}: a switched output is not finite")
+    if lcd_kf < row["keyframes"] or rot_kf == 0:
+        raise AssertionError(f"{name}: LCD features on {lcd_kf} of {row['keyframes']} "
+                             f"keyframes, a visual rotation on {rot_kf}")
+    if not same:
+        raise AssertionError(f"{name}: switched fields differ from the streams' runs alone "
+                             f"(max |d| {max_d}, over {frames_held} frames)")
+    return row
 
 
 # ---------------------------------------------------------------------------

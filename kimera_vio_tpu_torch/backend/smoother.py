@@ -309,13 +309,13 @@ class ShardedLandmarkTable:
 
 def shard_landmarks(lmk: LandmarkTable, devices) -> LandmarkTable | ShardedLandmarkTable:
     """A table (one stream's, or stacked) split along its landmark axis
-    into len(devices) equal shards, shard m copied to devices[m]; with one
-    device, the plain table on it."""
+    into len(devices) equal shards, shard m copied to devices[m]. With one
+    device, or a landmark count that len(devices) does not divide (the
+    JAX fleet then leaves the axis unsplit, `_shard`), the plain table on
+    devices[0]."""
     M = len(devices)
     L = lmk.ids.shape[-1]
-    if L % M:
-        raise ValueError(f"{L} landmarks do not split over {M} model shards")
-    if M == 1:
+    if M == 1 or L % M:
         return tree_map(lambda x: x.to(devices[0]), lmk)
     n = L // M
     return ShardedLandmarkTable([

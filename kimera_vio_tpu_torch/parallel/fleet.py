@@ -48,16 +48,31 @@ model_shards), or every visible card (one device for the CPU) with
     the window, and the partial smart-factor systems are summed on the
     row's first device in shard order (the JAX fleet's psum); the solve
     stays there. The frontend state and the window stay whole on the
-    row's first device. The JAX fleet also lets XLA split any array whose
-    second axis divides over `model` (`_shard`); that is placement, not
-    semantics, and the port splits the landmark tables only.
+    row's first device. Where M does not divide the landmark count L,
+    the JAX fleet leaves the table unsplit (`_shard` splits an axis over
+    `model` only when it divides), and so does the port: the plain table
+    lies on the row's first device, and the row's other devices hold
+    nothing where XLA would replicate it. The JAX fleet also lets XLA
+    split any other array whose second axis divides over `model`. Both
+    are placement, not semantics: the port splits the landmark tables
+    only, and only where they divide.
 
 A device may repeat in an explicit list (["cpu"] * 4 in the tests,
 ["cuda:0"] * 4 on one card): the counterpart of the JAX tests' virtual
 CPU devices, it runs every line of the sharding code. As in the JAX
 mesh, one controller drives every device: `step` first queues every
 row's batched frame step, then reads each row's policy inputs, then
-runs each stream's rest of the frame, so rows on distinct cards overlap.
+runs each stream's rest of the frame, row after row. So on distinct
+cards the rows' batched frame steps overlap, and their keyframe halves
+do not: each row's run after the previous row's on the one host thread.
+
+Under the switches the JAX fleet's fused step reads, `step` also returns
+that step's optional outputs (`_switched_outputs`): the LCD features
+under `use_lcd`, the visual rotation angle under
+`do_fine_imu_camera_temporal_sync`, the stereo relative pose and the
+preintegration under `auto_initialize: 2`. As in the JAX fleet, nothing
+consumes them: the fleet runs no loop closure, time aligner or online
+initializer.
 """
 
 from __future__ import annotations
@@ -74,6 +89,7 @@ from kimera_vio_tpu_torch.backend.smoother import (
     Window,
     shard_landmarks,
 )
+from kimera_vio_tpu_torch.common.geometry import so3_log
 from kimera_vio_tpu_torch.common.types import (
     ImuBlock,
     NavState,
@@ -165,13 +181,10 @@ class FleetVio:
         if n_streams < 1:
             raise ValueError(f"n_streams={n_streams}: need at least one stream")
         self.mesh = fleet_mesh(device, devices, model_shards)
-        D, M = len(self.mesh), len(self.mesh[0])
+        D = len(self.mesh)
         if n_streams % D:
             raise ValueError(f"n_streams={n_streams} must divide over the data axis "
                              f"({D} shards)")
-        if params.max_landmarks % M:
-            raise ValueError(f"max_landmarks={params.max_landmarks} must divide over the "
-                             f"model axis ({M} shards)")
         self.B = n_streams
         self.device = self.mesh[0][0]  # where `step` gathers its outputs
         Br = n_streams // D
@@ -225,9 +238,10 @@ class FleetVio:
         per stream, `is_keyframe`, `n_tracked`, `median_disparity`,
         `n_mono_inliers`, `n_stereo_inliers` (host numpy) and `rot`,
         `pos`, `vel`, `bias`, `lmk_points`, `lmk_valid`, `lmk_ids`,
-        `kp_uv`, `kp_ids`, `kp_mask`, `n_recovered` (tensors with a
-        leading stream axis, gathered on the mesh's first device; the
-        landmark fields with the shards concatenated in row order)."""
+        `kp_uv`, `kp_ids`, `kp_mask`, `n_recovered` and, under their
+        switches, the fields of `_switched_outputs` (tensors with a leading
+        stream axis, gathered on the mesh's first device; the landmark
+        fields with the shards concatenated in row order)."""
         B = self.B
         lefts, rights = self._batched("lefts", lefts), self._batched("rights", rights)
         blocks = ImuBlock(*(self._batched(f"imu_blocks.{k}", getattr(imu_blocks, k))
@@ -301,6 +315,7 @@ class FleetVio:
                 new_fs.last_status[b] = st_b.last_status
             fe_outs.append(fe_out)
         out = self._outputs(pipe.device, win, lmk, trk.features, kf_rows)
+        out.update(self._switched_outputs(pipe, fe_outs, trk.pim))
         return RowState(fe_state=new_fs, win=win, lmk=lmk), out, fe_outs
 
     @staticmethod
@@ -330,3 +345,42 @@ class FleetVio:
         names = ("rot", "pos", "vel", "bias", "lmk_points", "lmk_valid", "lmk_ids", "kp_uv",
                  "kp_ids", "kp_mask", "n_recovered")
         return {k: torch.stack(col) for k, col in zip(names, zip(*rows))}
+
+    @staticmethod
+    def _switched_outputs(pipe: StereoImuPipeline, fe_outs: list, pim) -> dict:
+        """A row's per-stream outputs that the JAX fleet's fused step adds
+        under a switch, stacked: under `use_lcd` the keyframe branch's LCD
+        features (`lcd_uv`, `lcd_ok`, `lcd_desc`, `lcd_versors`,
+        `lcd_pts3`); under `do_fine_imu_camera_temporal_sync` the angle of
+        the stereo rotation the time aligner is fed (`vis_rot_angle`);
+        under `auto_initialize: 2` the online initializer's inputs, the
+        stereo relative pose in the body frame (`init_R_rel_body`,
+        `init_t_rel_body`) and the frame's preintegration (`pim`, stacked:
+        `init_pim_delta_R`, `_delta_v`, `_delta_p`, `_dR_dbg`). A stream
+        that does not keyframe gives what the JAX frontend's tracking
+        branch gives: zero LCD features, an identity stereo rotation and a
+        zero translation vote, through the same formulas."""
+        cfg, dev = pipe.frontend_cfg, pipe.device
+        kf = [fo["is_keyframe"] for fo in fe_outs]
+        out = {}
+        if cfg.lcd_features > 0:
+            n = cfg.lcd_features
+            zeros = {"lcd_uv": torch.zeros((n, 2), device=dev),
+                     "lcd_ok": torch.zeros(n, dtype=torch.bool, device=dev),
+                     "lcd_desc": torch.zeros((n, 8), dtype=torch.int32, device=dev),
+                     "lcd_versors": torch.zeros((n, 3), device=dev),
+                     "lcd_pts3": torch.zeros((n, 3), device=dev)}
+            for k, z in zeros.items():
+                out[k] = torch.stack([fo[k] if is_kf else z for fo, is_kf in zip(fe_outs, kf)])
+        eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        if pipe._do_time_align:
+            R = torch.stack([fo["R_stereo"] if is_kf else eye for fo, is_kf in zip(fe_outs, kf)])
+            out["vis_rot_angle"] = torch.linalg.norm(so3_log(R), dim=-1)
+        if pipe.params.backend.auto_initialize == 2:
+            still = pipe._body_rel(eye, zero)
+            rel = [fo["stereo_rel"][:2] if is_kf else still for fo, is_kf in zip(fe_outs, kf)]
+            out.update(init_R_rel_body=torch.stack([R for R, _ in rel]),
+                       init_t_rel_body=torch.stack([t for _, t in rel]),
+                       init_pim_delta_R=pim.delta_R, init_pim_delta_v=pim.delta_v,
+                       init_pim_delta_p=pim.delta_p, init_pim_dR_dbg=pim.dR_dbg)
+        return out

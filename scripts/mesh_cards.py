@@ -9,8 +9,10 @@ the single-stream step and through the one-device fleet at B = 4 (phase
 9's references), then `chip_smoke.mesh_phase` on the meshes asked for:
 `--meshes DxM,...` logical meshes of D data rows and M model shards, all
 on cuda:0; `--cards` also phase 11's meshes over the real cards (a (D, 1)
-mesh over the first D cards, D = 4 where there are four, else 2, and
-where D = 4 a (2, 2) mesh over them; needs two or more cards). Without
+mesh over the first D cards, D = 4 where there are four, else 2, where
+D = 4 a (2, 2) mesh over them, and a (2, 5) mesh cycling through them,
+whose tables stay whole on cuda:0 and cuda:1; needs two or more cards).
+Phase 11's switched-output run is left out. Without
 either, phase 11's own meshes. Prints each card's name and power limit,
 the `[fleet]` line of the one-device run and one `[mesh]` line per mesh
 (printed before its gates are checked). Exits non-zero without CUDA or
@@ -64,13 +66,16 @@ def main() -> int:
         if args.cards:
             real = [torch.device("cuda", i) for i in range(4 if n_cards >= 4 else 2)]
             meshes += [(real, 1)] + ([(real, 2)] if len(real) >= 4 else [])
+            # (2, 5): the model axis does not divide the 384 landmarks, so each
+            # row's table stays whole on the row's first card (cuda:0, cuda:1).
+            meshes.append(([real[i % len(real)] for i in range(10)], cs.UNEVEN_SHARDS))
     params = cs.synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
     streams = cs.fleet_gold(dev, params, cs.fleet_streams(dev)[:cs.MESH_STREAMS])
     row, traj = cs.fleet_run(dev, params, streams, cs.MESH_STREAMS, None)
     cs.log(f"[fleet] {json.dumps(row)}")
     fleet_res = {"params": params, "streams": streams, "runs": {cs.MESH_STREAMS: row},
                  "traj": {cs.MESH_STREAMS: traj}}
-    res = cs.mesh_phase(dev, {"frames_per_s": None}, fleet_res, cards, meshes)
+    res = cs.mesh_phase(dev, {"frames_per_s": None}, fleet_res, cards, meshes, switched=False)
     cs.log(json.dumps({"ok": True, "meshes": list(res), "cards": n_cards,
                        "seconds": time.perf_counter() - t0}))
     return 0

@@ -19,6 +19,7 @@ import dataclasses
 import functools
 import importlib.util
 import os
+import shutil
 
 import cv2
 import numpy as np
@@ -157,6 +158,24 @@ def test_cli_frame_window(folders, capsys):
     """--initial_k with skip_n_start_frames / skip_n_end_frames, as the
     JAX CLI composes them: frames [1 + 2, 12 - 3)."""
     assert tcli.main(["--params_folder", folders["params"], "--dataset_path", folders["data"],
+                      "--device", "cpu", "--initial_k", "1", "--gflag", "skip_n_start_frames=2",
+                      "--gflag", "skip_n_end_frames=3"] + CAPS) == 0
+    assert "frames=6 " in capsys.readouterr().out
+
+
+def test_cli_frame_window_ignores_blank_rows(folders, tmp_path, capsys):
+    """The same window on a copy of the folder whose cam0/data.csv ends in
+    a blank line: still frames [1 + 2, 12 - 3). The JAX CLI counts the
+    blank row as a frame (kimera_vio_tpu/__main__.py:125) and would end
+    the window one frame later; the port counts only the rows that name an
+    image."""
+    shutil.copytree(os.path.join(folders["data"], "mav0"), tmp_path / "mav0")
+    cam_csv = tmp_path / "mav0" / "cam0" / "data.csv"
+    text = cam_csv.read_text()
+    cam_csv.write_text(text if text.endswith("\n") else text + "\n")
+    with open(cam_csv, "a") as fh:
+        fh.write("\n")
+    assert tcli.main(["--params_folder", folders["params"], "--dataset_path", str(tmp_path),
                       "--device", "cpu", "--initial_k", "1", "--gflag", "skip_n_start_frames=2",
                       "--gflag", "skip_n_end_frames=3"] + CAPS) == 0
     assert "frames=6 " in capsys.readouterr().out

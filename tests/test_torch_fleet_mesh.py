@@ -291,8 +291,12 @@ def test_update_and_shift_landmarks_over_shards(M):
     assert [s.ids.shape[0] for s in got.shards] == [64 // M] * M
     for a, b in zip(_gathered(sm.shift_landmarks(got)), _gathered(sm.shift_landmarks(want))):
         assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="model shards"):
-        sm.shard_landmarks(lmk, [torch.device("cpu")] * 3)
+    # Three shards do not divide 64 rows: the plain table, which the JAX
+    # fleet's `_shard` leaves unsplit too.
+    whole = sm.shard_landmarks(lmk, [torch.device("cpu")] * 3)
+    assert type(whole) is sm.LandmarkTable
+    for a, b in zip(_gathered(whole), _gathered(lmk)):
+        assert torch.equal(a, b)
 
 
 def test_backend_on_sharded_table():
@@ -375,8 +379,14 @@ def test_mesh_rules(monkeypatch):
         FleetVio(params, 4, devices=["cpu"] * 3, model_shards=2)
     with pytest.raises(ValueError, match="model_shards=0"):
         FleetVio(params, 4, devices=["cpu"], model_shards=0)
-    with pytest.raises(ValueError, match="max_landmarks=64 must divide over the model axis"):
-        FleetVio(params, 4, devices=["cpu"] * 3, model_shards=3)
+    # A model axis that does not divide the landmark count (64 % 3) builds,
+    # each row's table whole on the row's first device: the JAX fleet's
+    # `_shard` leaves such an axis unsplit.
+    fleet = FleetVio(params, 4, devices=["cpu"] * 3, model_shards=3)
+    assert fleet.mesh == [[torch.device("cpu")] * 3]
+    state = fleet.init(*_frame(0)[:2])
+    assert [type(row.lmk) for row in state.rows] == [sm.LandmarkTable]
+    assert state.lmk.ids.shape == (4, 64)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             FleetVio(params, 4, devices=["cuda"] * 2)
@@ -406,6 +416,10 @@ class NamedDevices(TorchFunctionMode):
     Cross-device copies (`.to`, `copy_`) are allowed; `.cpu()` is the
     host (no name), and so are tensors made without a device or on a
     device without an index."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()  # every named device a result was placed on
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -439,6 +453,7 @@ class NamedDevices(TorchFunctionMode):
                 return t
             if target is not None and torch.device(target).index is not None:
                 t._named = torch.device(target)
+                self.seen.add(t._named)
             return t
 
         return pytree_map(mark, out)
@@ -455,6 +470,20 @@ def _leaves(tree):
         yield tree
 
 
+def _placement_run(names, model_shards):
+    """FleetVio on a mesh of named CPU devices from the ground truth over
+    six frames: (fleet, state, last outputs, keyframes per stream, the
+    named devices any result was placed on)."""
+    with NamedDevices() as mode:
+        fleet = FleetVio(_params(), B, devices=names, model_shards=model_shards)
+        state = fleet.init(*_frame(0)[:2], *_gt_navs())
+        n_kf = np.zeros(B, int)
+        for k in range(1, 7):
+            state, out = fleet.step(state, *_frame(k))
+            n_kf += out["is_keyframe"]
+    return fleet, state, out, n_kf, mode.seen
+
+
 def test_mesh_device_placement():
     """A (2, 2) mesh of four named CPU devices: no op mixes two of them,
     every leaf of a row's frontend state and window lies on the row's
@@ -462,13 +491,7 @@ def test_mesh_device_placement():
     and the outputs on the mesh's first device, after steps that keyframe
     in every stream."""
     names = [f"cpu:{i}" for i in range(4)]
-    with NamedDevices():
-        fleet = FleetVio(_params(), B, devices=names, model_shards=2)
-        state = fleet.init(*_frame(0)[:2], *_gt_navs())
-        n_kf = np.zeros(B, int)
-        for k in range(1, 7):
-            state, out = fleet.step(state, *_frame(k))
-            n_kf += out["is_keyframe"]
+    fleet, state, out, n_kf, _ = _placement_run(names, 2)
     assert (n_kf >= 1).all()
     assert fleet.mesh == [[torch.device(n) for n in names[:2]], [torch.device(n) for n in names[2:]]]
     for row, devs in zip(state.rows, fleet.mesh):
@@ -483,3 +506,21 @@ def test_mesh_device_placement():
     # The mode sees through: a leak from one row into another raises.
     with NamedDevices(), pytest.raises(RuntimeError, match="mixes devices"):
         torch.zeros(3, device="cpu:0") + torch.zeros(3, device="cpu:1")
+
+
+def test_uneven_mesh_device_placement():
+    """A (2, 3) mesh of six named CPU devices at 64 landmarks (64 % 3 = 1):
+    each row's table plain and whole on the row's first device, and no
+    tensor ever placed on a row's other two devices."""
+    names = [f"cpu:{i}" for i in range(6)]
+    fleet, state, out, n_kf, seen = _placement_run(names, 3)
+    assert (n_kf >= 1).all()
+    assert [len(row) for row in fleet.mesh] == [3, 3]
+    for row, devs in zip(state.rows, fleet.mesh):
+        assert type(row.lmk) is sm.LandmarkTable
+        for leaf in _leaves((row.fe_state, row.win, row.lmk)):
+            assert getattr(leaf, "_named", None) == devs[0]
+    assert seen == {torch.device("cpu", 0), torch.device("cpu", 3)}
+    for k, v in out.items():
+        if isinstance(v, torch.Tensor):
+            assert getattr(v, "_named", None) == torch.device("cpu", 0), k
