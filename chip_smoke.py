@@ -5,8 +5,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernel from csrc/ (nvcc, sm_90a), holds it
-against its plain PyTorch version on the card, drives the port's
+It builds the hand-written CUDA kernels from csrc/ (nvcc, sm_90a), holds
+each against its plain PyTorch version on the card, drives the port's
 stereo-inertial `StereoImuPipeline.run()` on the synthetic 752x480
 sequence (80 frames), its CLI, loop closure, its variants (mono,
 RGB-D, online initialization, pose sources, time alignment), the
@@ -14,8 +14,10 @@ mesher with RegularVIO, the options it used to refuse, the KITTI and
 live providers, the debug overlays, the visualizer and the playground,
 a fleet of eight streams through one batched frame step, the staging
 codecs of the CLI's --chunked mode, LK windows wider than 54 px and the
-fleet over a (data, model) mesh of devices, and checks the results.
-Every failure ends the run with a non-zero exit code and no result line. Printed, in order: the
+fleet over a (data, model) mesh of devices, all with the default LK
+tracker (the JAX package's `lk_impl="matmul"`, `lk_cached_kernel`), then
+the pyramid trackers' run paths under KIMERA_LK_IMPL, and checks the
+results. Every failure ends the run with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
 path, the phases' lines, one JSON line with the kernel table, and last
 the JSON result line.
@@ -33,13 +35,30 @@ Phases:
      differ in order: median and max |d| < 0.01 px over the keypoints
      both track, and the same `ok` for every keypoint. Printed per level: mean and max
      Gauss-Newton steps; and the launch's time with no Gauss-Newton step.
+     Then (`cached_phase`) the default tracker's kernel, `lk_cached_kernel`
+     (`lk_cached_cuda`, one launch per frame), against its plain version
+     `optical_flow.track_cached` on the same CUDA tensors and the same
+     template cache (`build_lk_templates`, plain PyTorch): at the main
+     path's shapes (752x480, win 24), 1241x376, 752x480 at win 53, 61, 101
+     and 151, at win 231 (the global route: no patch fits in shared
+     memory), and B = 4 streams in one launch against plain per stream and four single launches bit for
+     bit. Gates: the same `ok` for every keypoint, median and max |d| <
+     0.01 px over the keypoints both track, each row's route the one
+     `lk.cached_route(win, opt-in bytes)` gives and every route covered.
+     One `[cached]` line per row: route, shared memory, per-level steps,
+     graph-replay ms, no-step ms, us a step on the longest chain, eager ms
+     of `klt_track_cached_lk`, plain ms, the template build's ms and the
+     bound (`cached_work`).
   2. main path: launch counter set to 0, the sequential `run()`
      (`parallel_run=False`, which times frame and keyframe steps apart)
      on the card at the full configuration (752x480, 256 features,
      10-keyframe horizon, 384 landmarks, 80 frames); the counter must
-     equal the tracked frames (one launch each), the trajectory must be
+     equal the tracked frames (one launch each, every one
+     `lk_cached_kernel`'s on its shared route), the trajectory must be
      finite and within the JAX package's ATE gate (rmse < 0.05 m,
-     tests/test_pipeline_e2e.py:35).
+     tests/test_pipeline_e2e.py:35). Phases 3-11 run the same default
+     tracker: "LK launches" below counts `lk_cached_kernel`'s and the
+     pyramid kernels' launches together.
   3. cli: phase 2's sequence written as a EuRoC `mav0` folder (PNGs from
      the package's encoder, dataprovider/png.py, whose rows cycle through
      all five PNG filters; CSVs with repr floats) and phase 2's params as a
@@ -165,18 +184,19 @@ Phases:
      (`write_kitti`: PNGs, datetime timestamps, OXTS rows), read back
      exactly (stamps on the folder's clock, OXTS rows, every PNG), then
      `KittiDataProvider` through the sequential `run()` at phase 2's
-     capacities, twice. With the source's ground truth attached: level 0
-     of the LK level table in B1's gather mode, LK launches = tracked
+     capacities, twice. With the source's ground truth attached: every
+     launch `lk_cached_kernel`'s on its shared route, LK launches = tracked
      frames, ATE rmse < 0.05 m, the keyframe stamps of the source run
      directly (images rounded to uint8) and positions within 1e-3 m of
      it. Without ground truth (the IMU-attitude bootstrap): LK launches =
      tracked frames, finite poses, at least one keyframe. One `[kitti]`
      line per run: frames/s beside phase 2's, frame and keyframe step ms,
-     ATE, and B1's in-run launch-and-kernel ms per frame (CUDA events
-     around the kernel's wrapper: the host's launch path falls between
-     them). A third run with ground truth, under `torch.profiler`, reads
-     B1's device time per launch from the trace; one more `[kitti]` line
-     puts it beside phase 1's graph-replay time of the 1241x376 pair.
+     ATE, and the kernel's in-run launch-and-kernel ms per frame (CUDA
+     events around the kernel's wrapper: the host's launch path falls
+     between them). A third run with ground truth, under `torch.profiler`,
+     reads the kernel's device time per launch from the trace; one more
+     `[kitti]` line puts it beside phase 1's graph-replay time of the
+     1241x376 pair. Phase 12 runs the same under "pallas" (B1 at level 0).
      (b) Live: phase 2's sequence replayed through `LiveDataProvider` on a
      feeder thread into the sequential `run()`, phase 2's ground truth
      attached (its bootstrap): phase 2's keyframe stamps, positions within
@@ -246,9 +266,10 @@ Phases:
      registers and spills at the build); B = 4 streams at win 61 in one
      launch against plain per stream and four single launches bit for bit;
      a sequential `run()` at phase 2's configuration with klt_win_size 61
-     (gates: LK launches = tracked frames, every launch with the gather
-     rule at 61 px through wide_plan's route and plan, ATE < 0.05 m). One
-     `[wide]` line per row and run.
+     under the default tracker (gates: LK launches = tracked frames, every
+     launch `lk_cached_kernel`'s at 61 px on its shared route, ATE < 0.05
+     m; phase 12 runs it under "gather"). One `[wide]` line per row and
+     run.
  11. mesh: `FleetVio` over a (data, model) mesh, the counterpart of the
      JAX package's __graft_entry__.dryrun_multichip. Phase 9's first
      four streams and configuration (752x480, 256 features, 10-keyframe
@@ -259,7 +280,7 @@ Phases:
      4, a (D/2, 2) mesh (D = 4 where there are four, else 2). Gates per
      run: LK launches = fleet frames x data rows, each device counting one
      launch per fleet frame for each row it leads
-     (`lk_pyramid_cuda.launches_by_device`); the keyframe flags of phase
+     (`lk_cached_cuda.launches_by_device`); the keyframe flags of phase
      9's B = 4 one-device run, positions within 1e-4 m of it, each
      stream's landmark ids equal to its ids there on every frame up to the
      first on which its frontend gave other keypoints (the batched frame
@@ -295,6 +316,15 @@ Phases:
      read the stream's images only; the rest within 1e-4: the batched
      preintegration sums in another order). One `[mesh]` and one `[fleet]`
      line.
+ 12. legacy trackers: the port's pyramid trackers on run paths, chosen by
+     KIMERA_LK_IMPL as in the JAX package. Phase 2's 80-frame run under
+     "pallas" (B2 on every level: every launch `lk_pyramid_kernel<24,
+     56, 24>`'s, launches = tracked frames, ATE < 0.05 m), phase 8's KITTI
+     run with ground truth under "pallas" (level 0 in B1's gather mode, its
+     gates and its profiled device time) and phase 10's 61 px run under
+     "gather" (every launch through `lk_wide_kernel` on wide_plan's
+     plan). One `[legacy]`, `[kitti]` and `[wide]` line per run. Every
+     kernel of the table must have launched on a run path.
 """
 
 from __future__ import annotations
@@ -539,6 +569,238 @@ def kernel_phase(dev) -> dict:
     return main
 
 
+# ---------------------------------------------------------------------------
+# Phase 1 (b): lk_cached_kernel, the default tracker (lk_impl="matmul")
+# ---------------------------------------------------------------------------
+
+CACHED_KW = dict(win=WIN, max_iter=MAX_ITER, eps=EPS)
+SLACK = of.SLACK
+
+
+def reset_lk_counts() -> None:
+    """Set both LK wrappers' launch counters to 0 (the pyramid and wide
+    kernels count on `lk_pyramid_cuda`, the default tracker's on
+    `lk_cached_cuda`)."""
+    for fn in (lk.lk_pyramid_cuda, lk.lk_cached_cuda):
+        fn.launches = 0
+        fn.launches_by_device.clear()
+
+
+def lk_launches() -> int:
+    """LK kernel launches since `reset_lk_counts`, whatever the tracker."""
+    return lk.lk_pyramid_cuda.launches + lk.lk_cached_cuda.launches
+
+
+def lk_launches_by_device() -> dict:
+    return dict(lk.lk_pyramid_cuda.launches_by_device + lk.lk_cached_cuda.launches_by_device)
+
+
+@contextlib.contextmanager
+def lk_impl(name: str | None):
+    """KIMERA_LK_IMPL set to `name` (None: unset, the default tracker) for
+    the pipelines built inside."""
+    old = os.environ.pop("KIMERA_LK_IMPL", None)
+    if name is not None:
+        os.environ["KIMERA_LK_IMPL"] = name
+    try:
+        yield
+    finally:
+        os.environ.pop("KIMERA_LK_IMPL", None)
+        if old is not None:
+            os.environ["KIMERA_LK_IMPL"] = old
+
+
+def _patch_pixels(shape, seeds, win: int) -> int:
+    """Distinct pixels of an (H, W) plane under the (S, S) search patches,
+    S = win + 2 slack + 2, that `lk_cached_kernel` stages at `seeds`
+    (origins clamped as the reference clamps them, pixels clipped to the
+    plane)."""
+    H, W = shape
+    if seeds.shape[0] == 0:
+        return 0
+    S = win + 2 * SLACK + 2
+    a = torch.arange(S, device=seeds.device)
+    o = torch.floor(seeds - (win - 1) * 0.5).long() - (SLACK + 1)
+    rows = (o[:, 1:2].clamp(-S, H) + a).clamp(0, H - 1)
+    cols = (o[:, 0:1].clamp(-S, W) + a).clamp(0, W - 1)
+    mask = torch.zeros(H * W, dtype=torch.bool, device=seeds.device)
+    mask[(rows[:, :, None] * W + cols[:, None, :]).flatten()] = True
+    return int(mask.sum())
+
+
+def cached_work(levels, n_kpts: int, n_levels: int, win: int) -> tuple[int, float]:
+    """(bytes, float32 operations) of one frame of `lk_cached_kernel`, from
+    this run's data. Bytes, each read once: the keypoints in (seed, flag)
+    and out (point, flag, steps per level); per tracked level each
+    keypoint's template gate, and for each keypoint taking a step there
+    its template, gx and gy windows and inverse gradient matrix, and the
+    distinct current-level pixels under those keypoints' search patches.
+    Operations: 17 per step and window pixel (two y-lerps, an x-lerp, the
+    residual, two multiply-adds), as `lk_work` counts the other kernel's
+    steps; the cache needs no setup here."""
+    npx = win * win
+    nbytes = n_kpts * (8 + 1) + n_kpts * (8 + 1 + 4 * n_levels)
+    flops = 0.0
+    for lv in levels:
+        stepped = lv["iters"] > 0
+        nbytes += n_kpts + int(stepped.sum()) * (12 * npx + 12)
+        nbytes += 4 * _patch_pixels(lv["shape"], lv["seeds"][stepped], win)
+        flops += int(lv["iters"].sum()) * npx * 17
+    return nbytes, flops
+
+
+@contextlib.contextmanager
+def seen_cached_levels():
+    """Record each tracked level of the plain version: its shape, the seeds
+    its patches are cut at and the steps each keypoint took (flattened
+    over streams)."""
+    seen, orig = [], of._iterate_level_cached
+
+    def level(T, cur_img, cur_pts, *a, **kw):
+        out = orig(T, cur_img, cur_pts, *a, **kw)
+        seen.append({"shape": tuple(cur_img.shape[-2:]), "seeds": cur_pts.reshape(-1, 2),
+                     "iters": out[3].reshape(-1)})
+        return out
+
+    of._iterate_level_cached = level
+    try:
+        yield seen
+    finally:
+        of._iterate_level_cached = orig
+
+
+def _cached_route_of(call) -> tuple:
+    """Run call() and return (its result, the route its launch took)."""
+    before = collections.Counter(lk.lk_cached_cuda.routes)
+    out = call()
+    diff = lk.lk_cached_cuda.routes - before
+    if sum(diff.values()) != 1:
+        raise AssertionError(f"expected one lk_cached launch, got routes {dict(diff)}")
+    return out, next(iter(diff))
+
+
+def compare_cached(prev_pyr, cur_pyr, pts, init, valid, label: str, win: int = WIN,
+                   min_both: float = 0.5) -> dict:
+    """lk_cached_kernel vs its plain version (`optical_flow.track_cached`)
+    on the same CUDA tensors and the same template cache (built once, by
+    the plain `build_lk_templates`). Gates: the same `ok` for every
+    keypoint; median and max |d| < 0.01 px over the keypoints both track
+    (at least `min_both` of them). Returns the errors, steps, the route,
+    the times and the bound."""
+    kw = dict(CACHED_KW, win=win)
+    templates = of.build_lk_templates(prev_pyr, pts, valid, win=win)
+    (out_k, ok_k, it_k), route = _cached_route_of(
+        lambda: lk.lk_cached_cuda(templates, cur_pyr, init, valid, **kw))
+    with seen_cached_levels() as seen:
+        out_p, ok_p, it_p = of.track_cached(templates, cur_pyr, init, valid, **kw)
+    torch.cuda.synchronize()
+    agree = float((ok_k == ok_p).float().mean())
+    both = ok_k & ok_p
+    d = torch.linalg.norm(out_k - out_p, dim=-1)[both]
+    if int(both.sum()) < max(1, min_both * pts.shape[-2]):
+        raise AssertionError(f"{label}: only {int(both.sum())} keypoints tracked by both")
+    median, max_err = float(d.median()), float(d.max())
+    # Same float32 math in the same term order; only the window sums are
+    # added in another order.
+    if not (median < 0.01 and max_err < 0.01 and agree == 1.0):
+        raise AssertionError(f"{label}: median {median} px, max {max_err} px, "
+                             f"ok agreement {agree}")
+    n = len(cur_pyr)
+    res = {"label": label, "win": win, "route": route,
+           "smem_bytes": lk.lk_cached_cuda.report[route]["smem"],
+           "launches_per_frame": 1, "tracked": int(ok_k.sum()), "ok_agreement": agree,
+           "median_abs_err": median, "max_abs_err": max_err,
+           "levels": [{"level": lvl, "shape": list(cur_pyr[lvl].shape[-2:]),
+                       "mean_steps": float(it_k[..., lvl].float().mean()),
+                       "max_steps": int(it_k[..., lvl].max()),
+                       "plain_mean_steps": float(it_p[..., lvl].float().mean()),
+                       "plain_max_steps": int(it_p[..., lvl].max())}
+                      for lvl in range(n - 1, -1, -1) if templates[lvl] is not None]}
+    # ms: device time of one frame's launch (graph replay); beside it the
+    # launch with no Gauss-Newton step (patch staging on every level), the
+    # eager time of the tracker entry point, the plain version and the
+    # keyframe's template build (plain PyTorch).
+    ms = graph_ms(lambda: lk.lk_cached_cuda(templates, cur_pyr, init, valid, **kw))
+    ms_no_steps = graph_ms(lambda: lk.lk_cached_cuda(templates, cur_pyr, init, valid,
+                                                     **{**kw, "max_iter": 0}))
+    chain = int(it_k.reshape(-1, n).sum(-1).max())
+    plain_ms = time_ms(lambda: of.track_cached(templates, cur_pyr, init, valid, **kw),
+                       reps=3, warmup=1)
+    tmpl_ms = time_ms(lambda: of.build_lk_templates(prev_pyr, pts, valid, win=win), reps=10)
+    eager_ms = time_ms(lambda: lk.klt_track_cached_lk(templates, cur_pyr, init, valid,
+                                                      device=pts.device, **kw), reps=50)
+    b_ms, b_by = bound_ms(*cached_work(seen, int(valid.numel()), n, win))
+    res.update(ms=ms, ms_no_steps=ms_no_steps, max_chain_steps=chain,
+               us_per_step_on_longest_chain=1e3 * (ms - ms_no_steps) / max(chain, 1),
+               eager_ms=eager_ms, plain_ms=plain_ms, template_build_ms=tmpl_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    log(f"[cached] {json.dumps(res)}")
+    return res
+
+
+def compare_cached_streams(inp: dict, n_streams: int, label: str) -> dict:
+    """ONE launch for n_streams streams (a stacked template cache) against
+    the plain version per stream (phase 1's gate) and against n_streams
+    single-stream launches bit for bit."""
+    per = [of.build_lk_templates([p[b] for p in inp["prev"]], inp["pts"][b], inp["valid"][b])
+           for b in range(n_streams)]
+    stacked = stack_trees(per)
+    cur = [c[:n_streams] for c in inp["cur"]]
+    pts, valid = inp["pts"][:n_streams], inp["valid"][:n_streams]
+    out_k, ok_k, it_k = lk.lk_cached_cuda(stacked, cur, pts, valid, **CACHED_KW)
+    d, agree, both_n = [], [], 0
+    for b in range(n_streams):
+        cur_b = [c[b] for c in cur]
+        single = lk.lk_cached_cuda(per[b], cur_b, pts[b], valid[b], **CACHED_KW)
+        if not (torch.equal(single[0], out_k[b]) and torch.equal(single[1], ok_k[b])
+                and torch.equal(single[2], it_k[b])):
+            raise AssertionError(f"{label}: stream {b}'s batched launch differs from its own")
+        out_p, ok_p, _ = of.track_cached(per[b], cur_b, pts[b], valid[b], **CACHED_KW)
+        both = ok_k[b] & ok_p
+        both_n += int(both.sum())
+        d.append(torch.linalg.norm(out_k[b] - out_p, dim=-1)[both])
+        agree.append(float((ok_k[b] == ok_p).float().mean()))
+    d = torch.cat(d)
+    if both_n < 0.5 * n_streams * pts.shape[1]:
+        raise AssertionError(f"{label}: only {both_n} keypoints tracked by both")
+    median, max_err = float(d.median()), float(d.max())
+    if not (median < 0.01 and max_err < 0.01 and min(agree) == 1.0):
+        raise AssertionError(f"{label}: median {median} px, max {max_err} px, "
+                             f"ok agreement {min(agree)}")
+    ms = graph_ms(lambda: lk.lk_cached_cuda(stacked, cur, pts, valid, **CACHED_KW))
+    res = {"label": label, "streams": n_streams, "launches": 1, "tracked": int(ok_k.sum()),
+           "median_abs_err": median, "max_abs_err": max_err, "ok_agreement": min(agree),
+           "equal_to_single_launches": True, "ms": ms, "ms_per_stream_frame": ms / n_streams}
+    log(f"[cached] {json.dumps(res)}")
+    return res
+
+
+def cached_phase(dev) -> dict:
+    """Phase 1 (b): lk_cached_kernel against its plain version at the main
+    path's shapes (752x480, win 24), at 1241x376, at 53, 61, 101 and 151 px,
+    at 231 px (the global route: no patch fits in shared memory), and with
+    four streams in one launch."""
+    optin = optin_bytes(dev)
+    prev_pyr, cur_pyr, uv, valid = main_lk_inputs(dev)
+    rows = {"752x480": compare_cached(prev_pyr, cur_pyr, uv, uv, valid, "752x480")}
+    kprev, kcur, kpts, kvalid = kitti_lk_inputs(dev)
+    rows["1241x376"] = compare_cached(kprev, kcur, kpts, kpts, kvalid, "1241x376")
+    for win in (53, 61, 101, 151):
+        rows[f"752x480 win {win}"] = compare_cached(prev_pyr, cur_pyr, uv, uv, valid,
+                                                    f"752x480 win {win}", win=win, min_both=0.25)
+    rows["752x480 win 231"] = compare_cached(prev_pyr, cur_pyr, uv, uv, valid, "752x480 win 231",
+                                             win=231, min_both=0.02)
+    for label, r in rows.items():
+        want = lk.cached_route(r["win"], optin)
+        if r["route"] != want or r["smem_bytes"] != lk.cached_smem(want, r["win"]):
+            raise AssertionError(f"{label}: route {r['route']} ({r['smem_bytes']} B), "
+                                 f"expected {want} under {optin} B opt-in")
+    if {r["route"] for r in rows.values()} != set(lk.CACHED_ROUTES):
+        raise AssertionError(f"the rows do not cover every route: {[r['route'] for r in rows.values()]}")
+    rows["752x480 B=4"] = compare_cached_streams(fleet_lk_inputs(dev, 4), 4, "752x480 B=4")
+    return rows
+
+
 def kitti_lk_inputs(dev, margin: float = 14.0):
     """A KITTI-sized (1241x376) textured pair shifted by 9.6 px, 5-level
     pyramids and 256 random keypoints `margin` px inside the image.
@@ -565,15 +827,21 @@ def path_phase(dev) -> dict:
     provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
     pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
     torch.cuda.synchronize()
-    lk.lk_pyramid_cuda.launches = 0
+    reset_lk_counts()
+    lk.lk_cached_cuda.routes.clear()
     t0 = time.perf_counter()
     out = pipe.run(provider)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lk.lk_pyramid_cuda.launches
+    launches = lk_launches()
     tracked = out.n_frames - 1  # the first frame initializes, the rest track
     if launches != tracked:
         raise AssertionError(f"LK kernel launches {launches} != {tracked} tracked frames")
+    # The default tracker: every launch lk_cached_kernel's, on its shared route.
+    if (lk.lk_cached_cuda.launches != tracked
+            or dict(lk.lk_cached_cuda.routes) != {"lk_cached shared": tracked}):
+        raise AssertionError(f"main path: {lk.lk_cached_cuda.launches} lk_cached launches, "
+                             f"routes {dict(lk.lk_cached_cuda.routes)}")
     est = np.stack(out.positions)
     if est.shape != (out.n_keyframes, 3) or not np.isfinite(est).all():
         raise AssertionError("trajectory not finite or of the wrong shape")
@@ -590,7 +858,8 @@ def path_phase(dev) -> dict:
         / pipe.stats.get("VioFrontend Frame Rate [ms]").count,
         "keyframe_ms_mean": pipe.stats.get("VioFrontend Keyframe Rate [ms]").total
         / pipe.stats.get("VioFrontend Keyframe Rate [ms]").count,
-        "lk_launches": launches,
+        "lk_launches": launches, "lk_impl": pipe.frontend_cfg.lk_impl,
+        "lk_launches_by_route": dict(lk.lk_cached_cuda.routes),
     }
     log(f"[path] {json.dumps(res)}")
     res["stamps_ns"], res["positions"], res["pipe"] = out.stamps_ns, est, pipe
@@ -930,9 +1199,9 @@ def run_cli(mode: str, args: list, gt, out_dir: str):
     """`python -m kimera_vio_tpu_torch` in-process with the LK counter
     set to 0 just before; returns (numbers, the output)."""
     with recording_pipeline() as rec:
-        lk.lk_pyramid_cuda.launches = 0
+        reset_lk_counts()
         rc = cli_main(args + ["--log_output", "--output_path", out_dir])
-        launches = lk.lk_pyramid_cuda.launches
+        launches = lk_launches()
     return check_cli_run(mode, rec, rc, launches, gt, out_dir), rec["runs"][0]["out"]
 
 
@@ -1077,9 +1346,9 @@ def run_cli_lcd(mode: str, args: list, gt, out_dir: str, phase2_fps: float) -> t
     """The CLI with --use_lcd, LK counter set to 0 just before; gates one
     run. Returns (numbers, lcd_result)."""
     with recording_pipeline() as rec, timed_lcd_extract() as events:
-        lk.lk_pyramid_cuda.launches = 0
+        reset_lk_counts()
         rc = cli_main(args + ["--log_output", "--output_path", out_dir])
-        launches = lk.lk_pyramid_cuda.launches
+        launches = lk_launches()
     if rc != 0 or len(rec["runs"]) != 1:
         raise AssertionError(f"lcd {mode}: main returned {rc} after {len(rec['runs'])} runs")
     run = rec["runs"][0]
@@ -1308,12 +1577,12 @@ def run_variant(name: str, make_pipe, provider, gt, phase2_fps: float, ate_gate:
     pipe = make_pipe()
     with counted_steps() as rec:
         torch.cuda.synchronize()
-        lk.lk_pyramid_cuda.launches = 0
+        reset_lk_counts()
         t0 = time.perf_counter()
         out = pipe.run(provider)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = lk.lk_pyramid_cuda.launches
+        launches = lk_launches()
     if launches != rec["steps"]:
         raise AssertionError(f"{name}: LK launches {launches} != {rec['steps']} tracked frames")
     est = np.stack(out.positions)
@@ -1366,9 +1635,9 @@ def variants_phase(dev, path: dict) -> dict:
         for mode, extra in (("sequential", ["--parallel_run", "0"]), ("run", []),
                             ("chunked", ["--chunked", "--chunk_size", "16"])):
             with recording_pipeline() as rec:
-                lk.lk_pyramid_cuda.launches = 0
+                reset_lk_counts()
                 rc = cli_main(base + extra + ["--log_output", "--output_path", os.path.join(tmp, mode)])
-                launches = lk.lk_pyramid_cuda.launches
+                launches = lk_launches()
             row = check_cli_run(f"mono {mode}", rec, rc, launches, provider.ground_truth,
                                 os.path.join(tmp, mode))
             if type(rec["runs"][0]["pipe"]).__name__ != "MonoImuPipeline":
@@ -1665,12 +1934,12 @@ def run_mesher(dev, name: str, params, provider, fps2: float, out_dir: str | Non
                              enable_mesher=enable_mesher, output_path=out_dir)
     with counted_steps() as steps, timed_mesher() as rec:
         torch.cuda.synchronize()
-        lk.lk_pyramid_cuda.launches = 0
+        reset_lk_counts()
         t0 = time.perf_counter()
         out = pipe.run(provider)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = lk.lk_pyramid_cuda.launches
+        launches = lk_launches()
     row = mesher_row(name, pipe, out, wall, launches, steps["steps"], provider.ground_truth, fps2,
                      rec if enable_mesher else None)
     return row, out, pipe, rec
@@ -1736,9 +2005,9 @@ def mesher_phase(dev, path: dict) -> dict:
                             ("cli_chunked", ["--chunked", "--chunk_size", "16"])):
             out_dir = os.path.join(tmp, mode)
             with recording_pipeline() as rec_runs, timed_mesher() as rec:
-                lk.lk_pyramid_cuda.launches = 0
+                reset_lk_counts()
                 rc = cli_main(base + extra + ["--log_output", "--output_path", out_dir])
-                launches = lk.lk_pyramid_cuda.launches
+                launches = lk_launches()
             if rc != 0 or len(rec_runs["runs"]) != 1:
                 raise AssertionError(f"{mode}: main returned {rc} after {len(rec_runs['runs'])} runs")
             run = rec_runs["runs"][0]
@@ -1917,9 +2186,9 @@ def options_phase(dev, path: dict, kern: dict) -> dict:
         args = ["--params_folder", pfolder, "--dataset_path", data, "--max_features", "256",
                 "--max_landmarks", "384", "--device", dev.type, "--chunked", "--chunk_size", "16"]
         with recording_pipeline() as rec:
-            lk.lk_pyramid_cuda.launches = 0
+            reset_lk_counts()
             rc = cli_main(args + ["--log_output", "--output_path", os.path.join(tmp, "out")])
-            launches = lk.lk_pyramid_cuda.launches
+            launches = lk_launches()
         row = check_cli_run("g_combined_cli_chunked", rec, rc, launches, gt, os.path.join(tmp, "out"))
         if not rec["runs"][0]["pipe"].backend_cfg.combined_pim:
             raise AssertionError("g_combined_cli_chunked: the params folder did not set the flag")
@@ -1965,34 +2234,39 @@ def kitti_params() -> VioParams:
 
 
 @contextlib.contextmanager
-def timed_lk():
-    """Wrap `lk.lk_pyramid_cuda` for one run: CUDA events around each call
+def timed_lk(name: str = "lk_pyramid_cuda"):
+    """Wrap the LK wrapper `lk.<name>` (`lk_pyramid_cuda`, or the default
+    tracker's `lk_cached_cuda`) for one run: CUDA events around each call
     (the kernel's in-run time, launch included), the last call's level
-    shapes and window rule, and per (win, search_rows) its calls. The
-    launch and route counters then live on the wrapper (the kernel's
-    wrapper adds to `lk.lk_pyramid_cuda.launches`, `.launches_by_device`
-    and `.routes`, the module's name); they start at 0."""
+    shapes and window rule, and per (win, search_rows) its calls
+    (search_rows "cached" for the default tracker). The launch and route
+    counters then live on the wrapper (the kernel's wrapper adds to
+    `lk.<name>.launches`, `.launches_by_device` and `.routes`, the
+    module's name); they start at 0."""
     rec = {"events": [], "rules": collections.Counter()}
-    orig = lk.lk_pyramid_cuda
+    orig = getattr(lk, name)
+    cached = name == "lk_cached_cuda"
 
-    def wrapped(prev_pyr, *a, **kw):
+    def wrapped(first, second, *a, **kw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = orig(prev_pyr, *a, **kw)
+        out = orig(first, second, *a, **kw)
         end.record()
         rec["events"].append((start, end))
-        rec.update(shapes=[tuple(p.shape) for p in prev_pyr], win=kw["win"],
-                   search_rows=kw["search_rows"])
-        rec["rules"][(kw["win"], kw["search_rows"])] += 1
+        rule = "cached" if cached else kw["search_rows"]
+        # The planes: lk_pyramid_cuda's prev_pyr, lk_cached_cuda's cur_pyr.
+        rec.update(shapes=[tuple(p.shape) for p in (second if cached else first)],
+                   win=kw["win"], search_rows=rule)
+        rec["rules"][(kw["win"], rule)] += 1
         return out
 
     wrapped.launches, wrapped.routes, wrapped.report = 0, collections.Counter(), {}
     wrapped.launches_by_device = collections.Counter()
-    lk.lk_pyramid_cuda = wrapped
+    setattr(lk, name, wrapped)
     try:
         yield rec
     finally:
-        lk.lk_pyramid_cuda = orig
+        setattr(lk, name, orig)
         rec["launches"], rec["routes"] = wrapped.launches, wrapped.routes
         rec["report"] = wrapped.report
     torch.cuda.synchronize()
@@ -2012,12 +2286,12 @@ def run_counted(pipe, provider, entry: str = "run", **kw) -> dict:
     output and wall time."""
     with counted_steps() as steps:
         torch.cuda.synchronize()
-        lk.lk_pyramid_cuda.launches = 0
+        reset_lk_counts()
         t0 = time.perf_counter()
         out = getattr(pipe, entry)(provider, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = lk.lk_pyramid_cuda.launches
+        launches = lk_launches()
     if launches != steps["steps"]:
         raise AssertionError(f"LK launches {launches} != {steps['steps']} tracked frames")
     est = np.stack(out.positions)
@@ -2026,12 +2300,16 @@ def run_counted(pipe, provider, entry: str = "run", **kw) -> dict:
     return {"out": out, "wall": wall, "launches": launches, "fed": steps["steps"] + steps["bootstraps"]}
 
 
-def kitti_phase(dev, path: dict, kern: dict, work: str) -> dict:
-    """Phase 8 (a) (see the module docstring)."""
+def kitti_phase(dev, path: dict, graph_ms: float, work: str, impl: str | None = None) -> dict:
+    """Phase 8 (a) (see the module docstring) with the default tracker
+    (`lk_cached_kernel`), or with `impl` "pallas" phase 12's runs of B1 at
+    level 0 (with ground truth, and under the profiler; not the run
+    without); `graph_ms` is phase 1's graph-replay ms of that kernel at
+    1241x376."""
     from kimera_vio_tpu_torch.dataprovider.kitti import KittiDataProvider
 
     src = SyntheticStereoProvider(**KITTI)
-    root = os.path.join(work, "kitti")
+    root = os.path.join(work, "kitti" if impl is None else f"kitti_{impl}")
     t0 = time.perf_counter()
     written = write_kitti(root, src)
     write_s = time.perf_counter() - t0
@@ -2048,20 +2326,31 @@ def kitti_phase(dev, path: dict, kern: dict, work: str) -> dict:
             raise AssertionError(f"KITTI folder: decoded PNG differs from the array written: {p}")
     decode_ms = (time.perf_counter() - t0) * 1e3 / len(written)
     params = kitti_params()
-    # The source run directly, images rounded as the PNGs hold them.
-    ref = run_counted(StereoImuPipeline(params, parallel_run=False, device=dev), Quantized(src))
+    wrapper = "lk_pyramid_cuda" if impl == "pallas" else "lk_cached_cuda"
+    with lk_impl(impl):
+        # The source run directly, images rounded as the PNGs hold them.
+        ref = run_counted(StereoImuPipeline(params, parallel_run=False, device=dev),
+                          Quantized(src))
     res = {}
-    for name, gt in (("gt", shifted_gt(src.ground_truth, offset)), ("no_gt", None)):
+    runs = [("gt", shifted_gt(src.ground_truth, offset))] + ([("no_gt", None)] if impl is None
+                                                             else [])
+    for name, gt in runs:
         prov = KittiDataProvider(root)
         prov.ground_truth = gt
-        pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
-        with timed_lk() as rec:
+        with lk_impl(impl):
+            pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+        with timed_lk(wrapper) as rec:
             r = run_counted(pipe, prov)
         out = r["out"]
-        plan = lk.level_table(rec["shapes"], rec["win"], rec["search_rows"])
-        modes = {lv.level: lv.mode for lv in plan}
-        if modes[0] != "gather":
-            raise AssertionError(f"KITTI {name}: level 0 is {modes[0]}, not the gather mode (B1)")
+        if impl == "pallas":
+            plan = lk.level_table(rec["shapes"], rec["win"], rec["search_rows"])
+            modes = {lv.level: lv.mode for lv in plan}
+            if modes[0] != "gather":
+                raise AssertionError(f"KITTI {name}: level 0 is {modes[0]}, not the gather mode (B1)")
+        else:
+            modes = {lvl: "cached" for lvl in range(len(rec["shapes"]))}
+            if dict(rec["routes"]) != {"lk_cached shared": r["launches"]}:
+                raise AssertionError(f"KITTI {name}: lk_cached routes {dict(rec['routes'])}")
         if rec["launches"] != r["launches"] or len(rec["rules"]) != 1:
             raise AssertionError(f"KITTI: the timed wrapper missed launches, or they took "
                                  f"several rules: {dict(rec['rules'])}")
@@ -2073,9 +2362,10 @@ def kitti_phase(dev, path: dict, kern: dict, work: str) -> dict:
                "frames_per_s": r["fed"] / r["wall"], "path_frames_per_s": path["frames_per_s"],
                "frame_step_ms": fr.total / fr.count if fr.count else None,
                "keyframe_step_ms": kf.total / kf.count if kf.count else None,
-               "b1_launch_and_kernel_ms_per_frame": float(np.mean(rec["ms"])),
-               "b1_launch_and_kernel_ms_median": float(np.median(rec["ms"])),
-               "b1_graph_ms_phase1": kern["kitti"]["ms"]}
+               "lk_impl": impl or "matmul", "kernel": wrapper,
+               "lk_launch_and_kernel_ms_per_frame": float(np.mean(rec["ms"])),
+               "lk_launch_and_kernel_ms_median": float(np.median(rec["ms"])),
+               "lk_graph_ms_phase1": graph_ms}
         if gt is not None:
             est = np.stack(out.positions)
             row["ate_rmse_m"] = compute_ate(np.array(out.stamps_ns), est, gt.stamps_ns,
@@ -2093,37 +2383,41 @@ def kitti_phase(dev, path: dict, kern: dict, work: str) -> dict:
         res[name] = row
         log(f"[kitti] {json.dumps(row)}")
     res["profile"] = kitti_kernel_profile(dev, params, root, shifted_gt(src.ground_truth, offset),
-                                          kern["kitti"]["ms"])
+                                          graph_ms, impl)
     return res
 
 
-def kitti_kernel_profile(dev, params, root: str, gt, graph_ms: float) -> dict:
+def kitti_kernel_profile(dev, params, root: str, gt, graph_ms: float,
+                         impl: str | None = None) -> dict:
     """The KITTI run with ground truth once more, under `torch.profiler`:
-    B1's device time per launch, read from the trace's kernel events. Its
-    launches must equal the run's; a trace without device events leaves
-    the time null ("not measured")."""
+    the LK kernel's device time per launch (B1's under "pallas",
+    lk_cached_kernel's by default), read from the trace's kernel events.
+    Its launches must equal the run's; a trace without device events
+    leaves the time null ("not measured")."""
     from torch.profiler import ProfilerActivity, profile
 
     from kimera_vio_tpu_torch.dataprovider.kitti import KittiDataProvider
 
     prov = KittiDataProvider(root)
     prov.ground_truth = gt
-    pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+    with lk_impl(impl):
+        pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+    kernel = "lk_pyramid_kernel" if impl == "pallas" else "lk_cached_kernel"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         r = run_counted(pipe, prov)
     # The trace's raw events: `prof.events()` would first turn all of them
     # (~140k kernels and their host ops) into Python objects, ~100 s.
     dev_events = [e for e in prof.profiler.kineto_results.events()
                   if e.device_type() == torch.autograd.DeviceType.CUDA]
-    us = [e.duration_ns() * 1e-3 for e in dev_events if "lk_pyramid_kernel" in e.name()]
+    us = [e.duration_ns() * 1e-3 for e in dev_events if kernel in e.name()]
     if us and len(us) != r["launches"]:
         raise AssertionError(f"KITTI profile: {len(us)} kernel events for {r['launches']} launches")
-    row = {"run": "gt_profiled", "lk_launches": r["launches"], "device_events": len(dev_events),
-           "b1_kernel_events": len(us),
-           "b1_kernel_ms_per_frame": float(np.mean(us)) * 1e-3 if us else None,
-           "b1_kernel_ms_median": float(np.median(us)) * 1e-3 if us else None,
-           "b1_kernel_ms_max": float(np.max(us)) * 1e-3 if us else None,
-           "b1_graph_ms_phase1": graph_ms, "wall_s_profiled": r["wall"]}
+    row = {"run": "gt_profiled", "kernel": kernel, "lk_launches": r["launches"],
+           "device_events": len(dev_events), "kernel_events": len(us),
+           "kernel_ms_per_frame": float(np.mean(us)) * 1e-3 if us else None,
+           "kernel_ms_median": float(np.median(us)) * 1e-3 if us else None,
+           "kernel_ms_max": float(np.max(us)) * 1e-3 if us else None,
+           "graph_ms_phase1": graph_ms, "wall_s_profiled": r["wall"]}
     log(f"[kitti] {json.dumps(row)}")
     return row
 
@@ -2476,8 +2770,7 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devic
     kf, pos, ids, step_ms, outs = [], [], [], [], []
     for d in cards:
         torch.cuda.synchronize(d)
-    lk.lk_pyramid_cuda.launches = 0
-    lk.lk_pyramid_cuda.launches_by_device.clear()
+    reset_lk_counts()
     t0 = time.perf_counter()
     for args in inputs:
         tic = time.perf_counter()
@@ -2490,8 +2783,8 @@ def fleet_run(dev, params, streams: list, n_streams: int, path_fps: float, devic
         ids.append((out["lmk_ids"], torch.where(out["kp_mask"], out["kp_ids"], -1)))
         outs.append(out)
     wall = time.perf_counter() - t0
-    launches = lk.lk_pyramid_cuda.launches
-    by_device = dict(lk.lk_pyramid_cuda.launches_by_device)
+    launches = lk_launches()
+    by_device = lk_launches_by_device()
     want = collections.Counter(str(row[0]) for row in fleet.mesh)
     want = {d: c * (n_frames - 1) for d, c in want.items()}
     if launches != (n_frames - 1) * len(fleet.mesh) or by_device != want:
@@ -2879,9 +3172,9 @@ def codec_cli_runs(dev, label: str, data: str, pfolder: str, gt, work: str) -> d
     for codec in CODECS:
         out_dir = os.path.join(work, f"{label}_{codec}")
         with stage_codec(codec), recording_pipeline() as rec:
-            lk.lk_pyramid_cuda.launches = 0
+            reset_lk_counts()
             rc = cli_main(base + ["--log_output", "--output_path", out_dir])
-            launches = lk.lk_pyramid_cuda.launches
+            launches = lk_launches()
         row = check_cli_run(f"{label} {codec}", rec, rc, launches, gt, out_dir)
         run = rec["runs"][0]
         row["landed"] = landed(run["pipe"])
@@ -3002,7 +3295,9 @@ def wide_phase(dev, path: dict) -> dict:
     """Phase 10 (b): the kernel's wide path (`lk_wide`) against the plain
     version with the gather rule, each row's launches through the plan
     `wide_plan` gives; B = 4 streams at win 61 in one launch; a sequential
-    run() at phase 2's configuration with klt_win_size 61."""
+    run() at phase 2's configuration with klt_win_size 61 under the default
+    tracker (`wide_run`; phase 12 runs it under "gather", lk_wide's run
+    path)."""
     res = {}
     optin = optin_bytes(dev)
     for win, size in WIDE_WINS:
@@ -3028,28 +3323,98 @@ def wide_phase(dev, path: dict) -> dict:
     kw = {**LK_KW, "win": 61, "search_rows": None}
     res["fleet"] = compare_fleet_lk(fleet_lk_inputs(dev, 4), 4, "752x480 B=4 win 61", kw)
     log(f"[wide] {json.dumps(res['fleet'])}")
+    res["run"] = wide_run(dev, path)
+    return res
+
+
+def wide_run(dev, path: dict, impl: str | None = None) -> dict:
+    """A sequential run() at phase 2's configuration with klt_win_size 61:
+    under the default tracker every launch through lk_cached_kernel's
+    shared route; under "gather" every launch with the gather rule through
+    `lk_wide_kernel` on the plan `wide_plan` gives. Gates LK launches =
+    tracked frames and ATE < 0.05 m."""
+    optin = optin_bytes(dev)
     p = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
     p.frontend.klt_win_size = 61
     provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
-    with timed_lk() as rec:
-        row, out, pipe = run_variant("klt_win_61", lambda: StereoImuPipeline(
+    name = "klt_win_61" + (f" {impl}" if impl else "")
+    with lk_impl(impl), timed_lk("lk_pyramid_cuda" if impl else "lk_cached_cuda") as rec:
+        row, out, pipe = run_variant(name, lambda: StereoImuPipeline(
             p, parallel_run=False, device=dev), provider, provider.ground_truth,
             path["frames_per_s"], 0.05)
-    plan = lk.wide_plan(61, optin)
-    if (dict(rec["rules"]) != {(61, None): row["lk_launches"]}
-            or dict(rec["routes"]) != {plan.route: row["lk_launches"]}
-            or rec["report"].get(plan.route, {}).get("plan") != plan or plan.clusters < 2):
-        raise AssertionError(f"klt_win_61: launches by (win, search_rows) {dict(rec['rules'])}, "
-                             f"by route {dict(rec['routes'])}, report {rec['report']}; "
-                             f"wide_plan(61, {optin}) gives {plan}")
+    n = row["lk_launches"]
+    if impl:
+        plan = lk.wide_plan(61, optin)
+        if (dict(rec["rules"]) != {(61, None): n} or dict(rec["routes"]) != {plan.route: n}
+                or rec["report"].get(plan.route, {}).get("plan") != plan or plan.clusters < 2):
+            raise AssertionError(f"{name}: launches by (win, search_rows) {dict(rec['rules'])}, "
+                                 f"by route {dict(rec['routes'])}, report {rec['report']}; "
+                                 f"wide_plan(61, {optin}) gives {plan}")
+        row["lk_plan"] = plan._asdict()
+    else:
+        route = lk.cached_route(61, optin)
+        if dict(rec["rules"]) != {(61, "cached"): n} or dict(rec["routes"]) != {route: n}:
+            raise AssertionError(f"{name}: launches by (win, rule) {dict(rec['rules'])}, "
+                                 f"by route {dict(rec['routes'])}; expected {route}")
     if out.n_keyframes < 1:
-        raise AssertionError("klt_win_61: no keyframe")
+        raise AssertionError(f"{name}: no keyframe")
     row["lk_launch_and_kernel_ms_per_frame"] = float(np.mean(rec["ms"]))
     row["lk_launches_by_route"] = dict(rec["routes"])
-    row["lk_plan"] = plan._asdict()
-    res["run"] = row
     log(f"[wide] {json.dumps(row)}")
+    return row
+
+
+def legacy_phase(dev, path: dict, kern: dict, work: str) -> dict:
+    """Phase 12: the pyramid trackers kept on run paths. Phase 2's 80-frame
+    run under KIMERA_LK_IMPL=pallas (B2 at every level of 752x480: every
+    launch of `lk_pyramid_kernel<24, 56, 24>`), phase 8's KITTI run with
+    ground truth under "pallas" (B1 at level 0) and phase 10's 61 px run
+    under "gather" (`lk_wide_kernel`).
+    Gates: LK launches = tracked frames, every launch through the expected
+    kernel, ATE < 0.05 m."""
+    res = {}
+    provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
+    params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
+    with lk_impl("pallas"), timed_lk("lk_pyramid_cuda") as rec:
+        row, out, pipe = run_variant("path pallas", lambda: StereoImuPipeline(
+            params, parallel_run=False, device=dev), provider, provider.ground_truth,
+            path["frames_per_s"], 0.05)
+    n = row["lk_launches"]
+    if dict(rec["routes"]) != {"<24, 56, 24>": n} or n != out.n_frames - 1:
+        raise AssertionError(f"path pallas: {n} launches, routes {dict(rec['routes'])}")
+    step = pipe.stats.get("vio_step [ms]")
+    fr = pipe.stats.get("VioFrontend Frame Rate [ms]")
+    row.update(lk_launches_by_route=dict(rec["routes"]), step_ms_mean=step.total / step.count,
+               frame_ms_mean=fr.total / fr.count,
+               lk_launch_and_kernel_ms_per_frame=float(np.mean(rec["ms"])))
+    res["path"] = row
+    log(f"[legacy] {json.dumps(row)}")
+    res["kitti"] = kitti_phase(dev, path, kern["kitti"]["ms"], work, impl="pallas")
+    res["wide"] = wide_run(dev, path, impl="gather")
     return res
+
+
+def build_kernels() -> dict:
+    """Build csrc/lk_kernel.cu and log each kernel's registers and spills
+    (ptxas): {kernel: [ptxas lines]}."""
+    t0 = time.perf_counter()
+    so, ptxas = lk.build_kernel()
+    log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
+    kernel, build = "?", {}
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '\S*?lk_pyramid_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      line)
+        c = re.search(r"Compiling entry function '\S*?lk_cached_kernelILi(\d)E", line)
+        if m:
+            kernel = "lk_pyramid_kernel<win {}, search_rows {}, max_win {}>".format(*m.groups())
+        elif c:
+            kernel = f"lk_cached_kernel<{lk.CACHED_ROUTES[int(c.group(1))]}>"
+        elif re.search(r"Compiling entry function '\S*?lk_wide_kernel", line):
+            kernel = "lk_wide_kernel"
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {kernel}: {line.strip()}")
+            build.setdefault(kernel, []).append(line.strip())
+    return build
 
 
 def main() -> int:
@@ -3058,29 +3423,20 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # Phases 2-11 run the default tracker; phase 12 sets KIMERA_LK_IMPL itself.
+    if os.environ.pop("KIMERA_LK_IMPL", None) is not None:
+        log("KIMERA_LK_IMPL unset: phases 2-11 run the default tracker")
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     log(cards[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    so, ptxas = lk.build_kernel()
-    log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
-    kernel, build = "?", {}
-    for line in ptxas.splitlines():
-        m = re.search(r"Compiling entry function '\S*?lk_pyramid_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
-                      line)
-        if m:
-            kernel = "lk_pyramid_kernel<win {}, search_rows {}, max_win {}>".format(*m.groups())
-        elif re.search(r"Compiling entry function '\S*?lk_wide_kernel", line):
-            kernel = "lk_wide_kernel"
-        elif "registers" in line or "spill" in line:
-            log(f"[build] {kernel}: {line.strip()}")
-            build.setdefault(kernel, []).append(line.strip())
+    build = build_kernels()
 
     t = time.perf_counter()
     kern = kernel_phase(dev)
+    kern["cached"] = cached_phase(dev)
     log(f"[phase] kernel {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     path = path_phase(dev)
@@ -3110,7 +3466,7 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
     opt_res = options_phase(dev, path, kern)
     log(f"[phase] options {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    kitti_res = kitti_phase(dev, path, kern, work)
+    kitti_res = kitti_phase(dev, path, kern["cached"]["1241x376"]["ms"], work)
     live_res = live_phase(dev, path)
     aux_res = aux_phase(dev, path, work)
     log(f"[phase] host modules {time.perf_counter() - t:.1f} s")
@@ -3124,14 +3480,18 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
     t = time.perf_counter()
     fleet_mesh_res = mesh_phase(dev, path, fleet_res, cards)
     log(f"[phase] mesh {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    legacy = legacy_phase(dev, path, kern, work)
+    log(f"[phase] legacy trackers {time.perf_counter() - t:.1f} s")
 
+    # lk_cached_kernel, the default tracker: every run of phases 2-11.
+    cm = kern["cached"]["752x480"]
     kernels = [{
-        "name": "lk_pyramid",
+        "name": "lk_cached",
         "route": "cuda",
         "source": "kimera_vio_tpu_torch/csrc/lk_kernel.cu",
-        "replaces": "kimera_vio_tpu/ops/pallas/lk_kernel.py:332",
-        "also_replaces": ["kimera_vio_tpu/ops/pallas/lk_kernel.py:68",
-                          "kimera_vio_tpu/ops/optical_flow.py:92"],
+        "replaces": "kimera_vio_tpu/ops/optical_flow.py:461",
+        "also_replaces": ["kimera_vio_tpu/ops/optical_flow.py:352"],
         "launches": path["lk_launches"],
         "launches_cli": {mode: r["lk_launches"] for mode, r in cli_res.items()},
         "launches_lcd": {mode: r["lk_launches"] for mode, r in lcd_res["runs"].items()},
@@ -3140,32 +3500,61 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
                             if isinstance(r, dict) and "lk_launches" in r},
         "launches_options": {name: r["lk_launches"] for name, r in opt_res.items()
                              if isinstance(r, dict) and "lk_launches" in r},
-        # Phase 8: B1's gather mode on a run path (level 0 of every
-        # 1241x376 frame), its device time in the run (profiler trace),
-        # its in-run time with the launch path, and the host modules' runs.
         "launches_kitti": {name: r["lk_launches"] for name, r in kitti_res.items()},
-        "kitti_b1_kernel_ms_per_frame": kitti_res["profile"]["b1_kernel_ms_per_frame"],
-        "kitti_b1_launch_and_kernel_ms_per_frame":
-            kitti_res["gt"]["b1_launch_and_kernel_ms_per_frame"],
-        "kitti_b1_graph_ms": kern["kitti"]["ms"],
-        "kitti_bound_ms": kern["kitti"]["bound_ms"],
-        "kitti_plain_ms": kern["kitti"]["plain_ms"],
+        "kitti_kernel_ms_per_frame": kitti_res["profile"]["kernel_ms_per_frame"],
+        "kitti_launch_and_kernel_ms_per_frame":
+            kitti_res["gt"]["lk_launch_and_kernel_ms_per_frame"],
         "launches_live": live_res["lk_launches"],
         "launches_aux": {name: r["lk_launches"] for name, r in aux_res.items()
                          if "lk_launches" in r},
-        # Phase 9: the stream axis. One launch per fleet frame for all B
-        # streams; its graph-replay ms per stream-frame and bound at B.
         "launches_fleet": {n: r["lk_launches"] for n, r in fleet_res["runs"].items()},
+        "launches_mesh": {name: r["lk_launches"] for name, r in fleet_mesh_res.items()},
+        "launches_mesh_by_device": {name: r["lk_launches_by_device"]
+                                    for name, r in fleet_mesh_res.items()},
+        "launches_wide_run": wide_res["run"]["lk_launches"],
+        "launches_codecs": {f"{seq} {codec}": r["lk_launches"]
+                            for seq in ("phase3", "slow") for codec, r in codec_res[seq].items()},
+        "max_abs_err": cm["max_abs_err"],
+        "median_abs_err": cm["median_abs_err"],
+        "ms": cm["ms"],
+        "ms_no_steps": cm["ms_no_steps"],
+        "us_per_step_on_longest_chain": cm["us_per_step_on_longest_chain"],
+        "eager_ms": cm["eager_ms"],
+        "plain_ms": cm["plain_ms"],
+        "template_build_ms": cm["template_build_ms"],
+        "bound_ms": cm["bound_ms"],
+        "bound_by": cm["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes pyramidal LK
+        "rows": {label: {k: r.get(k) for k in ("win", "route", "smem_bytes", "max_abs_err",
+                                                 "median_abs_err", "ms", "ms_no_steps",
+                                                 "us_per_step_on_longest_chain", "plain_ms",
+                                                 "bound_ms", "bound_by", "ms_per_stream_frame")}
+                 for label, r in kern["cached"].items()},
+        "ptxas": {k: v for k, v in build.items() if k.startswith("lk_cached")},
+    }, {
+        "name": "lk_pyramid",
+        "route": "cuda",
+        "source": "kimera_vio_tpu_torch/csrc/lk_kernel.cu",
+        "replaces": "kimera_vio_tpu/ops/pallas/lk_kernel.py:332",
+        "also_replaces": ["kimera_vio_tpu/ops/pallas/lk_kernel.py:68",
+                          "kimera_vio_tpu/ops/optical_flow.py:92"],
+        # Phase 12: B2 on every level of phase 2's run under "pallas", B1 at
+        # level 0 of the KITTI runs under "pallas".
+        "launches": legacy["path"]["lk_launches"],
+        "launches_kitti": {name: r["lk_launches"] for name, r in legacy["kitti"].items()},
+        "kitti_b1_kernel_ms_per_frame": legacy["kitti"]["profile"]["kernel_ms_per_frame"],
+        "kitti_b1_launch_and_kernel_ms_per_frame":
+            legacy["kitti"]["gt"]["lk_launch_and_kernel_ms_per_frame"],
+        "kitti_b1_graph_ms": kern["kitti"]["ms"],
+        "kitti_bound_ms": kern["kitti"]["bound_ms"],
+        "kitti_plain_ms": kern["kitti"]["plain_ms"],
+        # Phase 9: the stream axis, one launch for B streams; its
+        # graph-replay ms per stream-frame and bound at B.
         "fleet_ms_per_stream_frame": {n: r["ms_per_stream_frame"]
                                       for n, r in fleet_res["rows"].items()},
         "fleet_ms": {n: r["ms"] for n, r in fleet_res["rows"].items()},
         "fleet_bound_ms": {n: r["bound_ms"] for n, r in fleet_res["rows"].items()},
         "fleet_plain_ms": {n: r["plain_ms"] for n, r in fleet_res["rows"].items()},
-        # Phase 11: the data x model mesh, one launch per data row per fleet
-        # frame on the row's first device.
-        "launches_mesh": {name: r["lk_launches"] for name, r in fleet_mesh_res.items()},
-        "launches_mesh_by_device": {name: r["lk_launches_by_device"]
-                                    for name, r in fleet_mesh_res.items()},
         "fleet_max_abs_err": {"752x480": fleet_res["kernel"]["max_abs_err"],
                               "752x480 B=8": fleet_res["kernel8"]["max_abs_err"],
                               "1241x376": fleet_res["kitti"]["max_abs_err"]},
@@ -3181,29 +3570,26 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
         "wide": {label: {k: r[k] for k in ("win", "search_rows", "max_abs_err", "median_abs_err",
                                            "ms", "plain_ms", "bound_ms", "bound_by")}
                  for label, r in opt_res["wide"].items()},
-        # Phase 10: the lk_wide mode (<0, 0, 0>: the gather rule over 54 px),
-        # per shape and window, its launches in the win-61 run, and the
-        # launches of the --chunked runs under each staging codec.
+        # Phase 10: the lk_wide mode (the gather rule over 54 px), per
+        # shape and window.
         "wide_gather": {label: {**{k: r[k] for k in WIDE_KEYS if k != "label"},
                                 "library_ms": None}
                         for label, r in wide_res.items() if label not in ("fleet", "run")},
         "wide_gather_ptxas": build.get("lk_wide_kernel"),
         "wide_gather_fleet_max_abs_err": wide_res["fleet"]["max_abs_err"],
-        "launches_wide_run": wide_res["run"]["lk_launches"],
-        "launches_wide_run_by_route": wide_res["run"]["lk_launches_by_route"],
-        "launches_codecs": {f"{seq} {codec}": r["lk_launches"]
-                            for seq in ("phase3", "slow") for codec, r in codec_res[seq].items()},
     }]
     # lk_wide_kernel (the gather rule over 54 px, one thread-block cluster
-    # per keypoint): its own path is the 61 px run; its numbers are the
-    # 752x480 61 px row (the other rows are under lk_pyramid's wide_gather).
+    # per keypoint): its run path is phase 12's 61 px run under "gather";
+    # its numbers are the 752x480 61 px row (the other rows are under
+    # lk_pyramid's wide_gather).
     w61 = wide_res["752x480 win 61 gather rule"]
     kernels.append({
         "name": "lk_wide",
         "route": "cuda",
         "source": "kimera_vio_tpu_torch/csrc/lk_kernel.cu",
         "replaces": "kimera_vio_tpu/ops/optical_flow.py:92",
-        "launches": wide_res["run"]["lk_launches"],
+        "launches": legacy["wide"]["lk_launches"],
+        "launches_by_route": legacy["wide"]["lk_launches_by_route"],
         "launch_route": {k: w61[k] for k in ("launcher_route", "clusters", "threads",
                                              "band_rows", "smem_bytes", "active_clusters")},
         "max_abs_err": w61["max_abs_err"],
@@ -3214,6 +3600,10 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
         "library_ms": None,  # no single PyTorch call computes pyramidal LK
         "ptxas": build.get("lk_wide_kernel"),
     })
+    # Every kernel launched on a run path of this call.
+    for k in kernels:
+        if not k["launches"] > 0:
+            raise AssertionError(f"{k['name']}: no launch on its run path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

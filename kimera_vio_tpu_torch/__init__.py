@@ -4,7 +4,9 @@ Same algorithms, shapes and masks as the JAX package (which stays the
 reference), run eagerly by PyTorch on an NVIDIA H100. The one Pallas TPU
 kernel of the reference (pyramidal Lucas-Kanade,
 kimera_vio_tpu/ops/pallas/lk_kernel.py) is a hand-written CUDA kernel here
-(csrc/lk_kernel.cu, bound in ops/lk_kernel.py).
+(csrc/lk_kernel.cu, bound in ops/lk_kernel.py), and so is the per-frame
+half of the reference's default tracker (`klt_track_cached`, which XLA
+runs on the TPU): `lk_cached_kernel` in the same file.
 
 Rules kept by every module:
 

@@ -66,7 +66,7 @@ def stack_trees(trees: list):
     """Structurally equal trees (dataclasses, tuples, lists, dicts) -> one
     tree with a leading stream axis: tensor leaves are stacked on dim 0,
     host scalars (int, float, bool) become numpy arrays of one value per
-    stream, None stays None."""
+    stream, None stays None (the LK template cache's skipped levels)."""
     first = trees[0]
     if dataclasses.is_dataclass(first) and not isinstance(first, type):
         return dataclasses.replace(
@@ -113,6 +113,8 @@ def tree_clone(tree):
         return dataclasses.replace(
             tree, **{f.name: tree_clone(getattr(tree, f.name)) for f in dataclasses.fields(tree)}
         )
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_clone(x) for x in tree)
     if isinstance(tree, torch.Tensor):
@@ -128,6 +130,9 @@ def tree_set(dst, b: int, src) -> None:
     if dataclasses.is_dataclass(dst) and not isinstance(dst, type):
         for f in dataclasses.fields(dst):
             tree_set(getattr(dst, f.name), b, getattr(src, f.name))
+    elif isinstance(dst, dict):
+        for k, d in dst.items():
+            tree_set(d, b, src[k])
     elif isinstance(dst, (tuple, list)):
         for d, s in zip(dst, src):
             tree_set(d, b, s)

@@ -76,9 +76,11 @@ def state_from_numpy(window: dict, landmarks: dict, frontend: dict | None = None
     of the port on `device`.
 
     Every window field is carried, the external-odometry and
-    between-stereo factor data included. Refuses a frontend state of the
-    matmul tracker (which keeps LK templates instead of the keyframe
-    pyramid the port tracks from)."""
+    between-stereo factor data included. A frontend state carries the LK
+    data its tracker keeps: the keyframe pyramid and gradients (gather and
+    pallas), or the matmul tracker's template cache (`lkf_templates`, a
+    dict a level, None for a skipped level); one that holds neither is
+    refused."""
     dev = resolve_device(device)
 
     def t(x):
@@ -96,8 +98,9 @@ def state_from_numpy(window: dict, landmarks: dict, frontend: dict | None = None
     lmk = LandmarkTable(**{f.name: t(landmarks[f.name]) for f in dataclasses.fields(LandmarkTable)})
     if frontend is None:
         return win, lmk, None
-    if len(frontend["lkf_pyramid"]) == 0:
-        raise ValueError("frontend state holds no keyframe pyramid (matmul tracker)")
+    templates = tuple(_template_level(T, t) for T in frontend.get("lkf_templates", ()))
+    if len(frontend["lkf_pyramid"]) == 0 and len(templates) == 0:
+        raise ValueError("frontend state holds neither a keyframe pyramid nor LK templates")
     fe = FrontendState(
         features=_features(frontend["features"], t),
         lkf_features=_features(frontend["lkf_features"], t),
@@ -112,8 +115,17 @@ def state_from_numpy(window: dict, landmarks: dict, frontend: dict | None = None
         frame_count=int(frontend["frame_count"]),
         kf_count=int(frontend["kf_count"]),
         last_status=int(frontend["last_status"]),
+        lkf_templates=templates,
     )
     return win, lmk, fe
+
+
+def _template_level(T, t):
+    """One level of the matmul tracker's template cache: a dict of arrays,
+    or None (also as a 0-d object array, numpy's copy of None)."""
+    if T is None or (isinstance(T, np.ndarray) and T.dtype == object and T.item() is None):
+        return None
+    return {k: t(v) for k, v in T.items()}
 
 
 def fleet_state_from_numpy(fe_state: dict, win: dict, lmk: dict, *,

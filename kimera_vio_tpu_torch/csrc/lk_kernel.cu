@@ -1,7 +1,9 @@
 // Pyramidal forward-additive Lucas-Kanade: one launch tracks one frame of
 // each of B streams, every pyramid level coarse to fine; one multi-warp
 // block per keypoint and stream (grid N x B), or over 54 px one
-// thread-block cluster (design note 6).
+// thread-block cluster (design note 6). The JAX package's default tracker
+// (lk_impl="matmul": a per-keyframe template cache, one search patch a
+// level) is a third kernel, `lk_cached_kernel`, with its own note below.
 //
 // Replaces, in one kernel:
 //   * kimera_vio_tpu/ops/pallas/lk_kernel.py:_level_kernel_vmem (:332,
@@ -948,6 +950,227 @@ int launch_wide(Table& tab, int optin, int N, int B, const void* prev_pts, const
   return (int)e;
 }
 
+
+// ---------------------------------------------------------------------------
+// lk_cached_kernel: the JAX package's default tracker (lk_impl="matmul").
+//
+// Replaces kimera_vio_tpu/ops/optical_flow.py:klt_track_cached (:461) and
+// its level _iterate_level_cached (:352), which XLA runs outside any Pallas
+// kernel: the per-frame half of the matmul tracker. The keyframe half,
+// build_lk_templates (:323), stays plain PyTorch (it runs once a keyframe)
+// and hands this kernel its cache: per level the template window and its
+// gradients ((B, N, win, win) float32), the inverse gradient matrix and the
+// min-eigenvalue gate ((B, N)). The plain PyTorch version is
+// ops/optical_flow.py:track_cached; the two compute the same float32
+// arithmetic in the same term order (-fmad=false), only the order of the
+// window sums differs.
+//
+// Per keypoint and stream (one block, grid N x B), every level coarse to
+// fine in one launch (points double between levels, skipped levels
+// included): stage the level's S x S search patch (S = win + 2 slack + 2)
+// at the seed's clamped origin with cp.async from edge-clamped addresses
+// (jnp.pad(mode="edge") and the clamped dynamic slice of the reference),
+// then up to max_iter Gauss-Newton steps inside it. Before each step the
+// window offset is clipped to the patch, a clip over 0.5 px marks the
+// keypoint diverged (it fails), and the window is blended at the clipped
+// offset: a y-lerp of two patch rows, then an x-lerp of two columns, the
+// order of the reference's two resampling matmuls. Each keypoint stops at
+// its own convergence. Level 0 gates on the template gate and the image.
+//
+// What bounds it: as lk_pyramid_kernel, the latency of each keypoint's
+// serial chain of steps (a 24x24 blend and two block sums a step), not
+// bytes (the patches and the cache are ~2 MB a 752x480 frame) or
+// operations. The matmul form that fed the TPU's MXU has nothing to feed
+// here: each window row has two nonzero weights, so the blend is 6
+// multiply-adds a pixel on the CUDA cores.
+//
+// Routes (the launcher picks the first that fits the opt-in shared memory
+// and reports it): kCachedShared, the patch and the template cache in
+// shared memory (to 101 px and a little beyond); kCachedPatch, the patch in
+// shared memory and the cache read through L1/L2 (to 222 px); kCachedGlobal,
+// both read through L2, with the same arithmetic.
+enum CachedRoute : int { kCachedShared = 0, kCachedPatch = 1, kCachedGlobal = 2 };
+
+struct CachedLevel {
+  const float* cur;                       // stream 0's plane of the current level
+  const float* tmpl;                      // (B, N, win, win)
+  const float* gx;
+  const float* gy;
+  const float* inv00;                     // (B, N)
+  const float* inv01;
+  const float* inv11;
+  const uint8_t* good;                    // (B, N)
+  long long stride;                       // elements between streams' planes
+  int H, W;
+  int skip;                               // no template: the level is skipped
+  float scale;                            // the point is multiplied by this first
+};
+
+struct CachedTable {
+  CachedLevel lv[kMaxLevels];  // coarse to fine: entry e is level n - 1 - e
+  int n;
+  int win, slack, max_iter;
+  float eps2;
+};
+
+template <int ROUTE>
+__global__ void __launch_bounds__(kThreads)
+lk_cached_kernel(const __grid_constant__ CachedTable tab, const float* __restrict__ init_pts,
+                 const uint8_t* __restrict__ valid, float* __restrict__ out_pts,
+                 uint8_t* __restrict__ out_ok, int32_t* __restrict__ out_iters) {
+  const int win = tab.win;
+  const int npx = win * win;
+  const int S = win + 2 * tab.slack + 2;
+  const float half = (win - 1) * 0.5f;
+  const float hi = (float)(S - win - 1);
+  const int k = blockIdx.y * gridDim.x + blockIdx.x;  // row of (B, N, ...)
+  const size_t b = blockIdx.y;
+  const int tid = threadIdx.x;
+  // This thread's window pixels p = tid, tid + kThreads, ... walked as (r, c).
+  const int r0 = tid / win, c0 = tid - r0 * win;
+  const int dr = kThreads / win, dc = kThreads - dr * win;
+
+  extern __shared__ __align__(16) float smem[];
+  float4* s_part = reinterpret_cast<float4*>(smem);  // 2 x kWarps
+  float* s_patch = smem + 8 * kWarps;                // S x S (shared routes)
+  float* s_tmpl = s_patch + S * S;                   // 3 x npx (kCachedShared)
+
+  float cx = init_pts[2 * k], cy = init_pts[2 * k + 1];
+  bool ok = valid[k] != 0, diverged = false;
+  int parity = 0;
+
+  for (int e = 0; e < tab.n; ++e) {
+    const CachedLevel& L = tab.lv[e];
+    const int lvl = tab.n - 1 - e;
+    cx = cx * L.scale;
+    cy = cy * L.scale;
+    if (L.skip) {
+      if (tid == 0) out_iters[(size_t)k * tab.n + lvl] = 0;
+      continue;
+    }
+    const int H = L.H, W = L.W;
+    const float* cur = L.cur + b * L.stride;
+    // The patch origin: the initial offset lands at slack + 1 + frac; the
+    // patch itself starts where the reference's clamped slice starts.
+    const int ox = (int)floorf(cx - half) - (tab.slack + 1);
+    const int oy = (int)floorf(cy - half) - (tab.slack + 1);
+    const int px0 = clampi(ox, -S, W), py0 = clampi(oy, -S, H);
+    const float* T = L.tmpl + (size_t)k * npx;
+    const float* GX = L.gx + (size_t)k * npx;
+    const float* GY = L.gy + (size_t)k * npx;
+    if constexpr (ROUTE != kCachedGlobal) {
+      for (int i = tid; i < S * S; i += kThreads) {
+        const int r = i / S, c = i - r * S;
+        cp_async4(s_patch + i, cur + (size_t)clampi(py0 + r, 0, H - 1) * W + clampi(px0 + c, 0, W - 1));
+      }
+      if constexpr (ROUTE == kCachedShared) {
+        for (int i = tid; i < npx; i += kThreads) {
+          cp_async4(s_tmpl + i, T + i);
+          cp_async4(s_tmpl + npx + i, GX + i);
+          cp_async4(s_tmpl + 2 * npx + i, GY + i);
+        }
+        T = s_tmpl;
+        GX = s_tmpl + npx;
+        GY = s_tmpl + 2 * npx;
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const bool good = L.good[k] != 0;
+    const float inv00 = L.inv00[k], inv01 = L.inv01[k], inv11 = L.inv11[k];
+    float relx = cx - (float)ox, rely = cy - (float)oy;
+
+    int it = 0;
+    while (good && it < tab.max_iter) {
+      const float offx = relx - half, offy = rely - half;
+      const float ocx = fminf(fmaxf(offx, 0.f), hi), ocy = fminf(fmaxf(offy, 0.f), hi);
+      if (fabsf(offx - ocx) > 0.5f || fabsf(offy - ocy) > 0.5f) diverged = true;
+      const float kx = floorf(ocx), ky = floorf(ocy);
+      const float fx = ocx - kx, fy = ocy - ky;
+      const int ix = (int)kx, iy = (int)ky;
+      float bs[2] = {0.f, 0.f};
+      int r = r0, c = c0;
+      for (int p = tid; p < npx; p += kThreads) {
+        float a0, a1, b0, b1;  // rows iy + r and iy + r + 1, columns ix + c and + 1
+        if constexpr (ROUTE == kCachedGlobal) {
+          const float* ra = cur + (size_t)clampi(py0 + iy + r, 0, H - 1) * W;
+          const float* rb = cur + (size_t)clampi(py0 + iy + r + 1, 0, H - 1) * W;
+          const int xa = clampi(px0 + ix + c, 0, W - 1), xb = clampi(px0 + ix + c + 1, 0, W - 1);
+          a0 = ra[xa];
+          a1 = ra[xb];
+          b0 = rb[xa];
+          b1 = rb[xb];
+        } else {
+          const float* q = s_patch + (iy + r) * S + ix + c;
+          a0 = q[0];
+          a1 = q[1];
+          b0 = q[S];
+          b1 = q[S + 1];
+        }
+        const float ya = (1.f - fy) * a0 + fy * b0;
+        const float yb = (1.f - fy) * a1 + fy * b1;
+        const float dI = ((1.f - fx) * ya + fx * yb) - T[p];
+        bs[0] += dI * GX[p];
+        bs[1] += dI * GY[p];
+        r += dr;
+        c += dc;
+        if (c >= win) {
+          c -= win;
+          ++r;
+        }
+      }
+      block_sum<2>(bs, s_part, parity);
+      const float dx = -(inv00 * bs[0] + inv01 * bs[1]);
+      const float dy = -(inv01 * bs[0] + inv11 * bs[1]);
+      relx = relx + dx;
+      rely = rely + dy;
+      ++it;
+      if (dx * dx + dy * dy < tab.eps2) break;
+    }
+    cx = relx + (float)ox;
+    cy = rely + (float)oy;
+    if (lvl == 0) {
+      const float half0 = win * 0.5f;
+      const bool inb = cx >= half0 && cx < (float)W - half0 && cy >= half0 && cy < (float)H - half0;
+      ok = ok && good && inb;
+    }
+    if (tid == 0) out_iters[(size_t)k * tab.n + lvl] = it;
+    __syncthreads();  // every read of this level's patch precedes the next level's copies
+  }
+  if (tid == 0) {
+    out_pts[2 * k] = cx;
+    out_pts[2 * k + 1] = cy;
+    out_ok[k] = (ok && !diverged) ? 1 : 0;
+  }
+}
+
+// Dynamic shared memory of each route: the warps' partials, and the patch
+// (and the cache) where the route keeps them.
+size_t cached_smem(int route, int win, int slack) {
+  const size_t S = (size_t)win + 2 * slack + 2;
+  const size_t fixed = sizeof(float) * 8 * kWarps;
+  if (route == kCachedShared) return fixed + sizeof(float) * (S * S + 3 * (size_t)win * win);
+  if (route == kCachedPatch) return fixed + sizeof(float) * S * S;
+  return fixed;
+}
+
+template <int ROUTE>
+int launch_cached(const CachedTable& tab, size_t smem, int N, int B, const void* init_pts,
+                  const void* valid, void* out_pts, void* out_ok, void* out_iters,
+                  cudaStream_t stream) {
+  auto kernel = lk_cached_kernel<ROUTE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<dim3(N, B), kThreads, smem, stream>>>(tab, (const float*)init_pts,
+                                                  (const uint8_t*)valid, (float*)out_pts,
+                                                  (uint8_t*)out_ok, (int32_t*)out_iters);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // planes: 4 pointers per level (prev, gx, gy, cur), coarse to fine, each
@@ -1028,6 +1251,74 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const long long* str
   return launch<0, 0, kMaxWinWide>(tab, smem, N, n_streams, prev_pts, init_pts, valid,
                                    out_pts, out_ok, out_iters, s, kRouteWide54, optin,
                                    out_route);
+}
+
+// lk_cached_kernel's launcher. ptrs: 8 per level, coarse to fine (cur,
+// tmpl, gx, gy, inv00, inv01, inv11, good), each to stream 0's data;
+// strides: per level the elements from one stream's plane to the next's;
+// ints: 3 per level (H, W, skip); scales: 1 per level. Points (B, N, 2),
+// valid (B, N). Outputs: pts (B, N, 2) float32, ok (B, N) uint8, iters (B,
+// N, n_levels) int32 indexed by level number. out_route (3 ints) receives
+// the route, its dynamic shared memory per block in bytes and the opt-in
+// limit read.
+extern "C" int lk_cached_launch(const void* const* ptrs, const long long* strides,
+                                const int* ints, const float* scales, int n_levels,
+                                const void* init_pts, const void* valid, void* out_pts,
+                                void* out_ok, void* out_iters, int N, int n_streams, int win,
+                                int slack, int max_iter, float eps2, void* stream,
+                                int* out_route) {
+  if (n_levels < 1 || n_levels > kMaxLevels || win < 2 || slack < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_streams < 1 || n_streams > 65535) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return 0;
+  CachedTable tab = {};
+  tab.n = n_levels;
+  tab.win = win;
+  tab.slack = slack;
+  tab.max_iter = max_iter;
+  tab.eps2 = eps2;
+  for (int e = 0; e < n_levels; ++e) {
+    CachedLevel& L = tab.lv[e];
+    L.cur = (const float*)ptrs[8 * e];
+    L.tmpl = (const float*)ptrs[8 * e + 1];
+    L.gx = (const float*)ptrs[8 * e + 2];
+    L.gy = (const float*)ptrs[8 * e + 3];
+    L.inv00 = (const float*)ptrs[8 * e + 4];
+    L.inv01 = (const float*)ptrs[8 * e + 5];
+    L.inv11 = (const float*)ptrs[8 * e + 6];
+    L.good = (const uint8_t*)ptrs[8 * e + 7];
+    L.stride = strides[e];
+    L.H = ints[3 * e];
+    L.W = ints[3 * e + 1];
+    L.skip = ints[3 * e + 2];
+    L.scale = scales[e];
+    if (!L.skip && (L.H < 1 || L.W < 1)) return (int)cudaErrorInvalidValue;
+  }
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  int route = kCachedShared;
+  while (route < kCachedGlobal && cached_smem(route, win, slack) > (size_t)optin) ++route;
+  const size_t smem = cached_smem(route, win, slack);
+  const cudaStream_t s = (cudaStream_t)stream;
+  int rc;
+  if (route == kCachedShared)
+    rc = launch_cached<kCachedShared>(tab, smem, N, n_streams, init_pts, valid, out_pts, out_ok,
+                                      out_iters, s);
+  else if (route == kCachedPatch)
+    rc = launch_cached<kCachedPatch>(tab, smem, N, n_streams, init_pts, valid, out_pts, out_ok,
+                                     out_iters, s);
+  else
+    rc = launch_cached<kCachedGlobal>(tab, smem, N, n_streams, init_pts, valid, out_pts, out_ok,
+                                      out_iters, s);
+  if (rc == 0) {
+    out_route[0] = route;
+    out_route[1] = (int)smem;
+    out_route[2] = optin;
+  }
+  return rc;
 }
 
 extern "C" const char* lk_error_string(int code) {

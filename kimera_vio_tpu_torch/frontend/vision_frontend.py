@@ -1,10 +1,21 @@
 """Vision frontend (stereo, mono, RGB-D): per-frame tracking, per-keyframe
 geometry.
 
-Port of kimera_vio_tpu/frontend/vision_frontend.py::StereoFrontend in the
-form the reference takes with `lk_impl="pallas"`: the last keyframe's
-pyramid and Scharr gradients are kept in the state and every frame is
-tracked from them by the LK kernel (ops/lk_kernel.py).
+Port of kimera_vio_tpu/frontend/vision_frontend.py::StereoFrontend with
+the reference's three trackers (`FrontendConfig.lk_impl`) and its state
+storage policy:
+
+  * "matmul" (the default, as in the reference): at each keyframe the
+    template cache of `optical_flow.build_lk_templates` is built and kept
+    in the state (`lkf_templates`; no pyramid, no gradients), and every
+    frame is tracked against it by `lk_cached_kernel`
+    (`klt_track_cached_lk`);
+  * "gather": the last keyframe's pyramid and Scharr gradients are kept,
+    and every frame is tracked by `klt_track_lk(search_rows=None)`, the
+    gather rule at every window width;
+  * "pallas": the same state, tracked with the Pallas tracker's window
+    rule (`klt_track_lk`, search_rows 56) up to 54 px; wider windows take
+    the gather rule, since the window rule admits none (ops/lk_kernel.py).
 
 Per frame: preintegrate the IMU block since the last keyframe; predict the
 keypoints' motion from the gyro rotation; track lkf -> current with LK;
@@ -62,13 +73,15 @@ from kimera_vio_tpu_torch.loopclosure import orb as orb_mod
 from kimera_vio_tpu_torch.ops import corner_detection as det
 from kimera_vio_tpu_torch.ops import optical_flow as of
 from kimera_vio_tpu_torch.ops import ransac
-from kimera_vio_tpu_torch.ops.lk_kernel import MAX_WIN as LK_MAX_WIN, klt_track_lk
+from kimera_vio_tpu_torch.ops.lk_kernel import MAX_WIN as LK_MAX_WIN
+from kimera_vio_tpu_torch.ops.lk_kernel import klt_track_cached_lk, klt_track_lk
 from kimera_vio_tpu_torch.ops.stereo_matching import match_stereo
 
 TRACKING_VALID = 0
 TRACKING_LOW_DISPARITY = 1
 TRACKING_FEW_MATCHES = 2
 TRACKING_INVALID = 3
+LK_IMPLS = ("matmul", "gather", "pallas")
 
 
 def _f32(x) -> float:
@@ -129,6 +142,10 @@ class FrontendConfig:
     # (LcdParams.nfeatures, spaced by lcd_min_distance) on the device.
     lcd_features: int = 0
     lcd_min_distance: float = 12.0
+    # The LK tracker (LK_IMPLS): "matmul", the reference's default, tracks
+    # against a per-keyframe template cache; "gather" and "pallas" from the
+    # keyframe's pyramid and gradients (see the module docstring).
+    lk_impl: str = "matmul"
 
     @classmethod
     def from_params(cls, fp, max_features=384) -> "FrontendConfig":
@@ -182,8 +199,8 @@ class FrontendState:
 
     features: TrackedFeatures  # tracked at the current frame
     lkf_features: TrackedFeatures  # as of the last keyframe
-    lkf_pyramid: tuple  # last keyframe's pyramid, level 0 first
-    lkf_grads: tuple  # its Scharr gradients ((gx, gy) per level)
+    lkf_pyramid: tuple  # last keyframe's pyramid, level 0 first (empty under matmul)
+    lkf_grads: tuple  # its Scharr gradients ((gx, gy) per level; empty under matmul)
     pim: imu.Pim  # accumulated since the last keyframe
     imu_bias: ImuBias
     lkf_uvd: torch.Tensor  # (N,3) last keyframe's stereo measurements
@@ -193,6 +210,9 @@ class FrontendState:
     frame_count: int
     kf_count: int
     last_status: int = TRACKING_VALID
+    # Under matmul: the last keyframe's LK template cache, one dict a level
+    # (None where the level cannot hold a window), level 0 first.
+    lkf_templates: tuple = ()
 
 
 def extract_lcd_features(stereo, left_rect: torch.Tensor, right_rect: torch.Tensor,
@@ -256,6 +276,8 @@ class StereoFrontend:
 
     def __init__(self, cfg: FrontendConfig, stereo: StereoCamera, pim_params: imu.PimParams,
                  device: torch.device):
+        if cfg.lk_impl not in LK_IMPLS:
+            raise ValueError(f"lk_impl {cfg.lk_impl!r}: one of {LK_IMPLS}")
         self.cfg = cfg
         self.stereo = stereo
         self.pim_params = pim_params
@@ -322,9 +344,17 @@ class StereoFrontend:
             max_nr_keypoints_before_anms=cfg.max_nr_keypoints_before_anms,
         )
 
-    def _pyramid_and_grads(self, img):
-        pyr = of.build_pyramid(img, self.cfg.klt_max_level)
-        return tuple(pyr), tuple(of._grad(p) for p in pyr)
+    def _lk_store(self, pyr, feats: TrackedFeatures) -> dict:
+        """What the state keeps of a keyframe for LK (the reference's
+        storage policy): under matmul the template cache of its features
+        (gradients taken on the patches) and no pyramid; otherwise the
+        pyramid and its Scharr gradients."""
+        if self.cfg.lk_impl == "matmul":
+            return {"lkf_pyramid": (), "lkf_grads": (),
+                    "lkf_templates": of.build_lk_templates(list(pyr), feats.uv, feats.mask,
+                                                           win=self.cfg.klt_win)}
+        return {"lkf_pyramid": tuple(pyr), "lkf_grads": tuple(of._grad(p) for p in pyr),
+                "lkf_templates": ()}
 
     # ------------------------------------------------------------------
     def init_state(self, left_img, right_img, stamp: float):
@@ -334,7 +364,7 @@ class StereoFrontend:
         dev = self.device
         left_img = left_img.to(torch.float32)
         right_img = right_img.to(torch.float32)
-        pyr, grads = self._pyramid_and_grads(left_img)
+        pyr = of.build_pyramid(left_img, cfg.klt_max_level)
         empty = TrackedFeatures.empty(cfg.max_features, dev)
         uv, valid = self._detect(left_img, empty)
         ar = torch.arange(cfg.max_features, dtype=torch.int32, device=dev)
@@ -348,8 +378,7 @@ class StereoFrontend:
         state = FrontendState(
             features=feats,
             lkf_features=feats,
-            lkf_pyramid=pyr,
-            lkf_grads=grads,
+            **self._lk_store(pyr, feats),
             pim=imu.Pim.zero(device=dev),
             imu_bias=ImuBias.zero(dev),
             lkf_uvd=meas.uvs,
@@ -421,14 +450,19 @@ class StereoFrontend:
             feats.uv, feats.mask, R_cam_raw.mT[..., None, :, :], self.K_raw, self.K_raw_inv,
             self.left.width, self.left.height,
         )
-        # Windows the Pallas window rule cannot take (over 54 px) track with
-        # the gather rule, the JAX package's default tracker's rule.
-        wide = {"search_rows": None} if cfg.klt_win > LK_MAX_WIN else {}
-        tracked_uv, ok = klt_track_lk(
-            list(state.lkf_pyramid), cur_pyr, feats.uv, init_uv, feats.mask,
-            win=cfg.klt_win, max_iter=cfg.klt_max_iter, eps=cfg.klt_eps,
-            prev_grads=list(state.lkf_grads), device=self.device, **wide,
-        )
+        lk_kw = dict(win=cfg.klt_win, max_iter=cfg.klt_max_iter, eps=cfg.klt_eps,
+                     device=self.device)
+        if cfg.lk_impl == "matmul":
+            tracked_uv, ok = klt_track_cached_lk(state.lkf_templates, cur_pyr, init_uv,
+                                                 feats.mask, **lk_kw)
+        else:
+            # The window rule admits no window over 54 px: "pallas" tracks
+            # those with the gather rule.
+            gather = cfg.lk_impl == "gather" or cfg.klt_win > LK_MAX_WIN
+            tracked_uv, ok = klt_track_lk(
+                list(state.lkf_pyramid), cur_pyr, feats.uv, init_uv, feats.mask,
+                prev_grads=list(state.lkf_grads), **({"search_rows": None} if gather else {}),
+                **lk_kw)
         ok = ok & feats.mask & (feats.ages < cfg.max_feature_age)
         tracked_rect, tracked_versors = self._rect_and_versors(tracked_uv)
         cur_feats = TrackedFeatures(
@@ -588,15 +622,13 @@ class StereoFrontend:
             else:
                 meas_out = replace(meas_full, ids=feats_full.ids)
 
-        pyr, grads = tuple(cur_pyr), tuple(of._grad(p) for p in cur_pyr)
         kf_state = replace(
             state,
             features=feats_full,
             lkf_features=feats_full,
             lkf_uvd=meas_out.uvs,
             lkf_uvd_mask=meas_out.mask,
-            lkf_pyramid=pyr,
-            lkf_grads=grads,
+            **self._lk_store(cur_pyr, feats_full),
             pim=imu.Pim.zero(state.imu_bias),
             lkf_stamp=_f32(stamp),
             next_id=next_id,

@@ -1,4 +1,4 @@
-"""Pyramidal Lucas-Kanade: the CUDA kernel, its plain PyTorch twin, the tracker.
+"""Pyramidal Lucas-Kanade: the CUDA kernels, their plain PyTorch twins, the trackers.
 
 Replaces the Pallas TPU tracker kimera_vio_tpu/ops/pallas/lk_kernel.py:
 both of its kernels, `_level_kernel` (:68, windows gathered by XLA) and
@@ -39,6 +39,14 @@ parallel/fleet.py). 2-D levels with (N, 2) keypoints are one stream.
 Dispatch: a CPU tensor runs `track_pyramid(lk_level_plain, ...)`; a CUDA
 tensor launches the kernel (`lk_pyramid_cuda`) or raises. There is no
 fallback between the two.
+
+The JAX package's default tracker (lk_impl="matmul",
+kimera_vio_tpu/ops/optical_flow.py:461 `klt_track_cached`) tracks against
+a per-keyframe template cache (`optical_flow.build_lk_templates`, plain
+PyTorch) inside one search patch a level. `klt_track_cached_lk` is its
+entry point: CPU tensors run the plain `optical_flow.klt_track_cached`,
+CUDA tensors one launch of `lk_cached_kernel` (`lk_cached_cuda`), with the
+same no-fallback rule.
 """
 
 from __future__ import annotations
@@ -467,6 +475,15 @@ def _lib() -> ctypes.CDLL:
         P, P,  # stream, out_route
     ]
     lib.lk_pyramid_launch.restype = I
+    lib.lk_cached_launch.argtypes = [
+        P, P, P, P, I,  # level pointers, stream strides, level ints, level scales, n_levels
+        P, P,  # init_pts, valid
+        P, P, P,  # out_pts, out_ok, out_iters
+        I, I, I, I, I,  # N, n_streams, win, slack, max_iter
+        Fl,  # eps^2
+        P, P,  # stream, out_route
+    ]
+    lib.lk_cached_launch.restype = I
     lib.lk_error_string.argtypes = [I]
     lib.lk_error_string.restype = ctypes.c_char_p
     return lib
@@ -597,8 +614,129 @@ lk_pyramid_cuda.routes = collections.Counter()
 lk_pyramid_cuda.report = {}
 
 
+# csrc/lk_kernel.cu: CachedRoute, where lk_cached_kernel keeps its data.
+CACHED_ROUTES = ("lk_cached shared", "lk_cached patch", "lk_cached global")
+_CACHE_KEYS = ("tmpl", "gx", "gy", "inv00", "inv01", "inv11", "good_g")
+
+
+def cached_smem(route: str, win: int, slack: int = 8) -> int:
+    """Dynamic shared memory per block of `lk_cached_kernel` on `route`, the
+    twin of csrc/lk_kernel.cu's `cached_smem`: the warps' partials (2 x 6
+    float4), and on the shared routes the (win + 2 slack + 2)^2 search patch
+    and, on "lk_cached shared", the template, gx and gy windows. The
+    launcher takes the first route that fits the opt-in shared memory."""
+    S = win + 2 * slack + 2
+    fixed = 4 * 8 * 6
+    return fixed + 4 * {"lk_cached shared": S * S + 3 * win * win,
+                        "lk_cached patch": S * S, "lk_cached global": 0}[route]
+
+
+def cached_route(win: int, optin_bytes: int, slack: int = 8) -> str:
+    """The route the launcher takes at `win` under `optin_bytes`."""
+    return next((r for r in CACHED_ROUTES[:-1] if cached_smem(r, win, slack) <= optin_bytes),
+                CACHED_ROUTES[-1])
+
+
+def lk_cached_cuda(templates, cur_pyr, init_pts, valid, *, win: int, max_iter: int, eps: float,
+                   slack: int = 8):
+    """Track one frame of every stream against a template cache
+    (`optical_flow.build_lk_templates`), every level, in ONE launch of
+    `lk_cached_kernel`. Computes what `optical_flow.track_cached` computes
+    (the window sums in another order). Levels (B, H, W) with keypoints (B,
+    N, 2), `valid` (B, N) and a cache of (B, N, ...) leaves track B
+    streams; (H, W) levels with (N, 2) keypoints are one stream. The
+    launcher takes the first route (`CACHED_ROUTES`) whose shared memory
+    (`cached_smem`) fits the card's opt-in limit; the routes compute the
+    same arithmetic.
+
+    Returns (pts (..., N, 2), ok (..., N), iters (..., N, n_levels) int32:
+    the Gauss-Newton steps per level, indexed by level number). Adds one to
+    `lk_cached_cuda.launches` per launch, whatever B, to
+    `.launches_by_device[str(device)]` and to `.routes[route]` (a name of
+    CACHED_ROUTES); `.report[route]` holds {"smem", "optin"} of that
+    route's last launch."""
+    n = len(cur_pyr)
+    if n == 0 or len(templates) != n:
+        raise ValueError("need one template level (or None) per pyramid level")
+    if n > _MAX_LEVELS:
+        raise ValueError(f"at most {_MAX_LEVELS} pyramid levels, got {n}")
+    if win < 2:
+        raise ValueError(f"win {win}: the kernel takes windows of 2 px or more")
+    dev = cur_pyr[0].device
+    if init_pts.dim() not in (2, 3):
+        raise ValueError(f"init_pts: need (N,2) or (B,N,2) keypoints, got {tuple(init_pts.shape)}")
+    batched = init_pts.dim() == 3
+    B, N = (init_pts.shape[0], init_pts.shape[1]) if batched else (1, init_pts.shape[0])
+    flag_shape = tuple(init_pts.shape[:-1])
+    pts_shape = flag_shape + (2,)
+    if (init_pts.device != dev or init_pts.dtype != torch.float32
+            or tuple(init_pts.shape) != pts_shape or not init_pts.is_contiguous()):
+        raise ValueError(f"init_pts: need a contiguous {pts_shape} float32 tensor on {dev}")
+    if (valid.device != dev or valid.dtype != torch.bool or tuple(valid.shape) != flag_shape
+            or not valid.is_contiguous()):
+        raise ValueError(f"valid: need a contiguous {flag_shape} bool tensor on {dev}")
+    ptrs = (ctypes.c_void_p * (8 * n))()
+    strides = (ctypes.c_longlong * n)()
+    ints = (ctypes.c_int * (3 * n))()
+    scales = (ctypes.c_float * n)()
+    for e in range(n):
+        lvl = n - 1 - e
+        scales[e] = 1.0 / 2.0 ** (n - 1) if e == 0 else 2.0
+        T = templates[lvl]
+        cur = cur_pyr[lvl] if batched else cur_pyr[lvl][None]
+        if cur.dim() != 3 or cur.shape[0] != B:
+            raise ValueError(f"cur_pyr[{lvl}]: {tuple(cur_pyr[lvl].shape)} with keypoints {pts_shape}")
+        H, W = (int(d) for d in cur.shape[-2:])
+        ints[3 * e : 3 * e + 3] = [H, W, int(T is None)]
+        if T is None:
+            continue
+        _check_image(f"cur_pyr[{lvl}]", cur, dev, (B, H, W))
+        leaves = []
+        for key in _CACHE_KEYS:
+            t = T[key]
+            want = flag_shape + ((win, win) if key in ("tmpl", "gx", "gy") else ())
+            dtype = torch.bool if key == "good_g" else torch.float32
+            if (t.device != dev or t.dtype != dtype or tuple(t.shape) != want
+                    or not t.is_contiguous()):
+                raise ValueError(f"templates[{lvl}][{key!r}]: need a contiguous {want} {dtype} "
+                                 f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            leaves.append(t)
+        ptrs[8 * e : 8 * e + 8] = [cur.data_ptr()] + [t.data_ptr() for t in leaves]
+        strides[e] = H * W
+    if dev.type != "cuda":
+        raise ValueError("lk_cached_cuda needs CUDA tensors")
+    out_pts = torch.empty(pts_shape, dtype=torch.float32, device=dev)
+    out_ok = torch.empty(flag_shape, dtype=torch.bool, device=dev)
+    out_iters = torch.empty(flag_shape + (n,), dtype=torch.int32, device=dev)
+    if N == 0:
+        return out_pts, out_ok, out_iters
+    lib = _lib()
+    route = (ctypes.c_int * 3)(-1, -1, -1)
+    with torch.cuda.device(dev):
+        rc = lib.lk_cached_launch(
+            ptrs, strides, ints, scales, n, init_pts.data_ptr(), valid.data_ptr(),
+            out_pts.data_ptr(), out_ok.data_ptr(), out_iters.data_ptr(),
+            N, B, win, slack, max_iter, float(eps * eps),
+            torch.cuda.current_stream(dev).cuda_stream, route,
+        )
+    if rc != 0:
+        raise RuntimeError(f"LK cached kernel launch failed: {lib.lk_error_string(rc).decode()}")
+    lk_cached_cuda.launches += 1
+    lk_cached_cuda.launches_by_device[str(dev)] += 1
+    name = CACHED_ROUTES[route[0]]
+    lk_cached_cuda.routes[name] += 1
+    lk_cached_cuda.report[name] = {"smem": route[1], "optin": route[2]}
+    return out_pts, out_ok, out_iters
+
+
+lk_cached_cuda.launches = 0
+lk_cached_cuda.launches_by_device = collections.Counter()  # str(device) -> launches
+lk_cached_cuda.routes = collections.Counter()
+lk_cached_cuda.report = {}
+
+
 # ---------------------------------------------------------------------------
-# Tracker entry point
+# Tracker entry points
 # ---------------------------------------------------------------------------
 
 
@@ -635,4 +773,31 @@ def klt_track_lk(
         [(gx.contiguous(), gy.contiguous()) for gx, gy in prev_grads],
         prev_pts.contiguous(), init_pts.contiguous(), valid.contiguous(), **kw,
     )
+    return pts, ok
+
+
+def klt_track_cached_lk(templates, cur_pyr, init_pts, valid, *, win: int = 24,
+                        max_iter: int = 30, eps: float = 0.1,
+                        device: str | torch.device = "cuda"):
+    """The JAX package's default tracker, `klt_track_cached`, against a
+    template cache from `optical_flow.build_lk_templates`. All tensors must
+    already lie on `device`: CUDA tensors go through `lk_cached_kernel`
+    (one launch a frame), CPU tensors through the plain version
+    (`optical_flow.klt_track_cached`). Levels (B, H, W) with (B, N, 2)
+    keypoints and a (B, N, ...) cache track B streams in that one launch.
+    Returns (tracked_pts (..., N, 2), ok (..., N))."""
+    dev = resolve_device(device)
+    tensors = [*cur_pyr, init_pts, valid]
+    tensors += [T[k] for T in templates if T is not None for k in _CACHE_KEYS]
+    for t in tensors:
+        if t.device.type != dev.type:
+            raise ValueError(f"klt_track_cached_lk(device={dev}): got a tensor on {t.device}")
+    kw = dict(win=win, max_iter=max_iter, eps=eps)
+    if dev.type == "cpu":
+        # optical_flow imports this module: import it at call time.
+        from kimera_vio_tpu_torch.ops import optical_flow
+        return optical_flow.klt_track_cached(templates, cur_pyr, init_pts, valid, **kw)
+    pts, ok, _ = lk_cached_cuda(
+        templates, [c.contiguous() for c in cur_pyr], init_pts.contiguous(), valid.contiguous(),
+        **kw)
     return pts, ok

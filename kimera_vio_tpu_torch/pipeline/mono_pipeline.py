@@ -51,6 +51,8 @@ class MonoImuPipeline(StereoImuPipeline):
         return mono_rig(params.left_cam, params.frontend.nominal_baseline, self.device)
 
     def _build_frontend_cfg(self, params) -> FrontendConfig:
-        cfg = super()._build_frontend_cfg(params)
+        # The default tracker: KIMERA_LK_IMPL is the stereo pipeline's, as in
+        # the JAX package.
+        cfg = FrontendConfig.from_params(params.frontend, max_features=params.max_features)
         cfg.mono = True
         return cfg

@@ -34,7 +34,9 @@ class RgbdImuPipeline(StereoImuPipeline):
         return mono_rig(params.left_cam, self._virtual_baseline, self.device)
 
     def _build_frontend_cfg(self, params) -> FrontendConfig:
-        cfg = super()._build_frontend_cfg(params)
+        # The default tracker: KIMERA_LK_IMPL is the stereo pipeline's, as in
+        # the JAX package.
+        cfg = FrontendConfig.from_params(params.frontend, max_features=params.max_features)
         cfg.rgbd = True
         cfg.depth_min = _f32(params.frontend.min_point_dist)
         cfg.depth_max = _f32(params.frontend.max_point_dist)

@@ -114,7 +114,11 @@ from kimera_vio_tpu_torch.config import flags
 from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.frontend import imu_frontend as imu
 from kimera_vio_tpu_torch.frontend.camera import StereoCamera, rectification_map, remap_bilinear
-from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendConfig, StereoFrontend
+from kimera_vio_tpu_torch.frontend.vision_frontend import (
+    LK_IMPLS,
+    FrontendConfig,
+    StereoFrontend,
+)
 from kimera_vio_tpu_torch.initial.initializer import OnlineInitializer
 from kimera_vio_tpu_torch.initial.time_alignment import CrossCorrTimeAligner
 from kimera_vio_tpu_torch.mesher import mesher as mm
@@ -275,7 +279,14 @@ class StereoImuPipeline:
         return StereoCamera.from_params(params.left_cam, params.right_cam, self.device)
 
     def _build_frontend_cfg(self, params) -> FrontendConfig:
-        return FrontendConfig.from_params(params.frontend, max_features=params.max_features)
+        """The frontend configuration; KIMERA_LK_IMPL (matmul, gather or
+        pallas) chooses the LK tracker, as in the JAX package's stereo
+        pipeline; another value, or none, keeps the default (matmul)."""
+        cfg = FrontendConfig.from_params(params.frontend, max_features=params.max_features)
+        lk_env = os.environ.get("KIMERA_LK_IMPL", "")
+        if lk_env in LK_IMPLS:
+            cfg.lk_impl = lk_env
+        return cfg
 
     def _build_lcd(self):
         """LcdModule with the packaged vocabulary, LcdParams from the YAML

@@ -309,6 +309,10 @@ def _assert_trees_equal(a, b):
     elif isinstance(a, (tuple, list)):
         for x, y in zip(a, b, strict=True):
             _assert_trees_equal(x, y)
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_trees_equal(a[k], b[k])
     elif isinstance(a, torch.Tensor):
         torch.testing.assert_close(a, b, atol=0, rtol=0, equal_nan=True)
     else:
@@ -417,6 +421,9 @@ def jax_fleet_run():
 
 @pytest.fixture
 def like_jax(monkeypatch):
+    # The port's stereo pipelines built in the test track with the gather
+    # rule, as the JAX fleet does under the same variable.
+    monkeypatch.setenv("KIMERA_LK_IMPL", "gather")
     monkeypatch.setattr(vision_frontend, "klt_track_lk",
                         functools.partial(lk.klt_track_lk, search_rows=None))
     monkeypatch.setattr(transac, "_sample_indices", _tv._jax_draws)

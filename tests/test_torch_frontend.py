@@ -46,8 +46,12 @@ def test_frontend_init_matches_jax_and_tracks_from_converted_state():
     jfe = JStereoFrontend(jcfg, JStereoCamera.from_params(jparams.left_cam, jparams.right_cam),
                           jimu.PimParams.from_params(jparams.imu))
     tstereo = StereoCamera.from_params(tparams.left_cam, tparams.right_cam, device="cpu")
-    tfe = StereoFrontend(FrontendConfig.from_params(tparams.frontend, max_features=64), tstereo,
-                         PimParams.from_params(tparams.imu, device="cpu"), torch.device("cpu"))
+    # The port tracks with the Pallas window rule, from the keyframe pyramid
+    # the JAX gather tracker's state carries.
+    tcfg = FrontendConfig.from_params(tparams.frontend, max_features=64)
+    tcfg.lk_impl = "pallas"
+    tfe = StereoFrontend(tcfg, tstereo, PimParams.from_params(tparams.imu, device="cpu"),
+                         torch.device("cpu"))
 
     jprov = JProvider(n_frames=6, **SIZE)
     tprov = SyntheticStereoProvider(n_frames=6, **SIZE)

@@ -19,7 +19,7 @@ loop pairs, loop poses within 1e-4, PGO positions within 1e-4 m. Each
 side draws its own RANSAC samples; the loop poses converge through the
 Huber refinement regardless (they agree to ~3e-7).
 
-The port's own tracker (the Pallas window rule, fp32) is run too. On
+The port's Pallas window rule (fp32, `KIMERA_LK_IMPL=pallas`) is run too. On
 frame 1 of this orbit the two JAX trackers differ by up to 16 px on 38 of
 57 tracks, and most keyframes report few matches, so the estimate hangs
 on which tracks survive: with the window rule the port's keyframe
@@ -82,7 +82,9 @@ def orbit(mod, n_frames=N_FRAMES):
 @pytest.fixture
 def gather_lk(monkeypatch):
     """The port's frontend tracks with the gather tracker's level plan,
-    the rule of the JAX run."""
+    the rule of the JAX run (KIMERA_LK_IMPL chooses it for the port's
+    pipelines built in the test, as for the JAX run's)."""
+    monkeypatch.setenv("KIMERA_LK_IMPL", "gather")
     monkeypatch.setattr(vision_frontend, "klt_track_lk",
                         functools.partial(klt_track_lk, search_rows=None))
 
@@ -146,10 +148,11 @@ def test_run_chunked_collect_aux_matches_jax(jax_run, gather_lk):
     _check_against_jax(out, pipe.lcd_result, jax_run, prov)
 
 
-def test_run_with_the_window_rule_closes_the_same_loops(jax_run):
-    """The port's own tracker: the same stamps and loop pairs as the JAX
-    gather run and the JAX ATE(PGO) gate (positions part by mm here; see
-    the module docstring)."""
+def test_run_with_the_window_rule_closes_the_same_loops(jax_run, monkeypatch):
+    """The port's Pallas window rule (KIMERA_LK_IMPL=pallas): the same
+    stamps and loop pairs as the JAX gather run and the JAX ATE(PGO) gate
+    (positions part by mm here; see the module docstring)."""
+    monkeypatch.setenv("KIMERA_LK_IMPL", "pallas")
     params, prov = orbit(tsyn)
     pipe = StereoImuPipeline(params, parallel_run=False, enable_lcd=True, device="cpu")
     out = pipe.run(prov)

@@ -4,7 +4,9 @@ Same synthetic sequence (320x240, 12 frames, exact ground truth) through
 the JAX `StereoImuPipeline.run()` and the port's on the CPU. The JAX side
 tracks with its gather LK (`KIMERA_LK_IMPL=gather`), the tracker with the
 same contract as `klt_track_pallas` that runs on the CPU at this speed;
-the port tracks with its LK level function under the Pallas window rule.
+the port tracks with its LK level function under the Pallas window rule
+(`KIMERA_LK_IMPL=pallas` when its pipeline is built: the variable chooses
+the tracker of both packages' stereo pipelines).
 
 Tolerance: the same keyframe stamps, positions within 1e-3 m, rotations
 within 1e-3 rad. Not tighter because (1) the window rule makes the port
@@ -43,7 +45,9 @@ def test_run_matches_jax_pipeline(monkeypatch, tmp_path):
         JProvider(n_frames=N_FRAMES, **SIZE)
     )
     provider = SyntheticStereoProvider(n_frames=N_FRAMES, **SIZE)
+    monkeypatch.setenv("KIMERA_LK_IMPL", "pallas")
     pipe = StereoImuPipeline(synthetic_params(**SIZE, **CAP), output_path=str(tmp_path), device="cpu")
+    assert pipe.frontend_cfg.lk_impl == "pallas"
     tout = pipe.run(provider)
 
     assert tout.n_frames == jout.n_frames == N_FRAMES

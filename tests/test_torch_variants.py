@@ -123,7 +123,9 @@ def _frontends(jp, tp, mode):
     """(JAX frontend, port frontend) of the stereo rig, or of the mono rig
     in mode "mono" / "rgbd"."""
     jcfg = JFrontendConfig.from_params(jp.frontend, max_features=64).replace(lk_impl="gather")
+    # The port's pyramid tracker (the gather rule under `like_jax`).
     tcfg = FrontendConfig.from_params(tp.frontend, max_features=64)
+    tcfg.lk_impl = "pallas"
     if mode == "stereo":
         jrig = JStereoCamera.from_params(jp.left_cam, jp.right_cam)
         trig = StereoCamera.from_params(tp.left_cam, tp.right_cam, device="cpu")

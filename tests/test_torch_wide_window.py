@@ -1,11 +1,12 @@
-"""LK windows wider than 54 px: the port against the JAX package.
+"""LK windows wider than 54 px under the port's pyramid trackers, against
+the JAX package.
 
 The Pallas window rule (its 56-row search-window clip) takes no window
-over 54 px in either package, so the port tracks wider windows with the
-gather rule (`search_rows=None`), the rule of the JAX package's default
-tracker at every width. On the card that is the LK kernel's `lk_wide`
-mode (csrc/lk_kernel.cu), which chip_smoke.py phase 10 holds against the
-plain version; here the plain version is held against the JAX package:
+over 54 px in either package, so under `KIMERA_LK_IMPL=pallas` (and
+`gather`) the port tracks wider windows with the gather rule
+(`search_rows=None`). On the card that is the LK kernel's `lk_wide` mode
+(csrc/lk_kernel.cu), which chip_smoke.py phase 10 holds against the plain
+version; here the plain version is held against the JAX package:
 
   * the plain tracker (`klt_track_lk(..., search_rows=None)` on the CPU)
     at win 61 and 101 against the JAX `klt_track` on the textured image
@@ -13,12 +14,15 @@ plain version; here the plain version is held against the JAX package:
     positions within 1e-3 px (the same float32 arithmetic, the window sums
     in another order);
   * a 320x240 `run()` with `klt_win_size` 61 and `klt_max_level` 2 (levels
-    0 and 1 tracked, level 2 at 80x60 skipped) against one run of the JAX
-    pipeline with its default tracker (`lk_impl="matmul"`), the port
-    drawing the JAX RANSAC hypotheses (tests/test_torch_variants.py): the
-    same keyframe stamps, positions within 1e-4 m, and the JAX tests' ATE
-    gate, 0.05 m. A frontend built with a 61 px window tracks through the
-    gather rule (the window rule would fail every keypoint).
+    0 and 1 tracked, level 2 at 80x60 skipped), the port built under
+    `KIMERA_LK_IMPL=pallas`, against one run of the JAX pipeline with its
+    default tracker (`lk_impl="matmul"`), the port drawing the JAX RANSAC
+    hypotheses (tests/test_torch_variants.py): the same keyframe stamps,
+    positions within 1e-4 m, and the JAX tests' ATE gate, 0.05 m. Under
+    `pallas` a frontend built with a 61 px window tracks through the
+    gather rule (the window rule would fail every keypoint). The port's
+    default tracker, the JAX package's, is held to the JAX run at 53 px in
+    tests/test_torch_default_tracker.py.
 """
 
 import dataclasses
@@ -121,8 +125,9 @@ def test_run_with_a_61_px_window_matches_jax(jax_run, monkeypatch):
     monkeypatch.setattr(vision_frontend, "klt_track_lk", recording)
     _, tp = _params()
     prov = SyntheticStereoProvider(n_frames=N_FRAMES, vx=0.5, **SIZE)
+    monkeypatch.setenv("KIMERA_LK_IMPL", "pallas")
     pipe = StereoImuPipeline(tp, parallel_run=False, device="cpu")
-    assert pipe.frontend_cfg.klt_win == WIN
+    assert pipe.frontend_cfg.klt_win == WIN and pipe.frontend_cfg.lk_impl == "pallas"
     out = pipe.run(prov)
     assert rules == [None] * (N_FRAMES - 1)
     assert out.stamps_ns == jax_run.stamps_ns and out.n_keyframes >= 4
