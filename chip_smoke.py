@@ -15,7 +15,8 @@ live providers, the debug overlays, the visualizer and the playground,
 a fleet of eight streams through one batched frame step, the staging
 codecs of the CLI's --chunked mode, LK windows wider than 54 px and the
 fleet over a (data, model) mesh of devices, all with the default LK
-tracker (the JAX package's `lk_impl="matmul"`, `lk_cached_kernel`), then
+tracker (the JAX package's `lk_impl="matmul"`: `lk_cache_build_kernel`
+at each keyframe, `lk_cached_kernel` at each frame), then
 the pyramid trackers' run paths under KIMERA_LK_IMPL, and checks the
 results. Every failure ends the run with a non-zero exit code and no result line. Printed, in order: the
 card's name and power limit, the build, the kernel comparison, the main
@@ -35,30 +36,45 @@ Phases:
      differ in order: median and max |d| < 0.01 px over the keypoints
      both track, and the same `ok` for every keypoint. Printed per level: mean and max
      Gauss-Newton steps; and the launch's time with no Gauss-Newton step.
-     Then (`cached_phase`) the default tracker's kernel, `lk_cached_kernel`
-     (`lk_cached_cuda`, one launch per frame), against its plain version
-     `optical_flow.track_cached` on the same CUDA tensors and the same
-     template cache (`build_lk_templates`, plain PyTorch): at the main
-     path's shapes (752x480, win 24), 1241x376, 752x480 at win 53, 61, 101
-     and 151, at win 231 (the global route: no patch fits in shared
-     memory), and B = 4 streams in one launch against plain per stream and four single launches bit for
-     bit. Gates: the same `ok` for every keypoint, median and max |d| <
-     0.01 px over the keypoints both track, each row's route the one
-     `lk.cached_route(win, opt-in bytes)` gives and every route covered.
+     Then (`cached_phase`) the default tracker's two kernels against
+     their plain versions on the same CUDA tensors: the keyframe half,
+     `lk_cache_build_kernel` (`lk_cache_build_cuda`, one launch a
+     keyframe), against `optical_flow.build_lk_templates` (tmpl, gx and
+     gy bit for bit, inv* within 1e-5 relative, `good_g` identical); the
+     frame half, `lk_cached_kernel` (`lk_cached_cuda`, one launch per
+     frame), against `optical_flow.track_cached` on the plain cache, and
+     fed the kernel's cache against fed the plain one; at the main path's
+     shapes (752x480, win 24), 1241x376, 752x480 at win 53, 61, 101 and
+     151, at win 231 (the global route: no patch fits in shared memory),
+     and B = 4 streams in one launch of each against plain per stream and
+     four single launches bit for bit. Gates: the same `ok` for every
+     keypoint, median and max |d| < 0.01 px over the keypoints both
+     track, each row's launch plan (route, shared memory, keypoints a
+     block) the one `lk.cached_plan` gives, every route covered, and the
+     warp route at 752x480 / 1241x376 / B = 4 (24 px). Two more builds
+     of the 752x480 keyframe against plain reach the build kernel's other
+     branches: from the full-image gradients (`prev_grads`, the cache read
+     through L1/L2) and at win 241 (level 0 only; its patch no longer fits
+     in shared memory).
      One `[cached]` line per row: route, shared memory, per-level steps,
      graph-replay ms, no-step ms, us a step on the longest chain, eager ms
-     of `klt_track_cached_lk`, plain ms, the template build's ms and the
-     bound (`cached_work`).
+     of `klt_track_cached_lk`, plain ms and the bound (`cached_work`);
+     the build's graph-replay ms, eager ms of `build_lk_templates_lk`,
+     plain ms and bound (`cached_build_work`).
   2. main path: launch counter set to 0, the sequential `run()`
      (`parallel_run=False`, which times frame and keyframe steps apart)
      on the card at the full configuration (752x480, 256 features,
      10-keyframe horizon, 384 landmarks, 80 frames); the counter must
      equal the tracked frames (one launch each, every one
-     `lk_cached_kernel`'s on its shared route), the trajectory must be
+     `lk_cached_kernel`'s on its warp route), the trajectory must be
      finite and within the JAX package's ATE gate (rmse < 0.05 m,
      tests/test_pipeline_e2e.py:35). Phases 3-11 run the same default
      tracker: "LK launches" below counts `lk_cached_kernel`'s and the
-     pyramid kernels' launches together.
+     pyramid kernels' launches together, and every run of phases 2-11
+     gates `lk_cache_build_kernel`'s launches equal to the caches the
+     frontend built on the card (`lk_launches`), with no plain build
+     there. Phase 2 prints the cache build's ms a keyframe (launch +
+     kernel, CUDA events around each build).
   3. cli: phase 2's sequence written as a EuRoC `mav0` folder (PNGs from
      the package's encoder, dataprovider/png.py, whose rows cycle through
      all five PNG filters; CSVs with repr floats) and phase 2's params as a
@@ -185,7 +201,7 @@ Phases:
      exactly (stamps on the folder's clock, OXTS rows, every PNG), then
      `KittiDataProvider` through the sequential `run()` at phase 2's
      capacities, twice. With the source's ground truth attached: every
-     launch `lk_cached_kernel`'s on its shared route, LK launches = tracked
+     launch `lk_cached_kernel`'s on its warp route, LK launches = tracked
      frames, ATE rmse < 0.05 m, the keyframe stamps of the source run
      directly (images rounded to uint8) and positions within 1e-3 m of
      it. Without ground truth (the IMU-attitude bootstrap): LK launches =
@@ -267,7 +283,7 @@ Phases:
      launch against plain per stream and four single launches bit for bit;
      a sequential `run()` at phase 2's configuration with klt_win_size 61
      under the default tracker (gates: LK launches = tracked frames, every
-     launch `lk_cached_kernel`'s at 61 px on its shared route, ATE < 0.05
+     launch `lk_cached_kernel`'s at 61 px on `lk.cached_route`'s route, ATE < 0.05
      m; phase 12 runs it under "gather"). One `[wide]` line per row and
      run.
  11. mesh: `FleetVio` over a (data, model) mesh, the counterpart of the
@@ -365,6 +381,7 @@ from kimera_vio_tpu_torch.dataprovider.synthetic import (
     synthetic_params,
 )
 from kimera_vio_tpu_torch.frontend.camera import StereoCamera, remap_bilinear
+from kimera_vio_tpu_torch.frontend import vision_frontend
 from kimera_vio_tpu_torch.frontend.vision_frontend import StereoFrontend
 from kimera_vio_tpu_torch.loopclosure import orb
 from kimera_vio_tpu_torch.loopclosure.lcd import LcdConfig
@@ -577,18 +594,69 @@ CACHED_KW = dict(win=WIN, max_iter=MAX_ITER, eps=EPS)
 SLACK = of.SLACK
 
 
+# The template caches built since `reset_lk_counts`: by the frontend
+# (`build_lk_templates_lk`, with each build's CUDA events), and by the
+# plain `optical_flow.build_lk_templates` on the card.
+CACHE_BUILDS = {"frontend": 0, "plain": 0, "events": []}
+
+
+def _count_cache_builds() -> None:
+    """Wrap the frontend's cache build and the plain build (once) so that
+    they count their calls into CACHE_BUILDS (the plain one its calls on
+    CUDA tensors)."""
+    if getattr(vision_frontend.build_lk_templates_lk, "counted", False):
+        return
+    entry, plain = vision_frontend.build_lk_templates_lk, of.build_lk_templates
+
+    def frontend_build(prev_pyr, prev_pts, valid, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = entry(prev_pyr, prev_pts, valid, **kw)
+        end.record()
+        CACHE_BUILDS["frontend"] += 1
+        CACHE_BUILDS["events"].append((start, end))
+        return out
+
+    def plain_build(prev_pyr, prev_pts, valid, **kw):
+        CACHE_BUILDS["plain"] += prev_pts.device.type == "cuda"
+        return plain(prev_pyr, prev_pts, valid, **kw)
+
+    frontend_build.counted = True
+    vision_frontend.build_lk_templates_lk = frontend_build
+    of.build_lk_templates = plain_build
+
+
 def reset_lk_counts() -> None:
-    """Set both LK wrappers' launch counters to 0 (the pyramid and wide
+    """Set the LK wrappers' launch counters to 0 (the pyramid and wide
     kernels count on `lk_pyramid_cuda`, the default tracker's on
-    `lk_cached_cuda`)."""
+    `lk_cached_cuda`, its cache builds on `lk_cache_build_cuda`), and the
+    cache builds' counts."""
+    _count_cache_builds()
     for fn in (lk.lk_pyramid_cuda, lk.lk_cached_cuda):
         fn.launches = 0
         fn.launches_by_device.clear()
+    lk.lk_cache_build_cuda.launches = 0
+    CACHE_BUILDS.update(frontend=0, plain=0, events=[])
 
 
 def lk_launches() -> int:
-    """LK kernel launches since `reset_lk_counts`, whatever the tracker."""
+    """LK kernel launches since `reset_lk_counts`, whatever the tracker.
+    Gates the cache builds since then too: one `lk_cache_build_kernel`
+    launch for each cache the frontend built on the card, no plain build
+    on the card."""
+    builds = lk.lk_cache_build_cuda.launches
+    if builds != CACHE_BUILDS["frontend"] or CACHE_BUILDS["plain"]:
+        raise AssertionError(f"{builds} lk_cache_build launches for {CACHE_BUILDS['frontend']} "
+                             f"caches the frontend built; {CACHE_BUILDS['plain']} plain builds "
+                             f"on the card")
     return lk.lk_pyramid_cuda.launches + lk.lk_cached_cuda.launches
+
+
+def cache_build_ms() -> list[float]:
+    """Each frontend cache build's ms since `reset_lk_counts` (CUDA events
+    around `build_lk_templates_lk`: the host's launch path and the kernel)."""
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in CACHE_BUILDS["events"]]
 
 
 def lk_launches_by_device() -> dict:
@@ -679,37 +747,155 @@ def _cached_route_of(call) -> tuple:
     return out, next(iter(diff))
 
 
-def compare_cached(prev_pyr, cur_pyr, pts, init, valid, label: str, win: int = WIN,
-                   min_both: float = 0.5) -> dict:
-    """lk_cached_kernel vs its plain version (`optical_flow.track_cached`)
-    on the same CUDA tensors and the same template cache (built once, by
-    the plain `build_lk_templates`). Gates: the same `ok` for every
-    keypoint; median and max |d| < 0.01 px over the keypoints both track
-    (at least `min_both` of them). Returns the errors, steps, the route,
-    the times and the bound."""
-    kw = dict(CACHED_KW, win=win)
-    templates = of.build_lk_templates(prev_pyr, pts, valid, win=win)
-    (out_k, ok_k, it_k), route = _cached_route_of(
-        lambda: lk.lk_cached_cuda(templates, cur_pyr, init, valid, **kw))
-    with seen_cached_levels() as seen:
-        out_p, ok_p, it_p = of.track_cached(templates, cur_pyr, init, valid, **kw)
+def _build_patch_pixels(shape, corners, win: int, grads: bool = False) -> int:
+    """Distinct pixels of an (H, W) plane under the (win + 4)^2 patches
+    that `lk_cache_build_kernel` reads at `corners` (a level's keypoints;
+    origins clamped as the reference clamps them, pixels clipped to the
+    plane), or with `grads` under the (win + 1)^2 cells each window blends
+    from a given plane."""
+    H, W = shape
+    if corners.shape[0] == 0:
+        return 0
+    # Cells read, the reference's patch side and its padding.
+    side, St, pad = (win + 1, win + 2, win + 4) if grads else (win + 4, win + 4, win + 6)
+    a = torch.arange(side, device=corners.device)
+    t = torch.floor(corners - (win - 1) * 0.5).long() - (0 if grads else 1)
+    rows = (t[:, 1:2].clamp(-pad, H + pad - St) + a).clamp(0, H - 1)
+    cols = (t[:, 0:1].clamp(-pad, W + pad - St) + a).clamp(0, W - 1)
+    mask = torch.zeros(H * W, dtype=torch.bool, device=corners.device)
+    mask[(rows[:, :, None] * W + cols[:, None, :]).flatten()] = True
+    return int(mask.sum())
+
+
+def cached_build_work(prev_pyr, pts, win: int, grads: bool = False) -> tuple[int, float]:
+    """(bytes, float32 operations) of one keyframe's `lk_cache_build_kernel`
+    launch, from this run's data. Bytes, each once: the keypoints and
+    flags in; per level a window fits in (per stream), the distinct
+    keyframe pixels under the keypoints' (win + 4)^2 patches (with `grads`,
+    those of the image, gx and gy planes under the (win + 1)^2 cells each
+    window blends), and out the template, gx and gy windows, the inverse
+    matrix and the gate. Operations per keypoint and level: the Scharr x
+    and y correlations on the (win + 2)^2 cells (11 each; none with
+    `grads`), and per window pixel three y-then-x blends (9 each) and the
+    three gradient products and sums (6)."""
+    npx = win * win
+    planes = [p if p.dim() == 3 else p[None] for p in prev_pyr]
+    pts = pts if pts.dim() == 3 else pts[None]
+    B, N = pts.shape[0], pts.shape[1]
+    nbytes, flops = B * N * (8 + 1), 0.0
+    for lvl, img in enumerate(planes):
+        if min(img.shape[-2:]) < win + 2:
+            continue
+        for b in range(B):
+            nbytes += (3 if grads else 1) * 4 * _build_patch_pixels(
+                img.shape[-2:], pts[b] / 2.0 ** lvl, win, grads)
+        nbytes += B * N * (4 * 3 * npx + 4 * 3 + 1)
+        flops += B * N * ((0 if grads else 2 * 11 * (win + 2) ** 2) + npx * (3 * 9 + 6))
+    return nbytes, flops
+
+
+def check_cache(built, plain, label: str) -> dict:
+    """The kernel's cache against the plain one: tmpl, gx and gy bit for
+    bit, `good_g` identical, inv00 / inv01 / inv11 within 1e-5 of the
+    level's largest |plain| over the gated keypoints (the gradient sums are
+    added in another order). Returns the largest |kernel - plain| over
+    tmpl, gx and gy (`max_abs_err`, as measured) and the largest relative
+    error of the inverses."""
+    if len(built) != len(plain):
+        raise AssertionError(f"{label}: {len(built)} cache levels, plain {len(plain)}")
+    inv_err, max_err = 0.0, 0.0
+    for lvl, (a, b) in enumerate(zip(built, plain)):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{label}: level {lvl} built {a is not None}, plain {b is not None}")
+        if a is None:
+            continue
+        for key in ("tmpl", "gx", "gy"):
+            max_err = max(max_err, float((a[key] - b[key]).abs().max()))
+        for key in ("tmpl", "gx", "gy", "good_g"):
+            if not torch.equal(a[key], b[key]):
+                d = (a[key].float() - b[key].float()).abs().max()
+                raise AssertionError(f"{label}: level {lvl} {key} differs from plain by {float(d)}")
+        good = b["good_g"]
+        for key in ("inv00", "inv01", "inv11"):
+            ref = b[key][good]
+            if ref.numel():
+                err = float((a[key][good] - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+                inv_err = max(inv_err, err)
+    if not inv_err < 1e-5:
+        raise AssertionError(f"{label}: inverse gradient matrices {inv_err} from plain (relative)")
+    return {"cache_bit_identical": True, "max_abs_err": max_err, "inv_max_rel_err": inv_err}
+
+
+def compare_build(prev_pyr, pts, valid, plain, label: str, win: int, prev_grads=None) -> tuple:
+    """lk_cache_build_kernel vs the plain cache `plain` (check_cache); its
+    graph-replay ms, the eager ms of `build_lk_templates_lk` (the host's
+    launch path), the plain version's eager ms and the bound
+    (`cached_build_work`). Returns (the kernel's cache, the numbers)."""
+    kw = dict(win=win, min_eig_thresh=MIN_EIG, prev_grads=prev_grads)
+    built = lk.lk_cache_build_cuda(prev_pyr, pts, valid, **kw)
     torch.cuda.synchronize()
-    agree = float((ok_k == ok_p).float().mean())
-    both = ok_k & ok_p
-    d = torch.linalg.norm(out_k - out_p, dim=-1)[both]
-    if int(both.sum()) < max(1, min_both * pts.shape[-2]):
+    res = check_cache(built, plain, label)
+    b_ms, b_by = bound_ms(*cached_build_work(prev_pyr, pts, win, prev_grads is not None))
+    res.update(
+        smem_bytes=lk.lk_cache_build_cuda.report["smem"],
+        patch_in_smem=lk.lk_cache_build_cuda.report["patch_in_smem"],
+        ms=graph_ms(lambda: lk.lk_cache_build_cuda(prev_pyr, pts, valid, **kw)),
+        eager_ms=time_ms(lambda: lk.build_lk_templates_lk(prev_pyr, pts, valid,
+                                                          device=pts.device, **kw), reps=20),
+        plain_ms=time_ms(lambda: of.build_lk_templates(prev_pyr, pts, valid, **kw), reps=10),
+        bound_ms=b_ms, bound_by=b_by)
+    return built, res
+
+
+def _check_tracks(label: str, a: tuple, b: tuple, n_kpts: int, min_both: float) -> tuple:
+    """Two trackers' (pts, ok): the same `ok` for every keypoint; median
+    and max |d| < 0.01 px over the keypoints both track (at least
+    `min_both` of them). Returns (median, max)."""
+    (out_a, ok_a), (out_b, ok_b) = a[:2], b[:2]
+    agree = float((ok_a == ok_b).float().mean())
+    both = ok_a & ok_b
+    if int(both.sum()) < max(1, min_both * n_kpts):
         raise AssertionError(f"{label}: only {int(both.sum())} keypoints tracked by both")
+    d = torch.linalg.norm(out_a - out_b, dim=-1)[both]
     median, max_err = float(d.median()), float(d.max())
     # Same float32 math in the same term order; only the window sums are
     # added in another order.
     if not (median < 0.01 and max_err < 0.01 and agree == 1.0):
         raise AssertionError(f"{label}: median {median} px, max {max_err} px, "
                              f"ok agreement {agree}")
+    return median, max_err
+
+
+def compare_cached(prev_pyr, cur_pyr, pts, init, valid, label: str, win: int = WIN,
+                   min_both: float = 0.5) -> dict:
+    """The default tracker's two kernels against their plain versions on
+    the same CUDA tensors: lk_cache_build_kernel against
+    `optical_flow.build_lk_templates` (`compare_build`), then
+    lk_cached_kernel against `optical_flow.track_cached` on the plain
+    cache, and the kernel fed the kernel's cache against it fed the plain
+    one (`_check_tracks`). Returns the errors, steps, the launch plan, the
+    times and the bounds."""
+    kw = dict(CACHED_KW, win=win)
+    templates = of.build_lk_templates(prev_pyr, pts, valid, win=win)
+    built, build = compare_build(prev_pyr, pts, valid, templates, label, win)
+    (out_k, ok_k, it_k), route = _cached_route_of(
+        lambda: lk.lk_cached_cuda(templates, cur_pyr, init, valid, **kw))
+    report = dict(lk.lk_cached_cuda.report[route])
+    with seen_cached_levels() as seen:
+        out_p, ok_p, it_p = of.track_cached(templates, cur_pyr, init, valid, **kw)
+    out_b = lk.lk_cached_cuda(built, cur_pyr, init, valid, **kw)
+    torch.cuda.synchronize()
+    n_kpts = pts.shape[-2]
+    median, max_err = _check_tracks(label, (out_k, ok_k), (out_p, ok_p), n_kpts, min_both)
+    _, max_built = _check_tracks(f"{label} (the kernel's cache)", out_b, (out_k, ok_k), n_kpts,
+                                 min_both)
     n = len(cur_pyr)
-    res = {"label": label, "win": win, "route": route,
-           "smem_bytes": lk.lk_cached_cuda.report[route]["smem"],
-           "launches_per_frame": 1, "tracked": int(ok_k.sum()), "ok_agreement": agree,
+    res = {"label": label, "win": win, "route": route, "smem_bytes": report["smem"],
+           "keypoints_a_block": report["warps"],
+           "levels_tracked": sum(t is not None for t in templates),
+           "launches_per_frame": 1, "tracked": int(ok_k.sum()), "ok_agreement": 1.0,
            "median_abs_err": median, "max_abs_err": max_err,
+           "max_abs_err_kernel_cache_vs_plain_cache": max_built,
            "levels": [{"level": lvl, "shape": list(cur_pyr[lvl].shape[-2:]),
                        "mean_steps": float(it_k[..., lvl].float().mean()),
                        "max_steps": int(it_k[..., lvl].max()),
@@ -718,36 +904,50 @@ def compare_cached(prev_pyr, cur_pyr, pts, init, valid, label: str, win: int = W
                       for lvl in range(n - 1, -1, -1) if templates[lvl] is not None]}
     # ms: device time of one frame's launch (graph replay); beside it the
     # launch with no Gauss-Newton step (patch staging on every level), the
-    # eager time of the tracker entry point, the plain version and the
-    # keyframe's template build (plain PyTorch).
+    # eager time of the tracker entry point and the plain version.
     ms = graph_ms(lambda: lk.lk_cached_cuda(templates, cur_pyr, init, valid, **kw))
     ms_no_steps = graph_ms(lambda: lk.lk_cached_cuda(templates, cur_pyr, init, valid,
                                                      **{**kw, "max_iter": 0}))
     chain = int(it_k.reshape(-1, n).sum(-1).max())
     plain_ms = time_ms(lambda: of.track_cached(templates, cur_pyr, init, valid, **kw),
                        reps=3, warmup=1)
-    tmpl_ms = time_ms(lambda: of.build_lk_templates(prev_pyr, pts, valid, win=win), reps=10)
     eager_ms = time_ms(lambda: lk.klt_track_cached_lk(templates, cur_pyr, init, valid,
                                                       device=pts.device, **kw), reps=50)
     b_ms, b_by = bound_ms(*cached_work(seen, int(valid.numel()), n, win))
     res.update(ms=ms, ms_no_steps=ms_no_steps, max_chain_steps=chain,
                us_per_step_on_longest_chain=1e3 * (ms - ms_no_steps) / max(chain, 1),
-               eager_ms=eager_ms, plain_ms=plain_ms, template_build_ms=tmpl_ms,
-               bound_ms=b_ms, bound_by=b_by)
+               eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, build=build)
     log(f"[cached] {json.dumps(res)}")
     return res
 
 
 def compare_cached_streams(inp: dict, n_streams: int, label: str) -> dict:
-    """ONE launch for n_streams streams (a stacked template cache) against
-    the plain version per stream (phase 1's gate) and against n_streams
-    single-stream launches bit for bit."""
-    per = [of.build_lk_templates([p[b] for p in inp["prev"]], inp["pts"][b], inp["valid"][b])
-           for b in range(n_streams)]
-    stacked = stack_trees(per)
+    """ONE launch of each kernel for n_streams streams: the cache build of
+    the stacked keyframes against the plain cache per stream and against
+    n_streams single-stream builds, bit for bit; the tracker on the
+    stacked cache against the plain version per stream (phase 1's gate)
+    and against n_streams single-stream launches, bit for bit."""
+    prev = [p[:n_streams] for p in inp["prev"]]
     cur = [c[:n_streams] for c in inp["cur"]]
     pts, valid = inp["pts"][:n_streams], inp["valid"][:n_streams]
-    out_k, ok_k, it_k = lk.lk_cached_cuda(stacked, cur, pts, valid, **CACHED_KW)
+    per = [of.build_lk_templates([p[b] for p in prev], pts[b], valid[b])
+           for b in range(n_streams)]
+    stacked = stack_trees(per)
+    built = lk.lk_cache_build_cuda(prev, pts, valid, win=WIN, min_eig_thresh=MIN_EIG)
+    build = check_cache(built, stacked, f"{label} build")
+    for b in range(n_streams):
+        single = lk.lk_cache_build_cuda([p[b] for p in prev], pts[b], valid[b], win=WIN,
+                                        min_eig_thresh=MIN_EIG)
+        for lvl, (x, y) in enumerate(zip(single, built)):
+            if (x is None) != (y is None) or (
+                    x is not None and not all(torch.equal(x[k], y[k][b]) for k in x)):
+                raise AssertionError(f"{label}: stream {b}'s cache from the batched build differs "
+                                     f"from its own at level {lvl}")
+    build.update(equal_to_single_launches=True,
+                 ms=graph_ms(lambda: lk.lk_cache_build_cuda(prev, pts, valid, win=WIN,
+                                                            min_eig_thresh=MIN_EIG)))
+    (out_k, ok_k, it_k), route = _cached_route_of(
+        lambda: lk.lk_cached_cuda(stacked, cur, pts, valid, **CACHED_KW))
     d, agree, both_n = [], [], 0
     for b in range(n_streams):
         cur_b = [c[b] for c in cur]
@@ -768,18 +968,24 @@ def compare_cached_streams(inp: dict, n_streams: int, label: str) -> dict:
         raise AssertionError(f"{label}: median {median} px, max {max_err} px, "
                              f"ok agreement {min(agree)}")
     ms = graph_ms(lambda: lk.lk_cached_cuda(stacked, cur, pts, valid, **CACHED_KW))
-    res = {"label": label, "streams": n_streams, "launches": 1, "tracked": int(ok_k.sum()),
+    report = lk.lk_cached_cuda.report[route]
+    res = {"label": label, "win": WIN, "streams": n_streams, "launches": 1, "route": route,
+           "smem_bytes": report["smem"], "keypoints_a_block": report["warps"],
+           "levels_tracked": sum(t is not None for t in stacked), "tracked": int(ok_k.sum()),
            "median_abs_err": median, "max_abs_err": max_err, "ok_agreement": min(agree),
-           "equal_to_single_launches": True, "ms": ms, "ms_per_stream_frame": ms / n_streams}
+           "equal_to_single_launches": True, "ms": ms, "ms_per_stream_frame": ms / n_streams,
+           "build": build}
     log(f"[cached] {json.dumps(res)}")
     return res
 
 
 def cached_phase(dev) -> dict:
-    """Phase 1 (b): lk_cached_kernel against its plain version at the main
-    path's shapes (752x480, win 24), at 1241x376, at 53, 61, 101 and 151 px,
-    at 231 px (the global route: no patch fits in shared memory), and with
-    four streams in one launch."""
+    """Phase 1 (b): lk_cache_build_kernel and lk_cached_kernel against
+    their plain versions at the main path's shapes (752x480, win 24), at
+    1241x376, at 53, 61, 101 and 151 px, at 231 px (the global route: no
+    patch fits in shared memory), and with four streams in one launch.
+    Gates each row's launch plan to `lk.cached_plan`, every route covered,
+    and the warp route on the 24 px rows."""
     optin = optin_bytes(dev)
     prev_pyr, cur_pyr, uv, valid = main_lk_inputs(dev)
     rows = {"752x480": compare_cached(prev_pyr, cur_pyr, uv, uv, valid, "752x480")}
@@ -790,14 +996,41 @@ def cached_phase(dev) -> dict:
                                                     f"752x480 win {win}", win=win, min_both=0.25)
     rows["752x480 win 231"] = compare_cached(prev_pyr, cur_pyr, uv, uv, valid, "752x480 win 231",
                                              win=231, min_both=0.02)
+    rows["752x480 B=4"] = compare_cached_streams(fleet_lk_inputs(dev, 4), 4, "752x480 B=4")
     for label, r in rows.items():
-        want = lk.cached_route(r["win"], optin)
-        if r["route"] != want or r["smem_bytes"] != lk.cached_smem(want, r["win"]):
-            raise AssertionError(f"{label}: route {r['route']} ({r['smem_bytes']} B), "
-                                 f"expected {want} under {optin} B opt-in")
+        want = lk.cached_plan(r["win"], optin)
+        got = (r["route"], r["keypoints_a_block"], r["smem_bytes"])
+        if got != tuple(want):
+            raise AssertionError(f"{label}: launch plan {got}, expected {tuple(want)} under "
+                                 f"{optin} B opt-in")
     if {r["route"] for r in rows.values()} != set(lk.CACHED_ROUTES):
         raise AssertionError(f"the rows do not cover every route: {[r['route'] for r in rows.values()]}")
-    rows["752x480 B=4"] = compare_cached_streams(fleet_lk_inputs(dev, 4), 4, "752x480 B=4")
+    for label in ("752x480", "1241x376", "752x480 B=4"):
+        if rows[label]["route"] != "lk_cached warp":
+            raise AssertionError(f"{label}: route {rows[label]['route']}, not the warp route")
+    return rows
+
+
+def build_branch_phase(dev) -> dict:
+    """Phase 1 (c): the build kernel's branches that the cached rows do not
+    reach, against the plain build (`compare_build`) on the 752x480
+    keyframe: the cache resampled from full-image gradients (`prev_grads`,
+    each level's Scharr planes), and a window of 241 px (level 0 only),
+    whose (win + 4)^2 patch does not fit in shared memory. Both must read
+    the keyframe through L1/L2."""
+    prev_pyr, _, uv, valid = main_lk_inputs(dev)
+    grads = [of._grad(p) for p in prev_pyr]
+    rows = {}
+    for label, win, g in (("752x480 prev_grads", WIN, grads), ("752x480 win 241", 241, None)):
+        plain = of.build_lk_templates(prev_pyr, uv, valid, win=win, min_eig_thresh=MIN_EIG,
+                                      prev_grads=g)
+        _, rows[label] = compare_build(prev_pyr, uv, valid, plain, label, win, prev_grads=g)
+        rows[label].update(label=label, win=win, levels_built=sum(t is not None for t in plain))
+        if rows[label]["patch_in_smem"]:
+            raise AssertionError(f"{label}: the patch sat in shared memory")
+        log(f"[cache build] {json.dumps(rows[label])}")
+    if rows["752x480 win 241"]["levels_built"] != 1:
+        raise AssertionError(f"win 241: {rows['752x480 win 241']['levels_built']} levels built")
     return rows
 
 
@@ -834,12 +1067,16 @@ def path_phase(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lk_launches()
+    builds = lk.lk_cache_build_cuda.launches
+    build_ms = cache_build_ms()
     tracked = out.n_frames - 1  # the first frame initializes, the rest track
-    if launches != tracked:
-        raise AssertionError(f"LK kernel launches {launches} != {tracked} tracked frames")
-    # The default tracker: every launch lk_cached_kernel's, on its shared route.
+    if launches != tracked or builds < 1:
+        raise AssertionError(f"LK kernel launches {launches} != {tracked} tracked frames, "
+                             f"or no cache build ({builds})")
+    # The default tracker: every launch lk_cached_kernel's, on its warp route;
+    # one cache build at the first frame and at each keyframe after it.
     if (lk.lk_cached_cuda.launches != tracked
-            or dict(lk.lk_cached_cuda.routes) != {"lk_cached shared": tracked}):
+            or dict(lk.lk_cached_cuda.routes) != {"lk_cached warp": tracked}):
         raise AssertionError(f"main path: {lk.lk_cached_cuda.launches} lk_cached launches, "
                              f"routes {dict(lk.lk_cached_cuda.routes)}")
     est = np.stack(out.positions)
@@ -860,6 +1097,9 @@ def path_phase(dev) -> dict:
         / pipe.stats.get("VioFrontend Keyframe Rate [ms]").count,
         "lk_launches": launches, "lk_impl": pipe.frontend_cfg.lk_impl,
         "lk_launches_by_route": dict(lk.lk_cached_cuda.routes),
+        "cache_builds": builds,
+        "cache_build_ms_per_keyframe": float(np.mean(build_ms)),
+        "cache_build_ms_median": float(np.median(build_ms)),
     }
     log(f"[path] {json.dumps(res)}")
     res["stamps_ns"], res["positions"], res["pipe"] = out.stamps_ns, est, pipe
@@ -2349,7 +2589,7 @@ def kitti_phase(dev, path: dict, graph_ms: float, work: str, impl: str | None = 
                 raise AssertionError(f"KITTI {name}: level 0 is {modes[0]}, not the gather mode (B1)")
         else:
             modes = {lvl: "cached" for lvl in range(len(rec["shapes"]))}
-            if dict(rec["routes"]) != {"lk_cached shared": r["launches"]}:
+            if dict(rec["routes"]) != {"lk_cached warp": r["launches"]}:
                 raise AssertionError(f"KITTI {name}: lk_cached routes {dict(rec['routes'])}")
         if rec["launches"] != r["launches"] or len(rec["rules"]) != 1:
             raise AssertionError(f"KITTI: the timed wrapper missed launches, or they took "
@@ -2402,7 +2642,9 @@ def kitti_kernel_profile(dev, params, root: str, gt, graph_ms: float,
     prov.ground_truth = gt
     with lk_impl(impl):
         pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
-    kernel = "lk_pyramid_kernel" if impl == "pallas" else "lk_cached_kernel"
+    # lk_cached_kernel's routes are two kernels: lk_cached_kernel and
+    # lk_cached_warp_kernel.
+    kernel = "lk_pyramid_kernel" if impl == "pallas" else "lk_cached"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         r = run_counted(pipe, prov)
     # The trace's raw events: `prof.events()` would first turn all of them
@@ -3405,10 +3647,16 @@ def build_kernels() -> dict:
         m = re.search(r"Compiling entry function '\S*?lk_pyramid_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                       line)
         c = re.search(r"Compiling entry function '\S*?lk_cached_kernelILi(\d)E", line)
+        w = re.search(r"Compiling entry function '\S*?lk_cached_warp_kernel", line)
+        bk = re.search(r"Compiling entry function '\S*?lk_cache_build_kernelILb(\d)E", line)
         if m:
             kernel = "lk_pyramid_kernel<win {}, search_rows {}, max_win {}>".format(*m.groups())
         elif c:
             kernel = f"lk_cached_kernel<{lk.CACHED_ROUTES[int(c.group(1))]}>"
+        elif w:
+            kernel = "lk_cached_warp_kernel"
+        elif bk:
+            kernel = f"lk_cache_build_kernel<patch in smem {bool(int(bk.group(1)))}>"
         elif re.search(r"Compiling entry function '\S*?lk_wide_kernel", line):
             kernel = "lk_wide_kernel"
         elif "registers" in line or "spill" in line:
@@ -3437,6 +3685,7 @@ def main() -> int:
     t = time.perf_counter()
     kern = kernel_phase(dev)
     kern["cached"] = cached_phase(dev)
+    kern["cache_build"] = build_branch_phase(dev)
     log(f"[phase] kernel {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     path = path_phase(dev)
@@ -3486,6 +3735,10 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
 
     # lk_cached_kernel, the default tracker: every run of phases 2-11.
     cm = kern["cached"]["752x480"]
+    # The build kernel against plain: every cached row's build, then the
+    # builds of its other branches.
+    build_rows = {**{label: r["build"] for label, r in kern["cached"].items()},
+                  **kern["cache_build"]}
     kernels = [{
         "name": "lk_cached",
         "route": "cuda",
@@ -3521,16 +3774,39 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
         "us_per_step_on_longest_chain": cm["us_per_step_on_longest_chain"],
         "eager_ms": cm["eager_ms"],
         "plain_ms": cm["plain_ms"],
-        "template_build_ms": cm["template_build_ms"],
         "bound_ms": cm["bound_ms"],
         "bound_by": cm["bound_by"],
         "library_ms": None,  # no single PyTorch call computes pyramidal LK
-        "rows": {label: {k: r.get(k) for k in ("win", "route", "smem_bytes", "max_abs_err",
+        "rows": {label: {k: r.get(k) for k in ("win", "route", "smem_bytes",
+                                                 "keypoints_a_block", "max_abs_err",
                                                  "median_abs_err", "ms", "ms_no_steps",
                                                  "us_per_step_on_longest_chain", "plain_ms",
                                                  "bound_ms", "bound_by", "ms_per_stream_frame")}
                  for label, r in kern["cached"].items()},
         "ptxas": {k: v for k, v in build.items() if k.startswith("lk_cached")},
+    }, {
+        # lk_cache_build_kernel, the default tracker's keyframe half: one
+        # launch per cache the frontend builds in every run of phases 2-11.
+        "name": "lk_cache_build",
+        "route": "cuda",
+        "source": "kimera_vio_tpu_torch/csrc/lk_kernel.cu",
+        "replaces": "kimera_vio_tpu/ops/optical_flow.py:323",
+        "also_replaces": ["kimera_vio_tpu/ops/optical_flow.py:235"],
+        "launches": path["cache_builds"],
+        "in_run_ms_per_keyframe": path["cache_build_ms_per_keyframe"],
+        "max_abs_err": max(r["max_abs_err"] for r in build_rows.values()),
+        "inv_max_rel_err": max(r["inv_max_rel_err"] for r in build_rows.values()),
+        "ms": cm["build"]["ms"],
+        "eager_ms": cm["build"]["eager_ms"],
+        "plain_ms": cm["build"]["plain_ms"],
+        "bound_ms": cm["build"]["bound_ms"],
+        "bound_by": cm["build"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call builds an LK template cache
+        "rows": {label: {k: r.get(k) for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "max_abs_err", "inv_max_rel_err",
+                                                "smem_bytes", "patch_in_smem")}
+                 for label, r in build_rows.items()},
+        "ptxas": {k: v for k, v in build.items() if k.startswith("lk_cache_build")},
     }, {
         "name": "lk_pyramid",
         "route": "cuda",

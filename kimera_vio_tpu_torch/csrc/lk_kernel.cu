@@ -3,7 +3,10 @@
 // block per keypoint and stream (grid N x B), or over 54 px one
 // thread-block cluster (design note 6). The JAX package's default tracker
 // (lk_impl="matmul": a per-keyframe template cache, one search patch a
-// level) is a third kernel, `lk_cached_kernel`, with its own note below.
+// level) is two more kernels with their own notes below: `lk_cached_kernel`
+// tracks a frame against the cache (one warp a keypoint at the main path's
+// widths, `lk_cached_warp_kernel`), `lk_cache_build_kernel` builds the
+// cache at a keyframe.
 //
 // Replaces, in one kernel:
 //   * kimera_vio_tpu/ops/pallas/lk_kernel.py:_level_kernel_vmem (:332,
@@ -957,39 +960,74 @@ int launch_wide(Table& tab, int optin, int N, int B, const void* prev_pts, const
 // Replaces kimera_vio_tpu/ops/optical_flow.py:klt_track_cached (:461) and
 // its level _iterate_level_cached (:352), which XLA runs outside any Pallas
 // kernel: the per-frame half of the matmul tracker. The keyframe half,
-// build_lk_templates (:323), stays plain PyTorch (it runs once a keyframe)
-// and hands this kernel its cache: per level the template window and its
-// gradients ((B, N, win, win) float32), the inverse gradient matrix and the
-// min-eigenvalue gate ((B, N)). The plain PyTorch version is
+// build_lk_templates (:323), is `lk_cache_build_kernel` below (one launch a
+// keyframe); it hands this kernel its cache: per level the template window
+// and its gradients ((B, N, win, win) float32), the inverse gradient matrix
+// and the min-eigenvalue gate ((B, N)). The plain PyTorch version is
 // ops/optical_flow.py:track_cached; the two compute the same float32
 // arithmetic in the same term order (-fmad=false), only the order of the
 // window sums differs.
 //
-// Per keypoint and stream (one block, grid N x B), every level coarse to
-// fine in one launch (points double between levels, skipped levels
-// included): stage the level's S x S search patch (S = win + 2 slack + 2)
-// at the seed's clamped origin with cp.async from edge-clamped addresses
-// (jnp.pad(mode="edge") and the clamped dynamic slice of the reference),
-// then up to max_iter Gauss-Newton steps inside it. Before each step the
-// window offset is clipped to the patch, a clip over 0.5 px marks the
-// keypoint diverged (it fails), and the window is blended at the clipped
-// offset: a y-lerp of two patch rows, then an x-lerp of two columns, the
-// order of the reference's two resampling matmuls. Each keypoint stops at
-// its own convergence. Level 0 gates on the template gate and the image.
+// Per keypoint and stream, every level coarse to fine in one launch (points
+// double between levels, skipped levels included): stage the level's S x S
+// search patch (S = win + 2 slack + 2) at the seed's clamped origin with
+// cp.async from edge-clamped addresses (jnp.pad(mode="edge") and the
+// clamped dynamic slice of the reference), then up to max_iter Gauss-Newton
+// steps inside it. Before each step the window offset is clipped to the
+// patch, a clip over 0.5 px marks the keypoint diverged (it fails), and the
+// window is blended at the clipped offset: a y-lerp of two patch rows, then
+// an x-lerp of two columns, the order of the reference's two resampling
+// matmuls. Each keypoint stops at its own convergence. Level 0 gates on the
+// template gate and the image.
 //
 // What bounds it: as lk_pyramid_kernel, the latency of each keypoint's
-// serial chain of steps (a 24x24 blend and two block sums a step), not
-// bytes (the patches and the cache are ~2 MB a 752x480 frame) or
-// operations. The matmul form that fed the TPU's MXU has nothing to feed
-// here: each window row has two nonzero weights, so the blend is 6
-// multiply-adds a pixel on the CUDA cores.
+// serial chain of steps (a 24x24 blend and two sums a step) and of each
+// level's dependent patch copy, not bytes (the patches and the cache are ~2
+// MB a 752x480 frame) or operations. The matmul form that fed the TPU's MXU
+// has nothing to feed here: each window row has two nonzero weights, so the
+// blend is 6 multiply-adds a pixel on the CUDA cores.
 //
-// Routes (the launcher picks the first that fits the opt-in shared memory
-// and reports it): kCachedShared, the patch and the template cache in
-// shared memory (to 101 px and a little beyond); kCachedPatch, the patch in
-// shared memory and the cache read through L1/L2 (to 222 px); kCachedGlobal,
-// both read through L2, with the same arithmetic.
-enum CachedRoute : int { kCachedShared = 0, kCachedPatch = 1, kCachedGlobal = 2 };
+// Routes (`plan_cached` picks one, the launcher reports it; the Python twin
+// is ops/lk_kernel.py:cached_plan):
+//   * kCachedWarp, 24 px with slack 8 (the JAX default): `lk_cached_warp_kernel`,
+//     one warp a keypoint and stream, kCachedWarpBlock (or, where their
+//     buffers do not fit, 1) keypoints a block, each warp with its own patch
+//     and cache buffer:
+//       - lane l blends the runs q = l + 32 j of kCachedRun adjacent window
+//         pixels, with fixed offsets, and holds the level's template and
+//         gradients at them in registers (54 floats); a step's two sums are
+//         an xor-butterfly, which leaves the same bits in every lane, so a
+//         step has no shared partials and no barrier, and every lane takes
+//         the same exit decision;
+//       - a level's template, gx and gy windows are contiguous (win, win)
+//         rows of the leaves (16-byte aligned: the launcher checks), so one
+//         lane copies them with three cp.async.bulk (the bulk copy engine,
+//         global to shared), beside the level's patch copy, completing on
+//         the warp's mbarrier (copying levels ahead was slower). The gate
+//         and inverse of every level are read at entry: lane e holds level
+//         entry e's, and a shuffle hands them to the warp;
+//       - the patch depends on the previous level's result, so it stays a
+//         dependent copy: edge-clamped cp.async (a TMA tile fills
+//         out-of-bounds cells with zeros, not edge values), at a row stride
+//         congruent to win mod 32, so a warp's 32 consecutive window pixels
+//         read 32 distinct banks.
+//   * other widths, `lk_cached_kernel`, a block of kThreads a keypoint:
+//     kCachedShared, the patch and the template cache in shared memory (to
+//     101 px and a little beyond); kCachedPatch, the patch in shared memory
+//     and the cache read through L1/L2 (to 222 px); kCachedGlobal, both read
+//     through L2, with the same arithmetic.
+enum CachedRoute : int { kCachedShared = 0, kCachedPatch = 1, kCachedGlobal = 2, kCachedWarp = 3 };
+
+// The warp route's window and slack, the JAX default: the only width at
+// which one warp a keypoint was faster than the 192-thread block on an H100
+// (scripts/lk_kernel_ab.py --kernel cached, PERF.md; a walk at run time
+// was slower at 16, 20 and 28-61 px).
+constexpr int kCachedWarpWin = 24;
+constexpr int kCachedWarpSlack = 8;
+constexpr int kCachedWarpBlock = 2;  // keypoints (warps) a block of the warp route
+// A lane blends runs of kCachedRun adjacent window pixels, which share
+// their column lerps.
+constexpr int kCachedRun = 3;
 
 struct CachedLevel {
   const float* cur;                       // stream 0's plane of the current level
@@ -1011,7 +1049,25 @@ struct CachedTable {
   int n;
   int win, slack, max_iter;
   float eps2;
+  int N;  // keypoints a stream (the warp route)
 };
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+
+// The warp route's patch row stride: the smallest stride >= the patch's
+// S = win + 2 slack + 2 columns congruent to win mod 32.
+__host__ __device__ constexpr int cached_patch_stride(int win, int slack) {
+  return win + 32 * ((2 * slack + 2 + 31) / 32);
+}
+
+// Bytes of one warp of the warp route: its mbarrier (a 16-byte unit), its
+// S x S patch at cached_patch_stride, then its cache buffer (template, gx,
+// gy), each buffer a whole number of 16-byte units.
+constexpr int kCachedWarpS = kCachedWarpWin + 2 * kCachedWarpSlack + 2;
+constexpr int kCachedWarpPS = cached_patch_stride(kCachedWarpWin, kCachedWarpSlack);
+constexpr int kCachedWarpPatchFloats = round4(kCachedWarpS * kCachedWarpPS);
+constexpr int kCachedWarpBytes =
+    16 + 4 * (kCachedWarpPatchFloats + round4(3 * kCachedWarpWin * kCachedWarpWin));
 
 template <int ROUTE>
 __global__ void __launch_bounds__(kThreads)
@@ -1145,9 +1201,227 @@ lk_cached_kernel(const __grid_constant__ CachedTable tab, const float* __restric
   }
 }
 
-// Dynamic shared memory of each route: the warps' partials, and the patch
-// (and the cache) where the route keeps them.
-size_t cached_smem(int route, int win, int slack) {
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned phase) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred P;\n mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the bulk copy engine, counted on mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The warp route: copy a level's template, gx and gy windows of keypoint
+// row k into dst by the bulk copy engine, counted on mbarrier `bar`. One
+// lane calls it.
+__device__ __forceinline__ void cache_copy(float* dst, const CachedLevel& L, int k, unsigned bar) {
+  constexpr int npx = kCachedWarpWin * kCachedWarpWin;
+  constexpr unsigned bytes = 4u * npx;
+  const size_t o = (size_t)k * npx;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(3 * bytes)
+               : "memory");
+  bulk_copy(dst, L.tmpl + o, bytes, bar);
+  bulk_copy(dst + npx, L.gx + o, bytes, bar);
+  bulk_copy(dst + 2 * npx, L.gy + o, bytes, bar);
+}
+
+// The warp route: copy the S x S cells of an (H, W) plane from origin (oy,
+// ox), edge-clamped, into dst at row stride kCachedWarpPS, as one cp.async
+// group. Lane l takes cells l, l + 32, ... in row-major order, walked as
+// (r, c).
+__device__ __forceinline__ void copy_patch(float* dst, const float* plane, int H, int W, int oy,
+                                           int ox, int lane) {
+  constexpr int S = kCachedWarpS;
+  constexpr int dr = 32 / S, dc = 32 - dr * S;
+  int r = lane / S, c = lane - (lane / S) * S;
+#pragma unroll
+  for (int i = 0; i < (S * S + 31) / 32; ++i) {
+    if (lane + 32 * i < S * S)
+      cp_async4(dst + r * kCachedWarpPS + c,
+                plane + (size_t)clampi(oy + r, 0, H - 1) * W + clampi(ox + c, 0, W - 1));
+    r += dr;
+    c += dc;
+    if (c >= S) {
+      c -= S;
+      ++r;
+    }
+  }
+  cp_async_commit();
+}
+
+// The warp route (see the route note above), at kCachedWarpWin px and
+// kCachedWarpSlack.
+__global__ void __launch_bounds__(32 * kCachedWarpBlock)
+lk_cached_warp_kernel(const __grid_constant__ CachedTable tab, const float* __restrict__ init_pts,
+                      const uint8_t* __restrict__ valid, float* __restrict__ out_pts,
+                      uint8_t* __restrict__ out_ok, int32_t* __restrict__ out_iters) {
+  constexpr int WIN = kCachedWarpWin, PS = kCachedWarpPS, kR = kCachedRun;
+  constexpr int npx = WIN * WIN;
+  constexpr int kRuns = npx / kR / 32;  // runs a lane
+  static_assert(WIN % kR == 0 && (npx / kR) % 32 == 0, "the runs fill every lane");
+  constexpr float half = (WIN - 1) * 0.5f;
+  constexpr float hi = (float)(kCachedWarpS - WIN - 1);
+  constexpr int slack = kCachedWarpSlack;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int kn = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (kn >= tab.N) return;
+  const int k = blockIdx.y * tab.N + kn;  // row of (B, N, ...)
+  const size_t b = blockIdx.y;
+
+  // Per warp: its mbarrier, its patch, then its cache buffer.
+  extern __shared__ __align__(16) float smem[];
+  float* wbuf = smem + warp * (kCachedWarpBytes / 4);
+  const unsigned bar = smem_addr(wbuf);
+  float* patch = wbuf + 4;
+  float* cache = patch + kCachedWarpPatchFloats;
+  if (lane == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  // Lane e holds level entry e's gate and inverse gradient matrix.
+  float my_inv00 = 0.f, my_inv01 = 0.f, my_inv11 = 0.f;
+  int my_good = 0;
+  if (lane < tab.n && !tab.lv[lane].skip) {
+    const CachedLevel& L = tab.lv[lane];
+    my_good = L.good[k];
+    my_inv00 = L.inv00[k];
+    my_inv01 = L.inv01[k];
+    my_inv11 = L.inv11[k];
+  }
+  // Lane l blends the runs q = l + 32 j of kR adjacent window pixels (run q
+  // starts at pixel kR q) at patch offsets off[j].
+  int off[kRuns];
+#pragma unroll
+  for (int j = 0; j < kRuns; ++j) {
+    const int p = kR * (lane + 32 * j);
+    off[j] = (p / WIN) * PS + p % WIN;
+  }
+
+  float cx = init_pts[2 * k], cy = init_pts[2 * k + 1];
+  bool ok = valid[k] != 0, diverged = false;
+  unsigned phase = 0;  // the mbarrier's phase: one completion a tracked level
+  for (int e = 0; e < tab.n; ++e) {
+    const CachedLevel& L = tab.lv[e];
+    const int lvl = tab.n - 1 - e;
+    cx = cx * L.scale;
+    cy = cy * L.scale;
+    if (L.skip) {
+      if (lane == 0) out_iters[(size_t)k * tab.n + lvl] = 0;
+      continue;
+    }
+    const int H = L.H, W = L.W;
+    const int ox = (int)floorf(cx - half) - (slack + 1);
+    const int oy = (int)floorf(cy - half) - (slack + 1);
+    copy_patch(patch, L.cur + b * L.stride, H, W, clampi(oy, -kCachedWarpS, H),
+               clampi(ox, -kCachedWarpS, W), lane);
+    if (lane == 0) cache_copy(cache, L, k, bar);
+    cp_async_wait<0>();
+    __syncwarp();
+    mbar_wait(bar, phase);
+    phase ^= 1;
+    const bool good = __shfl_sync(kFull, my_good, e) != 0;
+    const float inv00 = __shfl_sync(kFull, my_inv00, e);
+    const float inv01 = __shfl_sync(kFull, my_inv01, e);
+    const float inv11 = __shfl_sync(kFull, my_inv11, e);
+    float t[kRuns][kR], tx[kRuns][kR], ty[kRuns][kR];
+#pragma unroll
+    for (int j = 0; j < kRuns; ++j) {
+#pragma unroll
+      for (int m = 0; m < kR; ++m) {
+        const int p = kR * (lane + 32 * j) + m;
+        t[j][m] = cache[p];
+        tx[j][m] = cache[npx + p];
+        ty[j][m] = cache[2 * npx + p];
+      }
+    }
+    float relx = cx - (float)ox, rely = cy - (float)oy;
+
+    int it = 0;
+    while (good && it < tab.max_iter) {
+      const float offx = relx - half, offy = rely - half;
+      const float ocx = fminf(fmaxf(offx, 0.f), hi), ocy = fminf(fmaxf(offy, 0.f), hi);
+      if (fabsf(offx - ocx) > 0.5f || fabsf(offy - ocy) > 0.5f) diverged = true;
+      const float kx = floorf(ocx), ky = floorf(ocy);
+      const float fx = ocx - kx, fy = ocy - ky;
+      const float* q0 = patch + (int)ky * PS + (int)kx;
+      // One partial sum a run position, so that the adds form kR short
+      // chains.
+      float px[kR] = {}, py[kR] = {};
+#pragma unroll
+      for (int j = 0; j < kRuns; ++j) {
+        // A run's kR + 1 column lerps, then each pixel's x-lerp: the plain
+        // version's terms, a column lerp shared by two pixels.
+        const float* q = q0 + off[j];
+        float ya[kR + 1];
+#pragma unroll
+        for (int i = 0; i <= kR; ++i) ya[i] = (1.f - fy) * q[i] + fy * q[PS + i];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          const float dI = ((1.f - fx) * ya[i] + fx * ya[i + 1]) - t[j][i];
+          px[i] += dI * tx[j][i];
+          py[i] += dI * ty[j][i];
+        }
+      }
+      float bs0 = 0.f, bs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        bs0 += px[i];
+        bs1 += py[i];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        bs0 += __shfl_xor_sync(kFull, bs0, o);
+        bs1 += __shfl_xor_sync(kFull, bs1, o);
+      }
+      const float dx = -(inv00 * bs0 + inv01 * bs1);
+      const float dy = -(inv01 * bs0 + inv11 * bs1);
+      relx = relx + dx;
+      rely = rely + dy;
+      ++it;
+      if (dx * dx + dy * dy < tab.eps2) break;
+    }
+    cx = relx + (float)ox;
+    cy = rely + (float)oy;
+    if (lvl == 0) {
+      const float half0 = WIN * 0.5f;
+      const bool inb = cx >= half0 && cx < (float)W - half0 && cy >= half0 && cy < (float)H - half0;
+      ok = ok && good && inb;
+    }
+    if (lane == 0) out_iters[(size_t)k * tab.n + lvl] = it;
+    __syncwarp();  // every lane's reads of this level's buffers precede the next copies
+  }
+  if (lane == 0) {
+    out_pts[2 * k] = cx;
+    out_pts[2 * k + 1] = cy;
+    out_ok[k] = (ok && !diverged) ? 1 : 0;
+  }
+}
+
+// Dynamic shared memory of each route: on the block routes the warps'
+// partials, and the patch (and the cache) where the route keeps them; on
+// the warp route kCachedWarpBytes for each of `warps` warps.
+size_t cached_smem(int route, int win, int slack, int warps) {
+  if (route == kCachedWarp) return (size_t)warps * kCachedWarpBytes;
   const size_t S = (size_t)win + 2 * slack + 2;
   const size_t fixed = sizeof(float) * 8 * kWarps;
   if (route == kCachedShared) return fixed + sizeof(float) * (S * S + 3 * (size_t)win * win);
@@ -1155,20 +1429,259 @@ size_t cached_smem(int route, int win, int slack) {
   return fixed;
 }
 
+struct CachedPlan {
+  int route, warps, smem;  // warps: keypoints a block (warp route)
+};
+
+// lk_cached_kernel's launch plan, a pure function of the window, the
+// slack and the opt-in shared memory per block; ops/lk_kernel.py:cached_plan
+// is its twin. At kCachedWarpWin px and kCachedWarpSlack the warp route, at
+// kCachedWarpBlock warps a block where they fit, else one. At other widths,
+// or where not even one warp fits, the first block route whose shared
+// memory fits.
+CachedPlan plan_cached(int win, int slack, int optin) {
+  if (win == kCachedWarpWin && slack == kCachedWarpSlack) {
+    for (int w = kCachedWarpBlock; w >= 1; w /= 2) {
+      const size_t smem = cached_smem(kCachedWarp, win, slack, w);
+      if (smem <= (size_t)optin) return {kCachedWarp, w, (int)smem};
+    }
+  }
+  int route = kCachedShared;
+  while (route < kCachedGlobal && cached_smem(route, win, slack, 1) > (size_t)optin) ++route;
+  return {route, 1, (int)cached_smem(route, win, slack, 1)};
+}
+
+int set_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <int ROUTE>
 int launch_cached(const CachedTable& tab, size_t smem, int N, int B, const void* init_pts,
                   const void* valid, void* out_pts, void* out_ok, void* out_iters,
                   cudaStream_t stream) {
   auto kernel = lk_cached_kernel<ROUTE>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = set_smem((const void*)kernel, smem);
+  if (e != 0) return e;
   kernel<<<dim3(N, B), kThreads, smem, stream>>>(tab, (const float*)init_pts,
                                                   (const uint8_t*)valid, (float*)out_pts,
                                                   (uint8_t*)out_ok, (int32_t*)out_iters);
   return (int)cudaGetLastError();
+}
+
+int launch_cached_warp(const CachedTable& tab, const CachedPlan& p, int N, int B,
+                       const void* init_pts, const void* valid, void* out_pts, void* out_ok,
+                       void* out_iters, cudaStream_t stream) {
+  const int e = set_smem((const void*)lk_cached_warp_kernel, p.smem);
+  if (e != 0) return e;
+  lk_cached_warp_kernel<<<dim3((N + p.warps - 1) / p.warps, B), 32 * p.warps, p.smem, stream>>>(
+      tab, (const float*)init_pts, (const uint8_t*)valid, (float*)out_pts, (uint8_t*)out_ok,
+      (int32_t*)out_iters);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// lk_cache_build_kernel: the keyframe half of the default tracker.
+//
+// Replaces kimera_vio_tpu/ops/optical_flow.py:build_lk_templates (:323) and
+// its level _build_level_template (:235), which XLA runs outside any Pallas
+// kernel once a keyframe. The plain PyTorch version is
+// ops/optical_flow.py:build_lk_templates; the two compute the same float32
+// terms in the same order (-fmad=false): the template, gx and gy windows
+// are bit-identical, only the three gradient sums are added in another
+// order.
+//
+// One block of kBuildThreads a keypoint, tracked level and stream (grid N x
+// levels x B): a keyframe's whole cache in one launch. Per keypoint and
+// level: the (win + 4)^2 edge-clamped patch of the keyframe level at the
+// reference's clamped origin, staged in shared memory with cp.async; each
+// thread takes window pixels in turn, reads their 4x4 patch neighbourhood
+// into registers and blends, at the keypoint's sub-pixel offset (rows, then
+// columns), the template's 2x2 and the 2x2 of 3x3 Scharr x and y
+// correlations (nonzero taps in row-major order, as the reference sums
+// them); the three gradient sums are reduced over the block (butterflies,
+// one partial a warp), and one thread writes the inverse 2x2 and the
+// min-eigenvalue gate. With full-image gradients given (prev_grads) the
+// template, gx and gy windows are blended from the three planes through
+// L1/L2 instead. Where the patch does not fit in shared memory (windows over
+// 232 px) it is read through L1/L2 too.
+//
+// What bounds it: bytes. A 752x480 keyframe of 256 keypoints writes 5
+// levels x 3 x 576 floats a keypoint (~9 MB) and reads ~1.5 MB of patches,
+// a few us at 3.35 TB/s; its ~40 MFLOP take under 1 us. The design writes
+// each output once, coalesced, in one launch (the plain version is dozens
+// of small launches a level).
+constexpr int kBuildThreads = 128;
+
+struct BuildLevel {
+  const float* img;  // stream 0's plane of the keyframe level
+  const float* gx;   // full-image gradients, or null: Scharr on the patch
+  const float* gy;
+  float* tmpl;       // (B, N, win, win)
+  float* out_gx;
+  float* out_gy;
+  float* inv00;      // (B, N)
+  float* inv01;
+  float* inv11;
+  uint8_t* good;
+  long long stride;  // elements between streams' planes
+  int H, W;
+  float div;         // 2^level: the points are divided by it
+};
+
+struct BuildTable {
+  BuildLevel lv[kMaxLevels];  // the levels a window fits in
+  int N, win;
+  float min_eig_thresh;
+};
+
+template <bool SMEM>
+__global__ void __launch_bounds__(kBuildThreads)
+lk_cache_build_kernel(const __grid_constant__ BuildTable tab, const float* __restrict__ pts,
+                      const uint8_t* __restrict__ valid) {
+  const BuildLevel& L = tab.lv[blockIdx.y];
+  const size_t b = blockIdx.z;
+  const int k = blockIdx.z * tab.N + blockIdx.x;  // row of (B, N, ...)
+  const int win = tab.win, npx = win * win;
+  const int St = win + 2, Sg = St + 2;
+  const float half = (win - 1) * 0.5f;
+  const int H = L.H, W = L.W;
+  const float* img = L.img + b * L.stride;
+  const int tid = threadIdx.x;
+  // The template's corner and sub-pixel offset, as the reference takes them.
+  const float hx = pts[2 * k] / L.div - half, hy = pts[2 * k + 1] / L.div - half;
+  const float cxf = floorf(hx), cyf = floorf(hy);
+  const int tx0 = (int)cxf, ty0 = (int)cyf;
+  const float fx = hx - cxf, fy = hy - cyf;
+
+  extern __shared__ __align__(16) float smem[];
+  float4* part = reinterpret_cast<float4*>(smem);  // one a warp
+  float* s_raw = smem + 4 * (kBuildThreads / 32);  // Sg x Sg (SMEM)
+  const size_t o = (size_t)k * npx;
+  // Window pixels p = tid, tid + kBuildThreads, ... walked as (r, c).
+  const int dr = kBuildThreads / win, dc = kBuildThreads - dr * win;
+  int r = tid / win, c = tid - (tid / win) * win;
+  auto lerp = [&](float p00, float p01, float p10, float p11) {
+    const float ya0 = (1.f - fy) * p00 + fy * p10;
+    const float ya1 = (1.f - fy) * p01 + fy * p11;
+    return (1.f - fx) * ya0 + fx * ya1;
+  };
+  float gxx = 0.f, gxy = 0.f, gyy = 0.f;
+  if (L.gx == nullptr) {
+    // The reference slices the level padded by `pad`; the slice start is
+    // clamped to stay inside it.
+    const int pad = Sg + 2;
+    const int oy = clampi(ty0 - 1, -pad, H + pad - Sg), ox = clampi(tx0 - 1, -pad, W + pad - Sg);
+    if constexpr (SMEM) {
+      const int sdr = kBuildThreads / Sg, sdc = kBuildThreads - sdr * Sg;
+      int u = tid / Sg, v = tid - (tid / Sg) * Sg;
+      for (int i = tid; i < Sg * Sg; i += kBuildThreads) {
+        cp_async4(s_raw + i, img + (size_t)clampi(oy + u, 0, H - 1) * W + clampi(ox + v, 0, W - 1));
+        u += sdr;
+        v += sdc;
+        if (v >= Sg) {
+          v -= Sg;
+          ++u;
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int p = tid; p < npx; p += kBuildThreads) {
+      float R[4][4];  // patch rows r..r+3, columns c..c+3
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          if constexpr (SMEM)
+            R[y][x] = s_raw[(r + y) * Sg + c + x];
+          else
+            R[y][x] = img[(size_t)clampi(oy + r + y, 0, H - 1) * W + clampi(ox + c + x, 0, W - 1)];
+        }
+      }
+      // Scharr / 32 at patch cells (r + y, c + x), y, x in {0, 1}: the
+      // nonzero taps of _DERIV_X and _DERIV_Y in row-major order.
+      float sx[2][2], sy[2][2];
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          sx[y][x] = ((((-0.09375f * R[y][x] + 0.09375f * R[y][x + 2]) + -0.3125f * R[y + 1][x]) +
+                       0.3125f * R[y + 1][x + 2]) + -0.09375f * R[y + 2][x]) +
+                     0.09375f * R[y + 2][x + 2];
+          sy[y][x] = ((((-0.09375f * R[y][x] + -0.3125f * R[y][x + 1]) + -0.09375f * R[y][x + 2]) +
+                       0.09375f * R[y + 2][x]) + 0.3125f * R[y + 2][x + 1]) +
+                     0.09375f * R[y + 2][x + 2];
+        }
+      }
+      const float vt = lerp(R[1][1], R[1][2], R[2][1], R[2][2]);
+      const float vx = lerp(sx[0][0], sx[0][1], sx[1][0], sx[1][1]);
+      const float vy = lerp(sy[0][0], sy[0][1], sy[1][0], sy[1][1]);
+      L.tmpl[o + p] = vt;
+      L.out_gx[o + p] = vx;
+      L.out_gy[o + p] = vy;
+      gxx += vx * vx;
+      gxy += vx * vy;
+      gyy += vy * vy;
+      r += dr;
+      c += dc;
+      if (c >= win) {
+        c -= win;
+        ++r;
+      }
+    }
+  } else {
+    // The three planes' (win + 1)^2 corners at the reference's clamped
+    // origin in the St-padded planes.
+    const int pad = St + 2;
+    const int oy = clampi(ty0, -pad, H + pad - St), ox = clampi(tx0, -pad, W + pad - St);
+    const float* pgx = L.gx + b * L.stride;
+    const float* pgy = L.gy + b * L.stride;
+    for (int p = tid; p < npx; p += kBuildThreads) {
+      const size_t y0 = (size_t)clampi(oy + r, 0, H - 1) * W, y1 = (size_t)clampi(oy + r + 1, 0, H - 1) * W;
+      const int x0 = clampi(ox + c, 0, W - 1), x1 = clampi(ox + c + 1, 0, W - 1);
+      const float vt = lerp(img[y0 + x0], img[y0 + x1], img[y1 + x0], img[y1 + x1]);
+      const float vx = lerp(pgx[y0 + x0], pgx[y0 + x1], pgx[y1 + x0], pgx[y1 + x1]);
+      const float vy = lerp(pgy[y0 + x0], pgy[y0 + x1], pgy[y1 + x0], pgy[y1 + x1]);
+      L.tmpl[o + p] = vt;
+      L.out_gx[o + p] = vx;
+      L.out_gy[o + p] = vy;
+      gxx += vx * vx;
+      gxy += vx * vy;
+      gyy += vy * vy;
+      r += dr;
+      c += dc;
+      if (c >= win) {
+        c -= win;
+        ++r;
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    gxx += __shfl_xor_sync(kFull, gxx, s);
+    gxy += __shfl_xor_sync(kFull, gxy, s);
+    gyy += __shfl_xor_sync(kFull, gyy, s);
+  }
+  if ((tid & 31) == 0) part[tid >> 5] = make_float4(gxx, gxy, gyy, 0.f);
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kBuildThreads / 32; ++w) {
+      gxx += part[w].x;
+      gxy += part[w].y;
+      gyy += part[w].z;
+    }
+    const float det = gxx * gyy - gxy * gxy;
+    const float half_tr = 0.5f * (gxx + gyy);
+    const float disc = half_tr * half_tr - det;
+    const float min_eig = (half_tr - sqrtf(disc < 0.f ? 0.f : disc)) / (float)npx;
+    L.good[k] = (min_eig > tab.min_eig_thresh && valid[k] != 0) ? 1 : 0;
+    const float sd = fabsf(det) > 1e-12f ? det : 1.f;
+    L.inv00[k] = gyy / sd;
+    L.inv01[k] = -gxy / sd;
+    L.inv11[k] = gxx / sd;
+  }
 }
 
 }  // namespace
@@ -1258,9 +1771,13 @@ extern "C" int lk_pyramid_launch(const void* const* planes, const long long* str
 // strides: per level the elements from one stream's plane to the next's;
 // ints: 3 per level (H, W, skip); scales: 1 per level. Points (B, N, 2),
 // valid (B, N). Outputs: pts (B, N, 2) float32, ok (B, N) uint8, iters (B,
-// N, n_levels) int32 indexed by level number. out_route (3 ints) receives
-// the route, its dynamic shared memory per block in bytes and the opt-in
-// limit read.
+// N, n_levels) int32 indexed by level number. out_route (kCachedReportInts
+// ints) receives the route, its dynamic shared memory per block in bytes,
+// the opt-in limit read and the keypoints a block. On the warp route the
+// template, gx and gy leaves must be 16-byte aligned (the bulk copy's
+// rule); a leaf that is not fails the launch.
+constexpr int kCachedReportInts = 4;
+
 extern "C" int lk_cached_launch(const void* const* ptrs, const long long* strides,
                                 const int* ints, const float* scales, int n_levels,
                                 const void* init_pts, const void* valid, void* out_pts,
@@ -1277,6 +1794,8 @@ extern "C" int lk_cached_launch(const void* const* ptrs, const long long* stride
   tab.slack = slack;
   tab.max_iter = max_iter;
   tab.eps2 = eps2;
+  tab.N = N;
+  bool aligned = true;
   for (int e = 0; e < n_levels; ++e) {
     CachedLevel& L = tab.lv[e];
     L.cur = (const float*)ptrs[8 * e];
@@ -1293,32 +1812,107 @@ extern "C" int lk_cached_launch(const void* const* ptrs, const long long* stride
     L.skip = ints[3 * e + 2];
     L.scale = scales[e];
     if (!L.skip && (L.H < 1 || L.W < 1)) return (int)cudaErrorInvalidValue;
+    if (!L.skip)
+      aligned = aligned && ((uintptr_t)L.tmpl | (uintptr_t)L.gx | (uintptr_t)L.gy) % 16 == 0;
   }
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  int route = kCachedShared;
-  while (route < kCachedGlobal && cached_smem(route, win, slack) > (size_t)optin) ++route;
-  const size_t smem = cached_smem(route, win, slack);
+  const CachedPlan p = plan_cached(win, slack, optin);
   const cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (route == kCachedShared)
-    rc = launch_cached<kCachedShared>(tab, smem, N, n_streams, init_pts, valid, out_pts, out_ok,
+  if (p.route == kCachedWarp)
+    rc = aligned ? launch_cached_warp(tab, p, N, n_streams, init_pts, valid, out_pts, out_ok,
+                                      out_iters, s)
+                 : (int)cudaErrorMisalignedAddress;
+  else if (p.route == kCachedShared)
+    rc = launch_cached<kCachedShared>(tab, p.smem, N, n_streams, init_pts, valid, out_pts, out_ok,
                                       out_iters, s);
-  else if (route == kCachedPatch)
-    rc = launch_cached<kCachedPatch>(tab, smem, N, n_streams, init_pts, valid, out_pts, out_ok,
+  else if (p.route == kCachedPatch)
+    rc = launch_cached<kCachedPatch>(tab, p.smem, N, n_streams, init_pts, valid, out_pts, out_ok,
                                      out_iters, s);
   else
-    rc = launch_cached<kCachedGlobal>(tab, smem, N, n_streams, init_pts, valid, out_pts, out_ok,
+    rc = launch_cached<kCachedGlobal>(tab, p.smem, N, n_streams, init_pts, valid, out_pts, out_ok,
                                       out_iters, s);
   if (rc == 0) {
-    out_route[0] = route;
-    out_route[1] = (int)smem;
-    out_route[2] = optin;
+    const int r[kCachedReportInts] = {p.route, p.smem, optin, p.warps};
+    for (int i = 0; i < kCachedReportInts; ++i) out_route[i] = r[i];
   }
   return rc;
+}
+
+// lk_cache_build_kernel's launcher: one launch for every level of every
+// stream. ptrs: 10 per level the window fits in, in any order (img, gx, gy
+// -- both null: Scharr on the patch -- then the outputs tmpl, gx, gy, inv00,
+// inv01, inv11, good), each to stream 0's data; strides: per level the
+// elements from one stream's plane to the next's; ints: 2 per level (H, W);
+// divs: per level 2^level. Points (B, N, 2) at level 0, valid (B, N).
+// Outputs per level: (B, N, win, win) float32 tmpl, gx, gy; (B, N) float32
+// inv00, inv01, inv11; (B, N) uint8 good. out_report (2 ints) receives the
+// dynamic shared memory per block in bytes and whether the patch sat in
+// shared memory.
+extern "C" int lk_cache_build_launch(const void* const* ptrs, const long long* strides,
+                                     const int* ints, const float* divs, int n_levels,
+                                     const void* pts, const void* valid, int N, int n_streams,
+                                     int win, float min_eig_thresh, void* stream,
+                                     int* out_report) {
+  if (n_levels < 0 || n_levels > kMaxLevels || win < 2) return (int)cudaErrorInvalidValue;
+  if (n_streams < 1 || n_streams > 65535) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || n_levels == 0) return 0;
+  BuildTable tab = {};
+  tab.N = N;
+  tab.win = win;
+  tab.min_eig_thresh = min_eig_thresh;
+  bool grads = false;
+  for (int l = 0; l < n_levels; ++l) {
+    BuildLevel& L = tab.lv[l];
+    const void* const* q = ptrs + 10 * l;
+    L.img = (const float*)q[0];
+    L.gx = (const float*)q[1];
+    L.gy = (const float*)q[2];
+    L.tmpl = (float*)q[3];
+    L.out_gx = (float*)q[4];
+    L.out_gy = (float*)q[5];
+    L.inv00 = (float*)q[6];
+    L.inv01 = (float*)q[7];
+    L.inv11 = (float*)q[8];
+    L.good = (uint8_t*)q[9];
+    L.stride = strides[l];
+    L.H = ints[2 * l];
+    L.W = ints[2 * l + 1];
+    L.div = divs[l];
+    if (L.H < win + 2 || L.W < win + 2 || (L.gx == nullptr) != (L.gy == nullptr))
+      return (int)cudaErrorInvalidValue;
+    grads = grads || L.gx != nullptr;
+  }
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t part = sizeof(float4) * (kBuildThreads / 32);
+  const size_t raw = sizeof(float) * (size_t)(win + 4) * (win + 4);
+  const bool in_smem = !grads && part + raw <= (size_t)optin;
+  const size_t smem = part + (in_smem ? raw : 0);
+  const dim3 grid(N, n_levels, n_streams);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (in_smem) {
+    const int rc = set_smem((const void*)lk_cache_build_kernel<true>, smem);
+    if (rc != 0) return rc;
+    lk_cache_build_kernel<true><<<grid, kBuildThreads, smem, s>>>(tab, (const float*)pts,
+                                                                  (const uint8_t*)valid);
+  } else {
+    lk_cache_build_kernel<false><<<grid, kBuildThreads, smem, s>>>(tab, (const float*)pts,
+                                                                   (const uint8_t*)valid);
+  }
+  e = cudaGetLastError();
+  if (e == cudaSuccess) {
+    out_report[0] = (int)smem;
+    out_report[1] = in_smem;
+  }
+  return (int)e;
 }
 
 extern "C" const char* lk_error_string(int code) {

@@ -6,10 +6,10 @@ the reference's three trackers (`FrontendConfig.lk_impl`) and its state
 storage policy:
 
   * "matmul" (the default, as in the reference): at each keyframe the
-    template cache of `optical_flow.build_lk_templates` is built and kept
-    in the state (`lkf_templates`; no pyramid, no gradients), and every
-    frame is tracked against it by `lk_cached_kernel`
-    (`klt_track_cached_lk`);
+    template cache of `optical_flow.build_lk_templates` is built by
+    `lk_cache_build_kernel` (`build_lk_templates_lk`) and kept in the
+    state (`lkf_templates`; no pyramid, no gradients), and every frame is
+    tracked against it by `lk_cached_kernel` (`klt_track_cached_lk`);
   * "gather": the last keyframe's pyramid and Scharr gradients are kept,
     and every frame is tracked by `klt_track_lk(search_rows=None)`, the
     gather rule at every window width;
@@ -74,7 +74,8 @@ from kimera_vio_tpu_torch.ops import corner_detection as det
 from kimera_vio_tpu_torch.ops import optical_flow as of
 from kimera_vio_tpu_torch.ops import ransac
 from kimera_vio_tpu_torch.ops.lk_kernel import MAX_WIN as LK_MAX_WIN
-from kimera_vio_tpu_torch.ops.lk_kernel import klt_track_cached_lk, klt_track_lk
+from kimera_vio_tpu_torch.ops.lk_kernel import (build_lk_templates_lk, klt_track_cached_lk,
+                                                klt_track_lk)
 from kimera_vio_tpu_torch.ops.stereo_matching import match_stereo
 
 TRACKING_VALID = 0
@@ -351,8 +352,9 @@ class StereoFrontend:
         pyramid and its Scharr gradients."""
         if self.cfg.lk_impl == "matmul":
             return {"lkf_pyramid": (), "lkf_grads": (),
-                    "lkf_templates": of.build_lk_templates(list(pyr), feats.uv, feats.mask,
-                                                           win=self.cfg.klt_win)}
+                    "lkf_templates": build_lk_templates_lk(list(pyr), feats.uv, feats.mask,
+                                                           win=self.cfg.klt_win,
+                                                           device=self.device)}
         return {"lkf_pyramid": tuple(pyr), "lkf_grads": tuple(of._grad(p) for p in pyr),
                 "lkf_templates": ()}
 

@@ -42,11 +42,13 @@ fallback between the two.
 
 The JAX package's default tracker (lk_impl="matmul",
 kimera_vio_tpu/ops/optical_flow.py:461 `klt_track_cached`) tracks against
-a per-keyframe template cache (`optical_flow.build_lk_templates`, plain
-PyTorch) inside one search patch a level. `klt_track_cached_lk` is its
-entry point: CPU tensors run the plain `optical_flow.klt_track_cached`,
-CUDA tensors one launch of `lk_cached_kernel` (`lk_cached_cuda`), with the
-same no-fallback rule.
+a per-keyframe template cache inside one search patch a level. Its two
+halves have entry points with the same no-fallback rule:
+`build_lk_templates_lk` builds the cache (CPU tensors: the plain
+`optical_flow.build_lk_templates`; CUDA tensors: one launch of
+`lk_cache_build_kernel`, `lk_cache_build_cuda`), and `klt_track_cached_lk`
+tracks a frame against it (CPU: the plain `optical_flow.klt_track_cached`;
+CUDA: one launch of `lk_cached_kernel`, `lk_cached_cuda`).
 """
 
 from __future__ import annotations
@@ -484,6 +486,14 @@ def _lib() -> ctypes.CDLL:
         P, P,  # stream, out_route
     ]
     lib.lk_cached_launch.restype = I
+    lib.lk_cache_build_launch.argtypes = [
+        P, P, P, P, I,  # level pointers, stream strides, level ints, level divisors, n_levels
+        P, P,  # pts, valid
+        I, I, I,  # N, n_streams, win
+        Fl,  # min_eig_thresh
+        P, P,  # stream, out_report
+    ]
+    lib.lk_cache_build_launch.restype = I
     lib.lk_error_string.argtypes = [I]
     lib.lk_error_string.restype = ctypes.c_char_p
     return lib
@@ -615,26 +625,72 @@ lk_pyramid_cuda.report = {}
 
 
 # csrc/lk_kernel.cu: CachedRoute, where lk_cached_kernel keeps its data.
-CACHED_ROUTES = ("lk_cached shared", "lk_cached patch", "lk_cached global")
+CACHED_ROUTES = ("lk_cached shared", "lk_cached patch", "lk_cached global", "lk_cached warp")
 _CACHE_KEYS = ("tmpl", "gx", "gy", "inv00", "inv01", "inv11", "good_g")
+_CACHED_WARP_WIN = 24        # kCachedWarpWin: the window of the warp route
+_CACHED_WARP_SLACK = 8       # kCachedWarpSlack: its slack
+_CACHED_WARP_BLOCK = 2       # kCachedWarpBlock: keypoints (warps) a block of the warp route
+_CACHED_REPORT_INTS = 4      # kCachedReportInts
 
 
-def cached_smem(route: str, win: int, slack: int = 8) -> int:
+def cached_patch_stride(win: int, slack: int = 8) -> int:
+    """Row stride of the warp route's patch (csrc: cached_patch_stride): the
+    smallest stride >= win + 2 slack + 2 congruent to win mod 32."""
+    return win + 32 * -(-(2 * slack + 2) // 32)
+
+
+def cached_smem(route: str, win: int, slack: int = 8, warps: int = 1) -> int:
     """Dynamic shared memory per block of `lk_cached_kernel` on `route`, the
-    twin of csrc/lk_kernel.cu's `cached_smem`: the warps' partials (2 x 6
-    float4), and on the shared routes the (win + 2 slack + 2)^2 search patch
-    and, on "lk_cached shared", the template, gx and gy windows. The
-    launcher takes the first route that fits the opt-in shared memory."""
+    twin of csrc/lk_kernel.cu's `cached_smem`. Block routes: the warps'
+    partials (2 x 6 float4), and on the shared routes the (win + 2 slack +
+    2)^2 search patch and, on "lk_cached shared", the template, gx and gy
+    windows. "lk_cached warp" (24 px, slack 8 only): for each of `warps`
+    warps, its mbarrier (16 bytes), its patch at `cached_patch_stride` and
+    one cache buffer (template, gx, gy), each a whole number of 16-byte
+    units (csrc: kCachedWarpBytes)."""
     S = win + 2 * slack + 2
+    if route == "lk_cached warp":
+        w, sl = _CACHED_WARP_WIN, _CACHED_WARP_SLACK
+        floats = (_round_up((w + 2 * sl + 2) * cached_patch_stride(w, sl), 4)
+                  + _round_up(3 * w * w, 4))
+        return warps * (16 + 4 * floats)
     fixed = 4 * 8 * 6
     return fixed + 4 * {"lk_cached shared": S * S + 3 * win * win,
                         "lk_cached patch": S * S, "lk_cached global": 0}[route]
 
 
+class CachedPlan(NamedTuple):
+    """How `lk_cached_kernel` is launched: `route` (a name of
+    CACHED_ROUTES), `warps` keypoints a block (the warp route; 1 on the
+    block routes) and `smem` dynamic shared memory per block in bytes."""
+
+    route: str
+    warps: int
+    smem: int
+
+
+def cached_plan(win: int, optin_bytes: int, slack: int = 8) -> CachedPlan:
+    """The launch plan of `lk_cached_kernel`, the twin of csrc/lk_kernel.cu's
+    `plan_cached` (the launcher reports the plan it took; chip_smoke.py
+    holds the report to this). At 24 px and slack 8 the warp route, at
+    _CACHED_WARP_BLOCK warps a block where they fit, else one. At other
+    widths, or where not even one warp fits, the first block route whose
+    shared memory fits."""
+    if win == _CACHED_WARP_WIN and slack == _CACHED_WARP_SLACK:
+        w = _CACHED_WARP_BLOCK
+        while w >= 1:
+            smem = cached_smem("lk_cached warp", win, slack, w)
+            if smem <= optin_bytes:
+                return CachedPlan("lk_cached warp", w, smem)
+            w //= 2
+    route = next((r for r in CACHED_ROUTES[:2] if cached_smem(r, win, slack) <= optin_bytes),
+                 "lk_cached global")
+    return CachedPlan(route, 1, cached_smem(route, win, slack))
+
+
 def cached_route(win: int, optin_bytes: int, slack: int = 8) -> str:
     """The route the launcher takes at `win` under `optin_bytes`."""
-    return next((r for r in CACHED_ROUTES[:-1] if cached_smem(r, win, slack) <= optin_bytes),
-                CACHED_ROUTES[-1])
+    return cached_plan(win, optin_bytes, slack).route
 
 
 def lk_cached_cuda(templates, cur_pyr, init_pts, valid, *, win: int, max_iter: int, eps: float,
@@ -645,16 +701,21 @@ def lk_cached_cuda(templates, cur_pyr, init_pts, valid, *, win: int, max_iter: i
     (the window sums in another order). Levels (B, H, W) with keypoints (B,
     N, 2), `valid` (B, N) and a cache of (B, N, ...) leaves track B
     streams; (H, W) levels with (N, 2) keypoints are one stream. The
-    launcher takes the first route (`CACHED_ROUTES`) whose shared memory
-    (`cached_smem`) fits the card's opt-in limit; the routes compute the
-    same arithmetic.
+    launcher takes the route of `cached_plan` (`CACHED_ROUTES`: one warp a
+    keypoint at 24 px, else a block a keypoint on the first block route
+    whose shared memory fits the card's opt-in limit); the routes compute
+    the same arithmetic. The warp route copies the template, gx and gy
+    leaves by bulk copy, which needs them 16-byte aligned (what
+    `lk_cache_build_cuda` and the plain build allocate); a leaf that is not
+    fails the launch.
 
     Returns (pts (..., N, 2), ok (..., N), iters (..., N, n_levels) int32:
     the Gauss-Newton steps per level, indexed by level number). Adds one to
     `lk_cached_cuda.launches` per launch, whatever B, to
     `.launches_by_device[str(device)]` and to `.routes[route]` (a name of
-    CACHED_ROUTES); `.report[route]` holds {"smem", "optin"} of that
-    route's last launch."""
+    CACHED_ROUTES); `.report[route]` holds that route's last launch report:
+    {"smem", "optin", "warps"} (the keypoints a block; -1 from a library
+    that reports only the first two)."""
     n = len(cur_pyr)
     if n == 0 or len(templates) != n:
         raise ValueError("need one template level (or None) per pyramid level")
@@ -711,7 +772,7 @@ def lk_cached_cuda(templates, cur_pyr, init_pts, valid, *, win: int, max_iter: i
     if N == 0:
         return out_pts, out_ok, out_iters
     lib = _lib()
-    route = (ctypes.c_int * 3)(-1, -1, -1)
+    route = (ctypes.c_int * _CACHED_REPORT_INTS)(*([-1] * _CACHED_REPORT_INTS))
     with torch.cuda.device(dev):
         rc = lib.lk_cached_launch(
             ptrs, strides, ints, scales, n, init_pts.data_ptr(), valid.data_ptr(),
@@ -725,7 +786,7 @@ def lk_cached_cuda(templates, cur_pyr, init_pts, valid, *, win: int, max_iter: i
     lk_cached_cuda.launches_by_device[str(dev)] += 1
     name = CACHED_ROUTES[route[0]]
     lk_cached_cuda.routes[name] += 1
-    lk_cached_cuda.report[name] = {"smem": route[1], "optin": route[2]}
+    lk_cached_cuda.report[name] = {"smem": route[1], "optin": route[2], "warps": route[3]}
     return out_pts, out_ok, out_iters
 
 
@@ -733,6 +794,94 @@ lk_cached_cuda.launches = 0
 lk_cached_cuda.launches_by_device = collections.Counter()  # str(device) -> launches
 lk_cached_cuda.routes = collections.Counter()
 lk_cached_cuda.report = {}
+
+
+def lk_cache_build_cuda(prev_pyr, prev_pts, valid, *, win: int, min_eig_thresh: float = 1e-4,
+                        prev_grads=None):
+    """Build the template cache of every level and stream of a keyframe in
+    ONE launch of `lk_cache_build_kernel`. Computes what
+    `optical_flow.build_lk_templates` computes: the template, gx and gy
+    windows bit for bit, the gradient sums (so the inverse matrices) in
+    another order. Levels (H, W) with keypoints (N, 2), or (B, H, W) with
+    (B, N, 2) and `valid` (B, N); `prev_grads`, one (gx, gy) pair of planes
+    per level, resamples the given gradients instead of taking Scharr on
+    the patches. Returns per level (level 0 first) a dict of (..., N, win,
+    win) "tmpl", "gx", "gy", (..., N) "inv00", "inv01", "inv11" float32 and
+    "good_g" bool, contiguous and 16-byte aligned (what `lk_cached_cuda`
+    reads, by bulk copy at 24 px), or None for a
+    level too small for a window. Adds one to
+    `lk_cache_build_cuda.launches` per launch, whatever B; `.report` holds
+    the last launch's {"smem", "patch_in_smem"}."""
+    n = len(prev_pyr)
+    if n == 0 or n > _MAX_LEVELS:
+        raise ValueError(f"need 1 to {_MAX_LEVELS} pyramid levels, got {n}")
+    if prev_grads is not None and len(prev_grads) != n:
+        raise ValueError("need one gradient pair per level")
+    if win < 2:
+        raise ValueError(f"win {win}: the kernel takes windows of 2 px or more")
+    dev = prev_pyr[0].device
+    if prev_pts.dim() not in (2, 3):
+        raise ValueError(f"prev_pts: need (N,2) or (B,N,2) keypoints, got {tuple(prev_pts.shape)}")
+    batched = prev_pts.dim() == 3
+    B, N = (prev_pts.shape[0], prev_pts.shape[1]) if batched else (1, prev_pts.shape[0])
+    flag_shape = tuple(prev_pts.shape[:-1])
+    if (prev_pts.device != dev or prev_pts.dtype != torch.float32 or prev_pts.shape[-1] != 2
+            or not prev_pts.is_contiguous()):
+        raise ValueError(f"prev_pts: need a contiguous (..., N, 2) float32 tensor on {dev}")
+    if (valid.device != dev or valid.dtype != torch.bool or tuple(valid.shape) != flag_shape
+            or not valid.is_contiguous()):
+        raise ValueError(f"valid: need a contiguous {flag_shape} bool tensor on {dev}")
+    levels = [lvl for lvl, img in enumerate(prev_pyr) if min(img.shape[-2:]) >= win + 2]
+    # Every level's leaves as slices of three allocations (one call each).
+    n_l = len(levels)
+    windows = torch.empty((3 * n_l, *flag_shape, win, win), dtype=torch.float32,
+                          device=dev).unbind(0)
+    inverses = torch.empty((3 * n_l, *flag_shape), dtype=torch.float32, device=dev).unbind(0)
+    gates = torch.empty((n_l, *flag_shape), dtype=torch.bool, device=dev).unbind(0)
+    out = [None] * n
+    ptrs = (ctypes.c_void_p * (10 * len(levels)))()
+    strides = (ctypes.c_longlong * len(levels))()
+    ints = (ctypes.c_int * (2 * len(levels)))()
+    divs = (ctypes.c_float * len(levels))()
+    for i, lvl in enumerate(levels):
+        img = prev_pyr[lvl] if batched else prev_pyr[lvl][None]
+        if img.dim() != 3 or img.shape[0] != B:
+            raise ValueError(f"prev_pyr[{lvl}]: {tuple(prev_pyr[lvl].shape)} with keypoints "
+                             f"{tuple(prev_pts.shape)}")
+        H, W = (int(d) for d in img.shape[-2:])
+        planes = [img]
+        if prev_grads is not None:
+            planes += [g if batched else g[None] for g in prev_grads[lvl]]
+        for name, t in zip(("prev_pyr", "gx", "gy"), planes):
+            _check_image(f"{name}[{lvl}]", t, dev, (B, H, W))
+        leaves = dict(zip(_CACHE_KEYS, (*windows[3 * i:3 * i + 3], *inverses[3 * i:3 * i + 3],
+                                        gates[i])))
+        out[lvl] = leaves
+        grads = [t.data_ptr() for t in planes[1:]] or [None, None]
+        ptrs[10 * i:10 * i + 10] = [img.data_ptr(), *grads] + [leaves[k].data_ptr()
+                                                               for k in _CACHE_KEYS]
+        strides[i] = H * W
+        ints[2 * i:2 * i + 2] = [H, W]
+        divs[i] = 2.0 ** lvl
+    if dev.type != "cuda":
+        raise ValueError("lk_cache_build_cuda needs CUDA tensors")
+    if not levels or N == 0:
+        return tuple(out)
+    lib = _lib()
+    rep = (ctypes.c_int * 2)(-1, -1)
+    with torch.cuda.device(dev):
+        rc = lib.lk_cache_build_launch(
+            ptrs, strides, ints, divs, len(levels), prev_pts.data_ptr(), valid.data_ptr(),
+            N, B, win, float(min_eig_thresh), torch.cuda.current_stream(dev).cuda_stream, rep)
+    if rc != 0:
+        raise RuntimeError(f"LK cache build launch failed: {lib.lk_error_string(rc).decode()}")
+    lk_cache_build_cuda.launches += 1
+    lk_cache_build_cuda.report = {"smem": rep[0], "patch_in_smem": bool(rep[1])}
+    return tuple(out)
+
+
+lk_cache_build_cuda.launches = 0
+lk_cache_build_cuda.report = {}
 
 
 # ---------------------------------------------------------------------------
@@ -776,11 +925,41 @@ def klt_track_lk(
     return pts, ok
 
 
+def build_lk_templates_lk(prev_pyr, prev_pts, valid, *, win: int = 24,
+                          min_eig_thresh: float = 1e-4, prev_grads=None,
+                          device: str | torch.device = "cuda"):
+    """The keyframe half of the JAX package's default tracker,
+    `build_lk_templates`: the per-level template cache that
+    `klt_track_cached_lk` tracks against (level 0 first; None for a level
+    too small for a window). All tensors must already lie on `device`: CUDA
+    tensors go through `lk_cache_build_kernel` (one launch for every level
+    and stream), CPU tensors through the plain version
+    (`optical_flow.build_lk_templates`). Levels (B, H, W) with (B, N, 2)
+    keypoints build B streams' caches in that one launch."""
+    dev = resolve_device(device)
+    tensors = [*prev_pyr, prev_pts, valid]
+    if prev_grads is not None:
+        tensors += [g for pair in prev_grads for g in pair]
+    for t in tensors:
+        if t.device.type != dev.type:
+            raise ValueError(f"build_lk_templates_lk(device={dev}): got a tensor on {t.device}")
+    kw = dict(win=win, min_eig_thresh=min_eig_thresh)
+    if dev.type == "cpu":
+        # optical_flow imports this module: import it at call time.
+        from kimera_vio_tpu_torch.ops import optical_flow
+        return optical_flow.build_lk_templates(prev_pyr, prev_pts, valid, prev_grads=prev_grads,
+                                               **kw)
+    if prev_grads is not None:
+        prev_grads = [(gx.contiguous(), gy.contiguous()) for gx, gy in prev_grads]
+    return lk_cache_build_cuda([p.contiguous() for p in prev_pyr], prev_pts.contiguous(),
+                               valid.contiguous(), prev_grads=prev_grads, **kw)
+
+
 def klt_track_cached_lk(templates, cur_pyr, init_pts, valid, *, win: int = 24,
                         max_iter: int = 30, eps: float = 0.1,
                         device: str | torch.device = "cuda"):
     """The JAX package's default tracker, `klt_track_cached`, against a
-    template cache from `optical_flow.build_lk_templates`. All tensors must
+    template cache from `build_lk_templates_lk`. All tensors must
     already lie on `device`: CUDA tensors go through `lk_cached_kernel`
     (one launch a frame), CPU tensors through the plain version
     (`optical_flow.klt_track_cached`). Levels (B, H, W) with (B, N, 2)

@@ -9,8 +9,9 @@ level arithmetic and coarse-to-fine loop live in ops/lk_kernel.py,
 JAX package's default tracker, `lk_impl="matmul"`: `build_lk_templates`
 (the per-keyframe template cache) and `klt_track_cached` /
 `klt_track_matmul` over `_iterate_level_cached`. The plain versions here
-run on the CPU; `klt_track_cached_lk` (ops/lk_kernel.py) launches the CUDA
-kernel that computes `klt_track_cached` on the card.
+run on the CPU; on the card `build_lk_templates_lk` and
+`klt_track_cached_lk` (ops/lk_kernel.py) launch the CUDA kernels that
+compute `build_lk_templates` and `klt_track_cached`.
 
 The matmul tracker resamples its windows as two matmuls against two-hot
 bilinear weight rows (rows first, then columns). Each row has two

@@ -1,31 +1,52 @@
 #!/usr/bin/env python3
-"""Time the LK pyramid kernel built from two CUDA sources on one card.
+"""Time an LK kernel built from two CUDA sources on one card, or the cache
+build kernel against its plain version.
 
     python3 scripts/lk_kernel_ab.py --other OTHER/kimera_vio_tpu_torch/csrc/lk_kernel.cu
     python3 scripts/lk_kernel_ab.py --replace OLD NEW [--replace ...] \\
         --case 61:none:752x480 --case 101:none:752x480
+    python3 scripts/lk_kernel_ab.py --kernel cached --other OTHER/.../lk_kernel.cu --tol 0.01 \\
+        --case 24:752x480 --case 24:1241x376 --case 24:752x480:4 --case 53:752x480
+    python3 scripts/lk_kernel_ab.py --kernel build --case 24:752x480 --case 24:752x480:4
+
+`--kernel pyramid` (the default) times `lk_pyramid_kernel` / `lk_wide_kernel`
+(C interface `lk_pyramid_launch`), `--kernel cached` the default tracker's
+`lk_cached_kernel` (`lk_cached_launch`), `--kernel build` its cache build
+`lk_cache_build_kernel` against the plain `optical_flow.build_lk_templates`
+(no older kernel exists; --other / --replace are not read).
 
 Builds the other library with the same nvcc flags as this checkout's
-csrc/lk_kernel.cu (the C interface `lk_pyramid_launch` must be the same):
+csrc/lk_kernel.cu (the C interface of the kernel timed must be the same):
 from `--other`, or from this checkout's source with each `--replace` OLD
 text (which must occur exactly once) replaced by NEW. Then times one frame
-of each `--case` WIN:SEARCH_ROWS:SIZE (SEARCH_ROWS `none` is the gather
-rule; SIZE 752x480 or 1241x376) through each library in turns: other,
-this, this, other, `--rounds` times. The default case is the main path
-(chip_smoke.main_lk_inputs: 752x480, 5 levels, 256 keypoints, win 24, 56-row
-search window); other cases take chip_smoke.wide_inputs (keypoints more than
-win / 2 + 2 px inside). Each time is the device time of a CUDA-graph replay
-of one launch (chip_smoke.graph_ms). The outputs must be identical, or with
-`--tol` the same `ok` and positions within TOL px. Prints the card's name
-and power limit, then one JSON line per case with the route and shared
-memory each library's launcher chose, each side's time with no Gauss-Newton
-step and its µs a step on the longest chain and, where its launcher reports them
-(`lk_pyramid_cuda.report`), the cluster size, threads and band rows of the
-plan and the clusters the card holds at once. Needs a card; exits 2
-without one.
+of each `--case` through each library in turns: other, this, this, other,
+`--rounds` times. Pyramid cases are WIN:SEARCH_ROWS:SIZE (SEARCH_ROWS
+`none` is the gather rule; SIZE 752x480 or 1241x376); the default is the
+main path (chip_smoke.main_lk_inputs: 752x480, 5 levels, 256 keypoints, win
+24, 56-row search window); other cases take chip_smoke.wide_inputs
+(keypoints more than win / 2 + 2 px inside). Cached and build cases are
+WIN:SIZE[:B]: chip_smoke.main_lk_inputs (752x480) or kitti_lk_inputs
+(1241x376) at that window, or with B > 1 chip_smoke.fleet_lk_inputs (B
+752x480 streams in one launch); the default is 24:752x480, 24:1241x376 and
+24:752x480:4. Cached cases track against the plain cache of the case. Each
+time is the device time of a CUDA-graph replay of one launch
+(chip_smoke.graph_ms); build cases also time both sides eagerly
+(chip_smoke.time_ms: the host's launch path included). Tracker outputs must
+be identical, or with `--tol` the same `ok` and positions within TOL px;
+build outputs must pass chip_smoke.check_cache. Prints the card's name and
+power limit, then one JSON line per case with the route and shared memory
+each library's launcher chose (on the cached routes also the keypoints a
+block), each side's time with no Gauss-Newton step and
+its µs a step on the longest chain (trackers) and, where its launcher
+reports them (`lk_pyramid_cuda.report`), the cluster size, threads and band
+rows of the plan and the clusters the card holds at once. Needs a card;
+exits 2 without one.
 
 A sweep over lk_wide's cluster size: `--replace` the plan's candidates,
-e.g. "kWideClusters[] = {1, 2, 4, 8}" by "kWideClusters[] = {4}".
+e.g. "kWideClusters[] = {1, 2, 4, 8}" by "kWideClusters[] = {4}". The
+cached tracker's block route at 24 px against its warp route: `--replace
+"win == kCachedWarpWin && slack" "false && slack"` (the other side then
+takes the block routes everywhere).
 """
 
 from __future__ import annotations
@@ -79,15 +100,34 @@ def build_other(src: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
     other = ctypes.CDLL(str(so))
     this = lk._lib()
-    for name in ("lk_pyramid_launch", "lk_error_string"):
-        getattr(other, name).argtypes = getattr(this, name).argtypes
-        getattr(other, name).restype = getattr(this, name).restype
+    for name in ("lk_pyramid_launch", "lk_cached_launch", "lk_error_string"):
+        if hasattr(other, name):
+            getattr(other, name).argtypes = getattr(this, name).argtypes
+            getattr(other, name).restype = getattr(this, name).restype
     return other
 
 
 def parse_case(text: str) -> tuple:
-    win, sr, size = text.split(":")
-    return int(win), None if sr == "none" else int(sr), size
+    """WIN:SEARCH_ROWS:SIZE (pyramid) or WIN:SIZE[:B] (cached, build), as
+    given: the kernel decides which."""
+    return tuple(text.split(":"))
+
+
+def cached_case(dev, case: tuple) -> tuple:
+    """(label, prev_pyr, cur_pyr, keypoints, valid, win) of a WIN:SIZE[:B] case."""
+    win, size, n = int(case[0]), case[1], int(case[2]) if len(case) > 2 else 1
+    if n > 1:
+        if size != "752x480":
+            raise ValueError("cases with streams are 752x480")
+        inp = chip_smoke.fleet_lk_inputs(dev, n)
+        prev, cur, pts, valid = inp["prev"], inp["cur"], inp["pts"], inp["valid"]
+    elif size == "752x480":
+        prev, cur, pts, valid = chip_smoke.main_lk_inputs(dev)
+    elif size == "1241x376":
+        prev, cur, pts, valid = chip_smoke.kitti_lk_inputs(dev)
+    else:
+        raise ValueError(f"size {size}: 752x480 or 1241x376")
+    return f"{size} win {win} B {n}", prev, cur, pts, valid, win
 
 
 def compare(outs: dict, tol: float) -> dict:
@@ -140,14 +180,114 @@ def route_report(route: str) -> dict:
     return res
 
 
+def time_turns(fns: dict, rounds: int, timer) -> dict:
+    """Each side's times in turns (other, this, this, other) and means."""
+    times = {"other": [], "this": []}
+    for _ in range(rounds):
+        for name in ("other", "this", "this", "other"):
+            times[name].append(timer(fns[name]))
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    return {"ms": times, "mean_ms": mean, "this_over_other": mean["this"] / mean["other"]}
+
+
+def no_step_rows(res: dict, outs: dict, run) -> None:
+    """Each side's launch with no Gauss-Newton step (setup on every level)
+    and its cost a step on the longest chain of steps."""
+    for name in outs:
+        no_step = chip_smoke.graph_ms(lambda n=name: run(n, max_iter=0))
+        chain = int(outs[name][2].reshape(-1, outs[name][2].shape[-1]).sum(dim=-1).max())
+        res.setdefault("no_step_ms", {})[name] = no_step
+        res.setdefault("max_chain_steps", {})[name] = chain
+        res.setdefault("us_per_step", {})[name] = (
+            1e3 * (res["mean_ms"][name] - no_step) / max(chain, 1))
+
+
+def pyramid_case(dev, libs: dict, case: tuple, args, smi: str) -> dict:
+    win, sr, size = int(case[0]), None if case[1] == "none" else int(case[1]), case[2]
+    if (win, sr, size) == (24, 56, "752x480"):
+        prev_pyr, cur_pyr, uv, valid = chip_smoke.main_lk_inputs(dev)
+    else:
+        prev_pyr, cur_pyr, uv, valid = chip_smoke.wide_inputs(dev, win, size)
+    grads = [of._grad(p) for p in prev_pyr]
+    call = (prev_pyr, cur_pyr, grads, uv, uv, valid)
+    kw = {**chip_smoke.LK_KW, "win": win, "search_rows": sr}
+
+    def run(name, **over):
+        lk._lib = lambda: libs[name]  # the wrapper's library, swapped
+        return lk.lk_pyramid_cuda(*call, **{**kw, **over})
+
+    routes, outs = {}, {}
+    for name in libs:
+        lk.lk_pyramid_cuda.routes.clear()
+        lk.lk_pyramid_cuda.report.clear()
+        outs[name] = run(name)
+        routes[name] = {r: route_report(r) for r in lk.lk_pyramid_cuda.routes}
+    torch.cuda.synchronize()
+    res = {"card": smi, "shape": f"{size} win {win} search_rows {sr}",
+           "routes_and_smem_bytes": routes, **compare(outs, args.tol)}
+    res.update(time_turns({n: (lambda n=n: run(n)) for n in libs}, args.rounds,
+                          chip_smoke.graph_ms))
+    no_step_rows(res, outs, run)
+    if args.profile:
+        res["profiled_kernel_ms"] = {name: profiled_ms(lambda n=name: run(n)) for name in libs}
+    return res
+
+
+def cached_case_row(dev, libs: dict, case: tuple, args, smi: str) -> dict:
+    label, prev, cur, pts, valid, win = cached_case(dev, case)
+    templates = of.build_lk_templates(prev, pts, valid, win=win)
+    kw = {**chip_smoke.CACHED_KW, "win": win}
+
+    def run(name, **over):
+        lk._lib = lambda: libs[name]  # the wrapper's library, swapped
+        return lk.lk_cached_cuda(templates, cur, pts, valid, **{**kw, **over})
+
+    routes, outs = {}, {}
+    for name in libs:
+        lk.lk_cached_cuda.routes.clear()
+        lk.lk_cached_cuda.report.clear()
+        outs[name] = run(name)
+        routes[name] = {r: lk.lk_cached_cuda.report[r] for r in lk.lk_cached_cuda.routes}
+    torch.cuda.synchronize()
+    res = {"card": smi, "kernel": "lk_cached", "shape": label, "routes_and_smem_bytes": routes,
+           **compare(outs, args.tol)}
+    res.update(time_turns({n: (lambda n=n: run(n)) for n in libs}, args.rounds,
+                          chip_smoke.graph_ms))
+    no_step_rows(res, outs, run)
+    if args.profile:
+        res["profiled_kernel_ms"] = {name: profiled_ms(lambda n=name: run(n)) for name in libs}
+    return res
+
+
+def build_case_row(dev, case: tuple, args, smi: str) -> dict:
+    """lk_cache_build_kernel ("this") against the plain build ("other")."""
+    label, prev, _, pts, valid, win = cached_case(dev, case)
+    kw = {"win": win, "min_eig_thresh": chip_smoke.MIN_EIG}
+    fns = {"this": lambda: lk.lk_cache_build_cuda(prev, pts, valid, **kw),
+           "other": lambda: of.build_lk_templates(prev, pts, valid, **kw)}
+    res = {"card": smi, "kernel": "lk_cache_build", "shape": label, "other": "plain",
+           **chip_smoke.check_cache(fns["this"](), fns["other"](), label),
+           "routes_and_smem_bytes": {"this": {"lk_cache_build": lk.lk_cache_build_cuda.report},
+                                     "other": {"plain": None}}}
+    res.update(time_turns(fns, args.rounds, chip_smoke.graph_ms))
+    eager = time_turns(fns, args.rounds, lambda fn: chip_smoke.time_ms(fn, reps=10))
+    res.update(eager_ms=eager["ms"], eager_mean_ms=eager["mean_ms"],
+               eager_this_over_other=eager["this_over_other"])
+    res["bound_ms"], res["bound_by"] = chip_smoke.bound_ms(
+        *chip_smoke.cached_build_work(prev, pts, win))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    src = ap.add_mutually_exclusive_group(required=True)
+    ap.add_argument("--kernel", choices=("pyramid", "cached", "build"), default="pyramid")
+    src = ap.add_mutually_exclusive_group()
     src.add_argument("--other", help="the other lk_kernel.cu")
     src.add_argument("--replace", nargs=2, action="append", metavar=("OLD", "NEW"),
                      help="the other source: this one with OLD replaced by NEW")
     ap.add_argument("--case", action="append", type=parse_case,
-                    help="WIN:SEARCH_ROWS:SIZE, e.g. 61:none:752x480 (default 24:56:752x480)")
+                    help="pyramid: WIN:SEARCH_ROWS:SIZE, e.g. 61:none:752x480 (default "
+                         "24:56:752x480); cached, build: WIN:SIZE[:B], e.g. 24:752x480:4")
     ap.add_argument("--tol", type=float, default=0.0,
                     help="largest |d| in px between the outputs (default 0: identical)")
     ap.add_argument("--rounds", type=int, default=2)
@@ -155,6 +295,8 @@ def main() -> int:
                     help="also each side's mean device time of the kernel in a torch.profiler "
                          "trace of 20 graph replays")
     args = ap.parse_args()
+    if args.kernel != "build" and not (args.other or args.replace):
+        ap.error(f"--kernel {args.kernel} needs --other or --replace")
     if not torch.cuda.is_available():
         print("lk_kernel_ab: needs a CUDA card", file=sys.stderr)
         return 2
@@ -162,47 +304,18 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda")
-    libs = {"this": lk._lib(), "other": build_other(other_source(args))}
-    for win, sr, size in args.case or [(24, 56, "752x480")]:
-        if (win, sr, size) == (24, 56, "752x480"):
-            prev_pyr, cur_pyr, uv, valid = chip_smoke.main_lk_inputs(dev)
+    defaults = {"pyramid": [("24", "56", "752x480")],
+                "cached": [("24", "752x480"), ("24", "1241x376"), ("24", "752x480", "4")]}
+    defaults["build"] = defaults["cached"]
+    if args.kernel != "build":
+        libs = {"this": lk._lib(), "other": build_other(other_source(args))}
+    for case in args.case or defaults[args.kernel]:
+        if args.kernel == "pyramid":
+            res = pyramid_case(dev, libs, case, args, smi)
+        elif args.kernel == "cached":
+            res = cached_case_row(dev, libs, case, args, smi)
         else:
-            prev_pyr, cur_pyr, uv, valid = chip_smoke.wide_inputs(dev, win, size)
-        grads = [of._grad(p) for p in prev_pyr]
-        call = (prev_pyr, cur_pyr, grads, uv, uv, valid)
-        kw = {**chip_smoke.LK_KW, "win": win, "search_rows": sr}
-
-        def run(name, **over):
-            lk._lib = lambda: libs[name]  # the wrapper's library, swapped
-            return lk.lk_pyramid_cuda(*call, **{**kw, **over})
-
-        routes = {}
-        outs = {}
-        for name in libs:
-            lk.lk_pyramid_cuda.routes.clear()
-            lk.lk_pyramid_cuda.report.clear()
-            outs[name] = run(name)
-            routes[name] = {r: route_report(r) for r in lk.lk_pyramid_cuda.routes}
-        torch.cuda.synchronize()
-        res = {"card": smi, "shape": f"{size} win {win} search_rows {sr}",
-               "routes_and_smem_bytes": routes, **compare(outs, args.tol)}
-        times = {"other": [], "this": []}
-        for _ in range(args.rounds):
-            for name in ("other", "this", "this", "other"):
-                times[name].append(chip_smoke.graph_ms(lambda n=name: run(n)))
-        res.update(ms=times, mean_ms={k: sum(v) / len(v) for k, v in times.items()})
-        res["this_over_other"] = res["mean_ms"]["this"] / res["mean_ms"]["other"]
-        # Each side's launch with no Gauss-Newton step (setup on every level)
-        # and its cost a step on the longest chain of steps.
-        for name in libs:
-            no_step = chip_smoke.graph_ms(lambda n=name: run(n, max_iter=0))
-            chain = int(outs[name][2].sum(dim=-1).max())
-            res.setdefault("no_step_ms", {})[name] = no_step
-            res.setdefault("max_chain_steps", {})[name] = chain
-            res.setdefault("us_per_step", {})[name] = (
-                1e3 * (res["mean_ms"][name] - no_step) / max(chain, 1))
-        if args.profile:
-            res["profiled_kernel_ms"] = {name: profiled_ms(lambda n=name: run(n)) for name in libs}
+            res = build_case_row(dev, case, args, smi)
         print(json.dumps(res), flush=True)
     return 0
 

@@ -238,12 +238,13 @@ def test_klt_track_cached_lk_refuses_cuda_without_a_card():
 
 def test_cached_routes_by_width():
     """The launcher's route (csrc/lk_kernel.cu: cached_smem) at the H100's
-    232448-byte opt-in: patch and cache in shared memory to 101 px and a
-    little beyond, the patch alone to 222 px, neither above."""
+    232448-byte opt-in: one warp a keypoint at the main path's 24 px, then
+    patch and cache in shared memory to 101 px and a little beyond, the
+    patch alone to 222 px, neither above."""
     optin = 232448
     assert tlk.cached_smem("lk_cached shared", 24) == 192 + 4 * (42 * 42 + 3 * 24 * 24)
     assert [tlk.cached_route(w, optin) for w in (24, 54, 101, 151, 222, 223, 401)] == [
-        "lk_cached shared", "lk_cached shared", "lk_cached shared", "lk_cached patch",
+        "lk_cached warp", "lk_cached shared", "lk_cached shared", "lk_cached patch",
         "lk_cached patch", "lk_cached global", "lk_cached global"]
     assert tlk.cached_route(24, 1) == "lk_cached global"
 
