@@ -51,11 +51,16 @@ Phases:
      keypoint, median and max |d| < 0.01 px over the keypoints both
      track, each row's launch plan (route, shared memory, keypoints a
      block) the one `lk.cached_plan` gives, every route covered, and the
-     warp route at 752x480 / 1241x376 / B = 4 (24 px). Two more builds
-     of the 752x480 keyframe against plain reach the build kernel's other
-     branches: from the full-image gradients (`prev_grads`, the cache read
-     through L1/L2) and at win 241 (level 0 only; its patch no longer fits
-     in shared memory).
+     warp route at 752x480 / 1241x376 / B = 4 (24 px); each row's build
+     launch plan (route, strips, items a block, threads, shared memory,
+     staged rows) the one `lk.build_plan` gives: 24 px with its rows
+     stored directly, some wide row of several strips with its rows staged
+     in shared memory. More builds of the 752x480 keyframe against plain
+     reach the build kernel's other branches: from the full-image
+     gradients (`prev_grads`, "lk_cache_build grads"), at win 20 and 41
+     (rows stored directly, one and two strips), at win 241 (level 0 only,
+     nine strips, staged) and at win 470 (level 0 only, 17 strips: the
+     wide route, one warp sweeps two), each plan gated to its shape.
      One `[cached]` line per row: route, shared memory, per-level steps,
      graph-replay ms, no-step ms, us a step on the longest chain, eager ms
      of `klt_track_cached_lk`, plain ms and the bound (`cached_work`);
@@ -826,19 +831,30 @@ def check_cache(built, plain, label: str) -> dict:
     return {"cache_bit_identical": True, "max_abs_err": max_err, "inv_max_rel_err": inv_err}
 
 
+def build_plan_report(label: str, win: int, grads: bool) -> dict:
+    """The last cache build's launch report, gated equal to the Python twin
+    of the launcher's plan (`lk.build_plan` under this card's opt-in
+    shared memory): its route, plan and shared memory."""
+    rep = lk.lk_cache_build_cuda.report
+    want = lk.build_plan(win, rep.get("optin", -1), grads)
+    if rep.get("plan") != want or rep["smem"] != want.smem:
+        raise AssertionError(f"{label}: the build's launch plan {rep}, expected {want}")
+    return {"route": want.route, "plan": want._asdict(), "smem_bytes": rep["smem"]}
+
+
 def compare_build(prev_pyr, pts, valid, plain, label: str, win: int, prev_grads=None) -> tuple:
     """lk_cache_build_kernel vs the plain cache `plain` (check_cache); its
-    graph-replay ms, the eager ms of `build_lk_templates_lk` (the host's
-    launch path), the plain version's eager ms and the bound
-    (`cached_build_work`). Returns (the kernel's cache, the numbers)."""
+    launch plan (`build_plan_report`), graph-replay ms, the eager ms of
+    `build_lk_templates_lk` (the host's launch path), the plain version's
+    eager ms and the bound (`cached_build_work`). Returns (the kernel's
+    cache, the numbers)."""
     kw = dict(win=win, min_eig_thresh=MIN_EIG, prev_grads=prev_grads)
     built = lk.lk_cache_build_cuda(prev_pyr, pts, valid, **kw)
     torch.cuda.synchronize()
     res = check_cache(built, plain, label)
+    res.update(build_plan_report(label, win, prev_grads is not None))
     b_ms, b_by = bound_ms(*cached_build_work(prev_pyr, pts, win, prev_grads is not None))
     res.update(
-        smem_bytes=lk.lk_cache_build_cuda.report["smem"],
-        patch_in_smem=lk.lk_cache_build_cuda.report["patch_in_smem"],
         ms=graph_ms(lambda: lk.lk_cache_build_cuda(prev_pyr, pts, valid, **kw)),
         eager_ms=time_ms(lambda: lk.build_lk_templates_lk(prev_pyr, pts, valid,
                                                           device=pts.device, **kw), reps=20),
@@ -935,6 +951,7 @@ def compare_cached_streams(inp: dict, n_streams: int, label: str) -> dict:
     stacked = stack_trees(per)
     built = lk.lk_cache_build_cuda(prev, pts, valid, win=WIN, min_eig_thresh=MIN_EIG)
     build = check_cache(built, stacked, f"{label} build")
+    build.update(build_plan_report(f"{label} build", WIN, False))
     for b in range(n_streams):
         single = lk.lk_cache_build_cuda([p[b] for p in prev], pts[b], valid[b], win=WIN,
                                         min_eig_thresh=MIN_EIG)
@@ -943,19 +960,25 @@ def compare_cached_streams(inp: dict, n_streams: int, label: str) -> dict:
                     x is not None and not all(torch.equal(x[k], y[k][b]) for k in x)):
                 raise AssertionError(f"{label}: stream {b}'s cache from the batched build differs "
                                      f"from its own at level {lvl}")
+    b_ms, b_by = bound_ms(*cached_build_work(prev, pts, WIN))
     build.update(equal_to_single_launches=True,
                  ms=graph_ms(lambda: lk.lk_cache_build_cuda(prev, pts, valid, win=WIN,
-                                                            min_eig_thresh=MIN_EIG)))
+                                                            min_eig_thresh=MIN_EIG)),
+                 bound_ms=b_ms, bound_by=b_by)
     (out_k, ok_k, it_k), route = _cached_route_of(
         lambda: lk.lk_cached_cuda(stacked, cur, pts, valid, **CACHED_KW))
-    d, agree, both_n = [], [], 0
+    d, agree, both_n, work = [], [], 0, [0, 0.0]
     for b in range(n_streams):
         cur_b = [c[b] for c in cur]
         single = lk.lk_cached_cuda(per[b], cur_b, pts[b], valid[b], **CACHED_KW)
         if not (torch.equal(single[0], out_k[b]) and torch.equal(single[1], ok_k[b])
                 and torch.equal(single[2], it_k[b])):
             raise AssertionError(f"{label}: stream {b}'s batched launch differs from its own")
-        out_p, ok_p, _ = of.track_cached(per[b], cur_b, pts[b], valid[b], **CACHED_KW)
+        with seen_cached_levels() as seen:
+            out_p, ok_p, _ = of.track_cached(per[b], cur_b, pts[b], valid[b], **CACHED_KW)
+        # The launch's bound: the streams' work summed.
+        w = cached_work(seen, int(valid[b].numel()), len(cur), WIN)
+        work = [work[0] + w[0], work[1] + w[1]]
         both = ok_k[b] & ok_p
         both_n += int(both.sum())
         d.append(torch.linalg.norm(out_k[b] - out_p, dim=-1)[both])
@@ -969,12 +992,13 @@ def compare_cached_streams(inp: dict, n_streams: int, label: str) -> dict:
                              f"ok agreement {min(agree)}")
     ms = graph_ms(lambda: lk.lk_cached_cuda(stacked, cur, pts, valid, **CACHED_KW))
     report = lk.lk_cached_cuda.report[route]
+    b_ms, b_by = bound_ms(*work)
     res = {"label": label, "win": WIN, "streams": n_streams, "launches": 1, "route": route,
            "smem_bytes": report["smem"], "keypoints_a_block": report["warps"],
            "levels_tracked": sum(t is not None for t in stacked), "tracked": int(ok_k.sum()),
            "median_abs_err": median, "max_abs_err": max_err, "ok_agreement": min(agree),
            "equal_to_single_launches": True, "ms": ms, "ms_per_stream_frame": ms / n_streams,
-           "build": build}
+           "bound_ms": b_ms, "bound_by": b_by, "build": build}
     log(f"[cached] {json.dumps(res)}")
     return res
 
@@ -1008,6 +1032,12 @@ def cached_phase(dev) -> dict:
     for label in ("752x480", "1241x376", "752x480 B=4"):
         if rows[label]["route"] != "lk_cached warp":
             raise AssertionError(f"{label}: route {rows[label]['route']}, not the warp route")
+    # The build's plans: the compiled-in 24 px unstaged, and a wide row of
+    # several strips with its rows staged in shared memory.
+    plans = {label: r["build"]["plan"] for label, r in rows.items()}
+    if plans["752x480"]["staged"] or not any(p["strips"] > 1 and p["staged"]
+                                             for p in plans.values()):
+        raise AssertionError(f"the build rows' plans {plans}")
     return rows
 
 
@@ -1015,22 +1045,36 @@ def build_branch_phase(dev) -> dict:
     """Phase 1 (c): the build kernel's branches that the cached rows do not
     reach, against the plain build (`compare_build`) on the 752x480
     keyframe: the cache resampled from full-image gradients (`prev_grads`,
-    each level's Scharr planes), and a window of 241 px (level 0 only),
-    whose (win + 4)^2 patch does not fit in shared memory. Both must read
-    the keyframe through L1/L2."""
+    each level's Scharr planes); windows of 20 and 41 px (the instantiation
+    of any window under 48 px but 24: rows stored directly, four one-strip
+    items a block at 20 px, two two-strip items at 41 px); a window of 241
+    px (level 0 only), the widest window of a cached row's; and one of 470
+    px (level 0 only): 17 strips, more than an item has warps, so the wide
+    route, whose first warp sweeps strips 0 and 16. Each row's plan as
+    `lk.build_plan` gives, and gated to the shape named here."""
     prev_pyr, _, uv, valid = main_lk_inputs(dev)
     grads = [of._grad(p) for p in prev_pyr]
-    rows = {}
-    for label, win, g in (("752x480 prev_grads", WIN, grads), ("752x480 win 241", 241, None)):
+    sweep, rows = "lk_cache_build sweep", {}
+    # (label, win, gradients, the plan's (route, strips, items, threads, staged)
+    # under the H100's opt-in, levels built)
+    cases = (("752x480 prev_grads", WIN, grads, ("lk_cache_build grads", 1, 1, 128, False), 5),
+             ("752x480 win 20", 20, None, (sweep, 1, 4, 128, False), 5),
+             ("752x480 win 41", 41, None, (sweep, 2, 2, 128, False), 4),
+             ("752x480 win 241", 241, None, (sweep, 9, 1, 288, True), 1),
+             ("752x480 win 470", 470, None, ("lk_cache_build wide", 17, 1, 512, False), 1))
+    for label, win, g, shape, n_levels in cases:
         plain = of.build_lk_templates(prev_pyr, uv, valid, win=win, min_eig_thresh=MIN_EIG,
                                       prev_grads=g)
         _, rows[label] = compare_build(prev_pyr, uv, valid, plain, label, win, prev_grads=g)
         rows[label].update(label=label, win=win, levels_built=sum(t is not None for t in plain))
-        if rows[label]["patch_in_smem"]:
-            raise AssertionError(f"{label}: the patch sat in shared memory")
+        del plain
         log(f"[cache build] {json.dumps(rows[label])}")
-    if rows["752x480 win 241"]["levels_built"] != 1:
-        raise AssertionError(f"win 241: {rows['752x480 win 241']['levels_built']} levels built")
+        plan = rows[label]["plan"]
+        got = (rows[label]["route"], plan["strips"], plan["items"], plan["threads"],
+               plan["staged"])
+        if got != shape or rows[label]["levels_built"] != n_levels:
+            raise AssertionError(f"{label}: plan {got} over {rows[label]['levels_built']} "
+                                 f"levels, expected {shape} over {n_levels}")
     return rows
 
 
@@ -3648,7 +3692,8 @@ def build_kernels() -> dict:
                       line)
         c = re.search(r"Compiling entry function '\S*?lk_cached_kernelILi(\d)E", line)
         w = re.search(r"Compiling entry function '\S*?lk_cached_warp_kernel", line)
-        bk = re.search(r"Compiling entry function '\S*?lk_cache_build_kernelILb(\d)E", line)
+        bk = re.search(r"Compiling entry function '\S*?lk_cache_build_kernelILi(\d)ELi(\d+)ELb(\d)E",
+                       line)
         if m:
             kernel = "lk_pyramid_kernel<win {}, search_rows {}, max_win {}>".format(*m.groups())
         elif c:
@@ -3656,7 +3701,8 @@ def build_kernels() -> dict:
         elif w:
             kernel = "lk_cached_warp_kernel"
         elif bk:
-            kernel = f"lk_cache_build_kernel<patch in smem {bool(int(bk.group(1)))}>"
+            kernel = "lk_cache_build_kernel<{}, win {}, staged {}>".format(
+                lk.BUILD_ROUTES[int(bk.group(1))], bk.group(2), bool(int(bk.group(3))))
         elif re.search(r"Compiling entry function '\S*?lk_wide_kernel", line):
             kernel = "lk_wide_kernel"
         elif "registers" in line or "spill" in line:
@@ -3804,7 +3850,7 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
         "library_ms": None,  # no single PyTorch call builds an LK template cache
         "rows": {label: {k: r.get(k) for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                                 "bound_by", "max_abs_err", "inv_max_rel_err",
-                                                "smem_bytes", "patch_in_smem")}
+                                                "route", "plan", "smem_bytes")}
                  for label, r in build_rows.items()},
         "ptxas": {k: v for k, v in build.items() if k.startswith("lk_cache_build")},
     }, {

@@ -1491,27 +1491,115 @@ int launch_cached_warp(const CachedTable& tab, const CachedPlan& p, int N, int B
 // are bit-identical, only the three gradient sums are added in another
 // order.
 //
-// One block of kBuildThreads a keypoint, tracked level and stream (grid N x
-// levels x B): a keyframe's whole cache in one launch. Per keypoint and
-// level: the (win + 4)^2 edge-clamped patch of the keyframe level at the
-// reference's clamped origin, staged in shared memory with cp.async; each
-// thread takes window pixels in turn, reads their 4x4 patch neighbourhood
-// into registers and blends, at the keypoint's sub-pixel offset (rows, then
-// columns), the template's 2x2 and the 2x2 of 3x3 Scharr x and y
-// correlations (nonzero taps in row-major order, as the reference sums
-// them); the three gradient sums are reduced over the block (butterflies,
-// one partial a warp), and one thread writes the inverse 2x2 and the
-// min-eigenvalue gate. With full-image gradients given (prev_grads) the
-// template, gx and gy windows are blended from the three planes through
-// L1/L2 instead. Where the patch does not fit in shared memory (windows over
-// 232 px) it is read through L1/L2 too.
+// What bounds it. A 752x480 keyframe of 256 keypoints writes 5 levels x 3
+// x 576 floats a keypoint (~9 MB) and reads ~1.5 MB of patches: ~3 us at
+// 3.35 TB/s. Built with -fmad=false, every multiply and add issues alone,
+// and the plain term order costs, per window pixel, Scharr x and y on four
+// patch cells (88 operations), three y-then-x blends (27) and the three
+// products and sums (6). The first design (a 128-thread block an item,
+// each pixel reading its 4x4 neighbourhood from a shared-memory patch)
+// issued ~150 instructions a pixel, ~3.5 M warp instructions a keyframe,
+// and ran at 30 % of the byte bound; below 100 px its time was issue and
+// latency, above it the partial-sector stores of window rows.
 //
-// What bounds it: bytes. A 752x480 keyframe of 256 keypoints writes 5
-// levels x 3 x 576 floats a keypoint (~9 MB) and reads ~1.5 MB of patches,
-// a few us at 3.35 TB/s; its ~40 MFLOP take under 1 us. The design writes
-// each output once, coalesced, in one launch (the plain version is dozens
-// of small launches a level).
-constexpr int kBuildThreads = 128;
+// The design: one warp sweeps a strip of an item's window, lanes over
+// columns, top to bottom, one patch row a step. A lane holds its column's
+// value and its two Scharr products (3/32 and 10/32 of it) for the last
+// two rows; its neighbours' come by shuffle. So each patch value is read
+// once and multiplied twice, each Scharr cell's x and y sums (the nonzero
+// taps of _DERIV_X and _DERIV_Y in row-major order, a tap of coefficient
+// -c as the negated product of c) are formed once, each row's three column
+// lerps once, and a pixel's x-lerp takes its right neighbour's column lerp
+// by shuffle. The compiled-in 24 px sweep is 1,517 instructions an item on
+// its path, 901 of them the float32 terms, 190 shuffles and 72 stores:
+// ~63 a step for a row of 24 pixels, 2.6 warp instructions a pixel
+// (scripts/sass_counts.py), ~1.9 M a keyframe, ~2 us of issue on 132 SMs,
+// under the byte bound. Items are (keypoint, level, stream); a strip is at
+// most kBuildStrip window columns (32 lanes less 3 of halo), and wider
+// windows are cut into equal strips, one warp each (past kBuildMaxUnits
+// strips, 464 px, the wide route: a warp takes every kBuildMaxUnits-th,
+// its own instantiation, so that the others carry no loop). The lanes read the
+// keyframe's rows through L1/L2, coalesced, the edge clamp in the column
+// each lane reads; rows come kBuildChunk at a time, the next chunk's loads
+// in flight during this chunk's steps (the compiled-in window loads all
+// its rows at once). At 24 px each window row goes out as one coalesced
+// warp store a plane (96 contiguous bytes: three whole 32-byte sectors).
+// From kBuildStageFrom px a chunk's rows go to shared memory laid out as
+// in global memory, and leave, after a block barrier, as 16-byte stores
+// of the whole chunk (a strip's row alone covers parts of sectors). The
+// three gradient sums are reduced per warp (butterfly), then one lane an
+// item adds its warps' partials and writes the inverse 2x2 and the
+// min-eigenvalue gate; an item of one warp needs no block barrier. With
+// full-image gradients given (prev_grads) the template, gx and gy windows
+// are blended from the three planes through L1/L2, the item's warps taking
+// its pixels in turn.
+//
+// Measured and not kept (scripts/lk_kernel_ab.py, PERF.md): each item's
+// patch staged in shared memory by 16-byte cp.async (slower than the L1/L2
+// reads at every width: each value is read once); the compiled-in
+// window's rows staged and sent by cp.async.bulk (slower than its
+// whole-sector stores); two window columns a lane (more registers, spills);
+// row bands. The launch plan is `plan_build` (its Python twin
+// ops/lk_kernel.py:build_plan); the launcher reports it.
+constexpr int kBuildStrip = 29;     // window columns a strip holds at most: 32 lanes less 3 of halo
+constexpr int kBuildWarps = 4;      // warps a block of narrow items holds
+constexpr int kBuildMaxUnits = 16;  // warps an item may have: a warp a strip up to 16 strips
+constexpr int kBuildChunk = 8;      // window rows a warp's lanes load ahead, and stage out
+constexpr int kBuildFixedWin = 24;  // the window compiled in (the main path's)
+constexpr int kBuildStageFrom = 48;  // windows from this width stage their rows in shared memory
+constexpr int kBuildMaxThreads = 32 * kBuildMaxUnits;
+constexpr int kBuildMinBlocks = 2;  // launch bounds: ptxas keeps the kernel within 64 registers
+constexpr int kBuildReportInts = 7;
+enum BuildRoute : int { kBuildSweep = 0, kBuildGrads = 1, kBuildWide = 2 };
+
+struct BuildPlan {
+  int route, strips, items, threads, smem;  // items: (keypoint, level) items a block
+  int staged;                               // rows leave through shared memory
+};
+
+// A window's columns in equal strips of at most kBuildStrip, one warp each.
+__host__ __device__ constexpr int build_strip_cols(int win) {
+  return (win + (win + kBuildStrip - 1) / kBuildStrip - 1) / ((win + kBuildStrip - 1) / kBuildStrip);
+}
+__host__ __device__ constexpr int build_strips(int win) {
+  return (win + build_strip_cols(win) - 1) / build_strip_cols(win);
+}
+
+// Floats of one plane of one buffer of an item's row staging: a chunk of
+// kBuildChunk window rows after up to 3 floats of alignment, in whole
+// 16-byte units. Bytes of the staging: two buffers of three planes; none
+// at the compiled-in window, whose rows go out directly.
+__host__ __device__ constexpr int build_stage_plane(int win) {
+  return (kBuildChunk * win + 3 + 3) / 4 * 4;
+}
+__host__ __device__ constexpr size_t build_stage_bytes(int win) {
+  return win == kBuildFixedWin ? 0 : 4 * 2 * 3 * (size_t)build_stage_plane(win);
+}
+
+// lk_cache_build_kernel's launch plan, a pure function of the window,
+// whether full-image gradients are given and the opt-in shared memory per
+// block. An item gets one warp a strip; a block holds kBuildWarps / that
+// many items, at least one, fewer if their shared memory does not fit: a
+// 16-byte slot a warp for its partial sums and, from kBuildStageFrom px
+// where it fits, the item's row staging. Past kBuildMaxUnits strips the
+// wide route: kBuildMaxUnits warps an item, each taking every
+// kBuildMaxUnits-th strip, rows stored directly. With gradients given an
+// item gets kBuildWarps warps, which take its pixels in turn.
+BuildPlan plan_build(int win, int grads, int optin) {
+  const int strips = build_strips(win);
+  const int items = strips < kBuildWarps ? kBuildWarps / strips : 1;
+  if (grads) return {kBuildGrads, strips, 1, 32 * kBuildWarps, 16 * kBuildWarps, 0};
+  if (strips > kBuildMaxUnits)
+    return {kBuildWide, strips, 1, 32 * kBuildMaxUnits, 16 * kBuildMaxUnits, 0};
+  for (int staged = win >= kBuildStageFrom; staged >= 0; --staged) {
+    const size_t item = 16 * (size_t)strips + (staged ? build_stage_bytes(win) : 0);
+    for (int i = items; i >= 1; i /= 2) {
+      if ((size_t)i * item <= (size_t)optin || (!staged && i == 1))
+        return {kBuildSweep, strips, i, 32 * i * strips, (int)((size_t)i * item), staged};
+    }
+  }
+  return {};  // not reached: the unstaged plan always returns
+}
 
 struct BuildLevel {
   const float* img;  // stream 0's plane of the keyframe level
@@ -1533,91 +1621,86 @@ struct BuildTable {
   BuildLevel lv[kMaxLevels];  // the levels a window fits in
   int N, win;
   float min_eig_thresh;
+  int units, items;  // the plan: warps an item (its strips, kBuildMaxUnits on the wide route,
+                     // or kBuildWarps with gradients)
 };
 
-template <bool SMEM>
-__global__ void __launch_bounds__(kBuildThreads)
+// *p = v of three planes where pred, as predicated stores (no branch
+// around them): to global memory (nothing in the kernel reads them), or to
+// shared memory at shared-window addresses.
+__device__ __forceinline__ void st3_global_if(float* p0, float* p1, float* p2, float v0, float v1,
+                                              float v2, bool pred) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %6, 0;\n @q st.global.f32 [%0], %3;\n"
+      " @q st.global.f32 [%1], %4;\n @q st.global.f32 [%2], %5;\n}\n" ::"l"(p0),
+      "l"(p1), "l"(p2), "f"(v0), "f"(v1), "f"(v2), "r"((int)pred));
+}
+__device__ __forceinline__ void st3_shared_if(unsigned a0, unsigned a1, unsigned a2, float v0,
+                                              float v1, float v2, bool pred) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %6, 0;\n @q st.shared.f32 [%0], %3;\n"
+      " @q st.shared.f32 [%1], %4;\n @q st.shared.f32 [%2], %5;\n}\n" ::"r"(a0),
+      "r"(a1), "r"(a2), "f"(v0), "f"(v1), "f"(v2), "r"((int)pred)
+      : "memory");  // the chunk's copy-out reads these after a barrier
+}
+
+// One block holds tab.items items (keypoint, level blockIdx.y, stream
+// blockIdx.z); warp w works on item w / units as its unit (strip) w %
+// units. WIN > 0 fixes the window at compile time (kBuildFixedWin, one
+// strip): the sweep then loads all its patch rows at once, unrolls every
+// step and stores each row directly (96 contiguous bytes at 24 px: three
+// whole sectors). STAGED: the rows leave through shared memory (the plan's
+// `staged`). ROUTE kBuildWide: a warp sweeps its strips one after another.
+// A block's items past N compute on the stream's first keypoint and write
+// nothing, so that every warp meets every barrier.
+template <int ROUTE, int WIN, bool STAGED>
+__global__ void __launch_bounds__(kBuildMaxThreads, kBuildMinBlocks)
 lk_cache_build_kernel(const __grid_constant__ BuildTable tab, const float* __restrict__ pts,
                       const uint8_t* __restrict__ valid) {
   const BuildLevel& L = tab.lv[blockIdx.y];
+  const int win = WIN > 0 ? WIN : tab.win, npx = win * win, Sg = win + 4;
+  const int units = WIN > 0 ? build_strips(WIN) : tab.units;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp / units, unit = warp - slot * units;
+  const int kn = blockIdx.x * tab.items + slot;
+  const bool live = kn < tab.N;
   const size_t b = blockIdx.z;
-  const int k = blockIdx.z * tab.N + blockIdx.x;  // row of (B, N, ...)
-  const int win = tab.win, npx = win * win;
-  const int St = win + 2, Sg = St + 2;
+  const int k = blockIdx.z * tab.N + (live ? kn : 0);  // row of (B, N, ...)
   const float half = (win - 1) * 0.5f;
   const int H = L.H, W = L.W;
   const float* img = L.img + b * L.stride;
-  const int tid = threadIdx.x;
   // The template's corner and sub-pixel offset, as the reference takes them.
   const float hx = pts[2 * k] / L.div - half, hy = pts[2 * k + 1] / L.div - half;
   const float cxf = floorf(hx), cyf = floorf(hy);
   const int tx0 = (int)cxf, ty0 = (int)cyf;
   const float fx = hx - cxf, fy = hy - cyf;
-
-  extern __shared__ __align__(16) float smem[];
-  float4* part = reinterpret_cast<float4*>(smem);  // one a warp
-  float* s_raw = smem + 4 * (kBuildThreads / 32);  // Sg x Sg (SMEM)
+  const float omfx = 1.f - fx, omfy = 1.f - fy;
   const size_t o = (size_t)k * npx;
-  // Window pixels p = tid, tid + kBuildThreads, ... walked as (r, c).
-  const int dr = kBuildThreads / win, dc = kBuildThreads - dr * win;
-  int r = tid / win, c = tid - (tid / win) * win;
-  auto lerp = [&](float p00, float p01, float p10, float p11) {
-    const float ya0 = (1.f - fy) * p00 + fy * p10;
-    const float ya1 = (1.f - fy) * p01 + fy * p11;
-    return (1.f - fx) * ya0 + fx * ya1;
-  };
+
+  // Shared memory: a 16-byte slot a warp, then each item's row staging.
+  extern __shared__ __align__(16) float smem[];
+  float4* part = reinterpret_cast<float4*>(smem);
   float gxx = 0.f, gxy = 0.f, gyy = 0.f;
-  if (L.gx == nullptr) {
-    // The reference slices the level padded by `pad`; the slice start is
-    // clamped to stay inside it.
-    const int pad = Sg + 2;
-    const int oy = clampi(ty0 - 1, -pad, H + pad - Sg), ox = clampi(tx0 - 1, -pad, W + pad - Sg);
-    if constexpr (SMEM) {
-      const int sdr = kBuildThreads / Sg, sdc = kBuildThreads - sdr * Sg;
-      int u = tid / Sg, v = tid - (tid / Sg) * Sg;
-      for (int i = tid; i < Sg * Sg; i += kBuildThreads) {
-        cp_async4(s_raw + i, img + (size_t)clampi(oy + u, 0, H - 1) * W + clampi(ox + v, 0, W - 1));
-        u += sdr;
-        v += sdc;
-        if (v >= Sg) {
-          v -= Sg;
-          ++u;
-        }
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-    }
-    for (int p = tid; p < npx; p += kBuildThreads) {
-      float R[4][4];  // patch rows r..r+3, columns c..c+3
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          if constexpr (SMEM)
-            R[y][x] = s_raw[(r + y) * Sg + c + x];
-          else
-            R[y][x] = img[(size_t)clampi(oy + r + y, 0, H - 1) * W + clampi(ox + c + x, 0, W - 1)];
-        }
-      }
-      // Scharr / 32 at patch cells (r + y, c + x), y, x in {0, 1}: the
-      // nonzero taps of _DERIV_X and _DERIV_Y in row-major order.
-      float sx[2][2], sy[2][2];
-#pragma unroll
-      for (int y = 0; y < 2; ++y) {
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          sx[y][x] = ((((-0.09375f * R[y][x] + 0.09375f * R[y][x + 2]) + -0.3125f * R[y + 1][x]) +
-                       0.3125f * R[y + 1][x + 2]) + -0.09375f * R[y + 2][x]) +
-                     0.09375f * R[y + 2][x + 2];
-          sy[y][x] = ((((-0.09375f * R[y][x] + -0.3125f * R[y][x + 1]) + -0.09375f * R[y][x + 2]) +
-                       0.09375f * R[y + 2][x]) + 0.3125f * R[y + 2][x + 1]) +
-                     0.09375f * R[y + 2][x + 2];
-        }
-      }
-      const float vt = lerp(R[1][1], R[1][2], R[2][1], R[2][2]);
-      const float vx = lerp(sx[0][0], sx[0][1], sx[1][0], sx[1][1]);
-      const float vy = lerp(sy[0][0], sy[0][1], sy[1][0], sy[1][1]);
+  if constexpr (ROUTE == kBuildGrads) {
+    // The three planes' (win + 1)^2 corners at the reference's clamped
+    // origin in the St-padded planes; the item's warps take its pixels in
+    // turn, walked as (r, c).
+    const int St = win + 2, pad = St + 2;
+    const int oy = clampi(ty0, -pad, H + pad - St), ox = clampi(tx0, -pad, W + pad - St);
+    const float* pgx = L.gx + b * L.stride;
+    const float* pgy = L.gy + b * L.stride;
+    const int step = 32 * units, first = 32 * unit + lane;
+    const int dr = step / win, dc = step - dr * win;
+    int r = first / win, c = first - (first / win) * win;
+    for (int p = first; live && p < npx; p += step) {
+      const size_t y0 = (size_t)clampi(oy + r, 0, H - 1) * W, y1 = (size_t)clampi(oy + r + 1, 0, H - 1) * W;
+      const int x0 = clampi(ox + c, 0, W - 1), x1 = clampi(ox + c + 1, 0, W - 1);
+      const float vt = omfx * (omfy * img[y0 + x0] + fy * img[y1 + x0]) +
+                       fx * (omfy * img[y0 + x1] + fy * img[y1 + x1]);
+      const float vx = omfx * (omfy * pgx[y0 + x0] + fy * pgx[y1 + x0]) +
+                       fx * (omfy * pgx[y0 + x1] + fy * pgx[y1 + x1]);
+      const float vy = omfx * (omfy * pgy[y0 + x0] + fy * pgy[y1 + x0]) +
+                       fx * (omfy * pgy[y0 + x1] + fy * pgy[y1 + x1]);
       L.tmpl[o + p] = vt;
       L.out_gx[o + p] = vx;
       L.out_gy[o + p] = vy;
@@ -1632,30 +1715,168 @@ lk_cache_build_kernel(const __grid_constant__ BuildTable tab, const float* __res
       }
     }
   } else {
-    // The three planes' (win + 1)^2 corners at the reference's clamped
-    // origin in the St-padded planes.
-    const int pad = St + 2;
-    const int oy = clampi(ty0, -pad, H + pad - St), ox = clampi(tx0, -pad, W + pad - St);
-    const float* pgx = L.gx + b * L.stride;
-    const float* pgy = L.gy + b * L.stride;
-    for (int p = tid; p < npx; p += kBuildThreads) {
-      const size_t y0 = (size_t)clampi(oy + r, 0, H - 1) * W, y1 = (size_t)clampi(oy + r + 1, 0, H - 1) * W;
-      const int x0 = clampi(ox + c, 0, W - 1), x1 = clampi(ox + c + 1, 0, W - 1);
-      const float vt = lerp(img[y0 + x0], img[y0 + x1], img[y1 + x0], img[y1 + x1]);
-      const float vx = lerp(pgx[y0 + x0], pgx[y0 + x1], pgx[y1 + x0], pgx[y1 + x1]);
-      const float vy = lerp(pgy[y0 + x0], pgy[y0 + x1], pgy[y1 + x0], pgy[y1 + x1]);
-      L.tmpl[o + p] = vt;
-      L.out_gx[o + p] = vx;
-      L.out_gy[o + p] = vy;
-      gxx += vx * vx;
-      gxy += vx * vy;
-      gyy += vy * vy;
-      r += dr;
-      c += dc;
-      if (c >= win) {
-        c -= win;
-        ++r;
+    // The reference slices the level padded by `pad`; the slice start is
+    // clamped to stay inside it. Patch cell (u, v) is the level's pixel
+    // (clamp(oy + u), clamp(ox + v)).
+    const int pad = Sg + 2;
+    const int oy = clampi(ty0 - 1, -pad, H + pad - Sg), ox = clampi(tx0 - 1, -pad, W + pad - Sg);
+    // This warp's strip unit (on the wide route also unit + units, ...: the
+    // other routes make one pass, with nothing live past it). A strip holds
+    // window columns col0 .. col0 + ncw - 1; lane l holds patch column
+    // col0 + l (a window column where l < ncw).
+    const int cw = build_strip_cols(win);
+    for (int strip = unit;; strip += units) {
+      const int col0 = strip * cw, ncw = min(cw, win - col0);
+      const int cx = clampi(ox + min(col0 + lane, Sg - 1), 0, W - 1);
+      const bool out = lane < ncw;
+      auto raw = [&](int t) -> float { return img[(size_t)clampi(oy + t, 0, H - 1) * W + cx]; };
+      // Patch rows 0, 1, 2 first: Scharr row 0. Kept of the last two rows
+      // (suffix m1, m2): the value x, its products a = 3/32 x and bb = 10/32
+      // x, and the neighbours' a2 (column + 2), b1 (+ 1) and b2 (+ 2); sxp,
+      // syp: the last Scharr row.
+      float xs[WIN > 0 ? WIN : kBuildChunk];
+      const float x0 = raw(0), x1 = raw(1), x2 = raw(2);
+      if constexpr (WIN > 0) {
+#pragma unroll
+        for (int j = 0; j < WIN; ++j) xs[j] = raw(3 + j);  // every row of the sweep at once
       }
+      const float a_2 = 0.09375f * x0, a_1 = 0.09375f * x1, a_0 = 0.09375f * x2;
+      const float bb_2 = 0.3125f * x0, bb_1 = 0.3125f * x1, bb_0 = 0.3125f * x2;
+      const float a2_2 = __shfl_down_sync(kFull, a_2, 2);
+      float a2m2 = __shfl_down_sync(kFull, a_1, 2);
+      float a2m1 = __shfl_down_sync(kFull, a_0, 2);
+      const float b1_2 = __shfl_down_sync(kFull, bb_2, 1);
+      float b1m2 = __shfl_down_sync(kFull, bb_1, 1);
+      float b1m1 = __shfl_down_sync(kFull, bb_0, 1);
+      const float b2_1 = __shfl_down_sync(kFull, bb_1, 2);
+      float b2m1 = __shfl_down_sync(kFull, bb_0, 2);
+      // Scharr x: -a +a2 over row i, -bb +b2 over row i + 1, -a +a2 over row
+      // i + 2; y: -a -b1 -a2 over row i, +a +b1 +a2 over row i + 2.
+      float sxp = ((((-a_2 + a2_2) + -bb_1) + b2_1) + -a_0) + a2m1;
+      float syp = ((((-a_2 + -b1_2) + -a2_2) + a_0) + b1m1) + a2m1;
+      float xm2 = x1, xm1 = x2, am2 = a_1, am1 = a_0, bbm1 = bb_0;
+      // Where window row j of the current chunk goes, per plane: global
+      // memory, or (STAGED) the chunk's staging buffer.
+      float *dt, *dx, *dy;
+      unsigned st0, st1, st2;
+      // Patch row r + 3 gives Scharr row r + 1, then window row r (j rows
+      // past d*): its template from patch rows r + 1 and r + 2, its gradients
+      // from Scharr rows r and r + 1. No branch: a lane past the strip's
+      // columns computes on clamped columns and neither stores nor sums.
+      auto step = [&](float x, int j) {
+        const float a = 0.09375f * x, bb = 0.3125f * x;
+        const float a2 = __shfl_down_sync(kFull, a, 2);
+        const float b1 = __shfl_down_sync(kFull, bb, 1);
+        const float b2 = __shfl_down_sync(kFull, bb, 2);
+        const float sx = ((((-am2 + a2m2) + -bbm1) + b2m1) + -a) + a2;
+        const float sy = ((((-am2 + -b1m2) + -a2m2) + a) + b1) + a2;
+        const float yt = omfy * xm2 + fy * xm1;
+        const float yx = omfy * sxp + fy * sx;
+        const float yy = omfy * syp + fy * sy;
+        const float yt1 = __shfl_down_sync(kFull, yt, 1);
+        const float yt2 = __shfl_down_sync(kFull, yt, 2);
+        const float yx1 = __shfl_down_sync(kFull, yx, 1);
+        const float yy1 = __shfl_down_sync(kFull, yy, 1);
+        const float vt = omfx * yt1 + fx * yt2;
+        const float vx = omfx * yx + fx * yx1;
+        const float vy = omfx * yy + fx * yy1;
+        if constexpr (STAGED) {
+          const unsigned d = 4u * j * win;
+          st3_shared_if(st0 + d, st1 + d, st2 + d, vt, vx, vy, out);
+        } else {
+          const size_t d = (size_t)j * win;
+          st3_global_if(dt + d, dx + d, dy + d, vt, vx, vy, out && live);
+        }
+        const float ux = out ? vx : 0.f, uy = out ? vy : 0.f;
+        gxx += ux * ux;
+        gxy += ux * uy;
+        gyy += uy * uy;
+        sxp = sx;
+        syp = sy;
+        xm2 = xm1;
+        xm1 = x;
+        am2 = am1;
+        am1 = a;
+        a2m2 = a2m1;
+        a2m1 = a2;
+        b1m2 = b1m1;
+        b1m1 = b1;
+        bbm1 = bb;
+        b2m1 = b2;
+      };
+      if constexpr (WIN > 0) {
+        dt = L.tmpl + o + col0 + lane;
+        dx = L.out_gx + o + col0 + lane;
+        dy = L.out_gy + o + col0 + lane;
+#pragma unroll
+        for (int j = 0; j < WIN; ++j) step(xs[j], j);
+      } else {
+        // Chunks of kBuildChunk window rows. Their patch rows come into
+        // registers, the next chunk's loads issued before this chunk's steps
+        // (clamped to the last row: a load past it is never used). Staged,
+        // their rows go to one of two buffers, laid out as the window's rows
+        // lie in global memory (each plane after up to 3 floats, so that
+        // 16-byte units match); after a block barrier the item's threads
+        // copy the chunk out as 16-byte stores, unaligned ends as 4-byte
+        // ones. Unstaged, each row goes out directly.
+        const int SP = build_stage_plane(win);
+        float* s_stage = smem + 4 * tab.items * units + (size_t)slot * (build_stage_bytes(win) / 4);
+        float* const planes[3] = {L.tmpl + o, L.out_gx + o, L.out_gy + o};
+        int sh[3];
+#pragma unroll
+        for (int m = 0; m < 3; ++m) sh[m] = (int)((reinterpret_cast<uintptr_t>(planes[m]) >> 2) & 3);
+        auto target = [&](int buf, int row0) {
+          if constexpr (STAGED) {
+            st0 = smem_addr(s_stage + (buf * 3 + 0) * SP + sh[0] + col0 + lane);
+            st1 = smem_addr(s_stage + (buf * 3 + 1) * SP + sh[1] + col0 + lane);
+            st2 = smem_addr(s_stage + (buf * 3 + 2) * SP + sh[2] + col0 + lane);
+          } else {
+            dt = planes[0] + (size_t)row0 * win + col0 + lane;
+            dx = planes[1] + (size_t)row0 * win + col0 + lane;
+            dy = planes[2] + (size_t)row0 * win + col0 + lane;
+          }
+        };
+        auto flush = [&](int buf, int row0, int n) {
+          if constexpr (!STAGED) return;
+          __syncthreads();
+          if (!live) return;
+          const int E = n * win, tid = 32 * unit + lane, nthr = 32 * units;
+#pragma unroll
+          for (int m = 0; m < 3; ++m) {
+            float* g = planes[m] + (size_t)row0 * win;
+            const float* s = s_stage + (buf * 3 + m) * SP + sh[m];
+            const int head = min((4 - sh[m]) & 3, E), body = (E - head) >> 2;
+            if (tid < head) g[tid] = s[tid];
+            float4* g4 = reinterpret_cast<float4*>(g + head);
+            const float4* s4 = reinterpret_cast<const float4*>(s + head);
+            for (int i = tid; i < body; i += nthr) g4[i] = s4[i];
+            const int done = head + 4 * body;
+            if (tid < E - done) g[done + tid] = s[done + tid];
+          }
+        };
+        const int t_end = win + 2, chunks = win / kBuildChunk;
+#pragma unroll
+        for (int j = 0; j < kBuildChunk; ++j) xs[j] = raw(min(3 + j, t_end));
+        for (int c = 0; c < chunks; ++c) {
+          const int t = 3 + (c + 1) * kBuildChunk;
+          float xn[kBuildChunk];
+#pragma unroll
+          for (int j = 0; j < kBuildChunk; ++j) xn[j] = raw(min(t + j, t_end));
+          target(c & 1, c * kBuildChunk);
+#pragma unroll
+          for (int j = 0; j < kBuildChunk; ++j) step(xs[j], j);
+          flush(c & 1, c * kBuildChunk, kBuildChunk);
+#pragma unroll
+          for (int j = 0; j < kBuildChunk; ++j) xs[j] = xn[j];
+        }
+        const int rest = win - chunks * kBuildChunk;
+        if (rest > 0) {
+          target(chunks & 1, chunks * kBuildChunk);
+          for (int j = 0; j < rest; ++j) step(xs[j], j);
+          flush(chunks & 1, chunks * kBuildChunk, rest);
+        }
+      }
+      if (ROUTE != kBuildWide || strip + units >= build_strips(win)) break;
     }
   }
 #pragma unroll
@@ -1664,14 +1885,18 @@ lk_cache_build_kernel(const __grid_constant__ BuildTable tab, const float* __res
     gxy += __shfl_xor_sync(kFull, gxy, s);
     gyy += __shfl_xor_sync(kFull, gyy, s);
   }
-  if ((tid & 31) == 0) part[tid >> 5] = make_float4(gxx, gxy, gyy, 0.f);
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < kBuildThreads / 32; ++w) {
-      gxx += part[w].x;
-      gxy += part[w].y;
-      gyy += part[w].z;
+  if (units > 1) {
+    // The item's warps' partials, added by its first warp in warp order.
+    if (lane == 0) part[warp] = make_float4(gxx, gxy, gyy, 0.f);
+    __syncthreads();
+    for (int w = 1; unit == 0 && w < units; ++w) {
+      const float4 t = part[warp + w];
+      gxx += t.x;
+      gxy += t.y;
+      gyy += t.z;
     }
+  }
+  if (live && unit == 0 && lane == 0) {
     const float det = gxx * gyy - gxy * gxy;
     const float half_tr = 0.5f * (gxx + gyy);
     const float disc = half_tr * half_tr - det;
@@ -1850,9 +2075,10 @@ extern "C" int lk_cached_launch(const void* const* ptrs, const long long* stride
 // elements from one stream's plane to the next's; ints: 2 per level (H, W);
 // divs: per level 2^level. Points (B, N, 2) at level 0, valid (B, N).
 // Outputs per level: (B, N, win, win) float32 tmpl, gx, gy; (B, N) float32
-// inv00, inv01, inv11; (B, N) uint8 good. out_report (2 ints) receives the
-// dynamic shared memory per block in bytes and whether the patch sat in
-// shared memory.
+// inv00, inv01, inv11; (B, N) uint8 good. out_report (kBuildReportInts
+// ints) receives the dynamic shared memory per block in bytes, then the
+// plan (`plan_build`: staged rows, route, strips, items a block, threads a
+// block) and the opt-in limit it read.
 extern "C" int lk_cache_build_launch(const void* const* ptrs, const long long* strides,
                                      const int* ints, const float* divs, int n_levels,
                                      const void* pts, const void* valid, int N, int n_streams,
@@ -1883,7 +2109,8 @@ extern "C" int lk_cache_build_launch(const void* const* ptrs, const long long* s
     L.H = ints[2 * l];
     L.W = ints[2 * l + 1];
     L.div = divs[l];
-    if (L.H < win + 2 || L.W < win + 2 || (L.gx == nullptr) != (L.gy == nullptr))
+    if (L.H < win + 2 || L.W < win + 2 || (L.gx == nullptr) != (L.gy == nullptr) ||
+        (l > 0 && (L.gx == nullptr) != (tab.lv[0].gx == nullptr)))
       return (int)cudaErrorInvalidValue;
     grads = grads || L.gx != nullptr;
   }
@@ -1892,25 +2119,42 @@ extern "C" int lk_cache_build_launch(const void* const* ptrs, const long long* s
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  const size_t part = sizeof(float4) * (kBuildThreads / 32);
-  const size_t raw = sizeof(float) * (size_t)(win + 4) * (win + 4);
-  const bool in_smem = !grads && part + raw <= (size_t)optin;
-  const size_t smem = part + (in_smem ? raw : 0);
-  const dim3 grid(N, n_levels, n_streams);
+  const BuildPlan p = plan_build(win, grads, optin);
+  tab.units = p.threads / (32 * p.items);
+  tab.items = p.items;
+  // The instantiation: gradients, the compiled-in window, any other with
+  // its rows stored directly or staged, and the wide route.
+  const void* const kernels[5] = {
+      (const void*)lk_cache_build_kernel<kBuildGrads, 0, false>,
+      (const void*)lk_cache_build_kernel<kBuildSweep, kBuildFixedWin, false>,
+      (const void*)lk_cache_build_kernel<kBuildSweep, 0, false>,
+      (const void*)lk_cache_build_kernel<kBuildSweep, 0, true>,
+      (const void*)lk_cache_build_kernel<kBuildWide, 0, false>};
+  const int ki = p.route == kBuildGrads  ? 0
+                 : p.route == kBuildWide ? 4
+                 : win == kBuildFixedWin ? 1
+                 : p.staged              ? 3
+                                         : 2;
+  const int rc = set_smem(kernels[ki], p.smem);
+  if (rc != 0) return rc;
+  const dim3 grid((N + p.items - 1) / p.items, n_levels, n_streams);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (in_smem) {
-    const int rc = set_smem((const void*)lk_cache_build_kernel<true>, smem);
-    if (rc != 0) return rc;
-    lk_cache_build_kernel<true><<<grid, kBuildThreads, smem, s>>>(tab, (const float*)pts,
-                                                                  (const uint8_t*)valid);
-  } else {
-    lk_cache_build_kernel<false><<<grid, kBuildThreads, smem, s>>>(tab, (const float*)pts,
-                                                                   (const uint8_t*)valid);
-  }
+  const float* P = (const float*)pts;
+  const uint8_t* V = (const uint8_t*)valid;
+  if (ki == 0)
+    lk_cache_build_kernel<kBuildGrads, 0, false><<<grid, p.threads, p.smem, s>>>(tab, P, V);
+  else if (ki == 1)
+    lk_cache_build_kernel<kBuildSweep, kBuildFixedWin, false><<<grid, p.threads, p.smem, s>>>(tab, P, V);
+  else if (ki == 2)
+    lk_cache_build_kernel<kBuildSweep, 0, false><<<grid, p.threads, p.smem, s>>>(tab, P, V);
+  else if (ki == 3)
+    lk_cache_build_kernel<kBuildSweep, 0, true><<<grid, p.threads, p.smem, s>>>(tab, P, V);
+  else
+    lk_cache_build_kernel<kBuildWide, 0, false><<<grid, p.threads, p.smem, s>>>(tab, P, V);
   e = cudaGetLastError();
   if (e == cudaSuccess) {
-    out_report[0] = (int)smem;
-    out_report[1] = in_smem;
+    const int r[kBuildReportInts] = {p.smem, p.staged, p.route, p.strips, p.items, p.threads, optin};
+    for (int i = 0; i < kBuildReportInts; ++i) out_report[i] = r[i];
   }
   return (int)e;
 }

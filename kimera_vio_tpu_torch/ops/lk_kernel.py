@@ -796,6 +796,86 @@ lk_cached_cuda.routes = collections.Counter()
 lk_cached_cuda.report = {}
 
 
+# csrc/lk_kernel.cu: BuildRoute (the sweep of the keyframe's patch, the
+# windows resampled from given gradients, or the sweep of windows past
+# _BUILD_MAX_UNITS strips, a warp taking several), and the constants of the
+# build's launch plan `plan_build` (tests/test_torch_lk_cache_build.py
+# parses them from the source).
+BUILD_ROUTES = ("lk_cache_build sweep", "lk_cache_build grads", "lk_cache_build wide")
+_BUILD_STRIP = 29       # kBuildStrip: window columns a strip holds at most
+_BUILD_WARPS = 4        # kBuildWarps: warps a block of narrow items holds
+_BUILD_MAX_UNITS = 16   # kBuildMaxUnits: warps an item may have
+_BUILD_CHUNK = 8        # kBuildChunk: window rows a warp loads ahead and stages out
+_BUILD_FIXED_WIN = 24   # kBuildFixedWin: the window compiled in
+_BUILD_STAGE_FROM = 48  # kBuildStageFrom: windows that stage their rows in shared memory
+_BUILD_REPORT_INTS = 7  # kBuildReportInts
+
+
+class BuildPlan(NamedTuple):
+    """How `lk_cache_build_kernel` is launched: `route` (a name of
+    BUILD_ROUTES), `strips` equal column strips of the window (one warp
+    each, a window column a lane), `items` (keypoint, level) items a block,
+    `threads` a block, `smem` dynamic shared memory per block in bytes, and
+    whether the rows leave through shared memory (`staged`)."""
+
+    route: str
+    strips: int
+    items: int
+    threads: int
+    smem: int
+    staged: bool
+
+
+def build_strip_cols(win: int) -> int:
+    """Window columns of each of a window's equal strips (csrc:
+    build_strip_cols): at most _BUILD_STRIP (32 lanes less 3 columns of
+    halo)."""
+    return -(-win // -(-win // _BUILD_STRIP))
+
+
+def build_strips(win: int) -> int:
+    """Strips of `build_strip_cols` columns a window is cut into."""
+    return -(-win // build_strip_cols(win))
+
+
+def build_stage_bytes(win: int) -> int:
+    """Bytes of one item's row staging (csrc: build_stage_bytes): two
+    buffers of three planes of _BUILD_CHUNK window rows, each plane after up
+    to 3 floats of alignment in whole 16-byte units; none at the
+    compiled-in window, whose rows go out directly."""
+    if win == _BUILD_FIXED_WIN:
+        return 0
+    return 4 * 2 * 3 * ((_BUILD_CHUNK * win + 6) // 4 * 4)
+
+
+def build_plan(win: int, optin_bytes: int, grads: bool = False) -> BuildPlan:
+    """The launch plan of `lk_cache_build_kernel`, the twin of
+    csrc/lk_kernel.cu's `plan_build` (the launcher reports the plan it
+    took; chip_smoke.py holds the report to this). An item gets one warp a
+    strip; a block holds _BUILD_WARPS / that many items, at least one,
+    fewer if their shared memory does not fit: a 16-byte slot a warp for
+    its partial sums and, from _BUILD_STAGE_FROM px where it fits, the
+    item's row staging (`build_stage_bytes`). Past _BUILD_MAX_UNITS strips
+    the wide route: _BUILD_MAX_UNITS warps an item, each taking every
+    _BUILD_MAX_UNITS-th strip, rows stored directly. With gradients an item
+    gets _BUILD_WARPS warps, which take its pixels in turn."""
+    strips = build_strips(win)
+    items = _BUILD_WARPS // strips if strips < _BUILD_WARPS else 1
+    if grads:
+        return BuildPlan(BUILD_ROUTES[1], strips, 1, 32 * _BUILD_WARPS, 16 * _BUILD_WARPS, False)
+    if strips > _BUILD_MAX_UNITS:
+        return BuildPlan(BUILD_ROUTES[2], strips, 1, 32 * _BUILD_MAX_UNITS, 16 * _BUILD_MAX_UNITS,
+                         False)
+    for staged in ((True, False) if win >= _BUILD_STAGE_FROM else (False,)):
+        item = 16 * strips + (build_stage_bytes(win) if staged else 0)
+        i = items
+        while i >= 1:
+            if i * item <= optin_bytes or (not staged and i == 1):
+                return BuildPlan(BUILD_ROUTES[0], strips, i, 32 * i * strips, i * item, staged)
+            i //= 2
+    raise AssertionError("not reached: the unstaged plan always returns")
+
+
 def lk_cache_build_cuda(prev_pyr, prev_pts, valid, *, win: int, min_eig_thresh: float = 1e-4,
                         prev_grads=None):
     """Build the template cache of every level and stream of a keyframe in
@@ -811,7 +891,8 @@ def lk_cache_build_cuda(prev_pyr, prev_pts, valid, *, win: int, min_eig_thresh: 
     reads, by bulk copy at 24 px), or None for a
     level too small for a window. Adds one to
     `lk_cache_build_cuda.launches` per launch, whatever B; `.report` holds
-    the last launch's {"smem", "patch_in_smem"}."""
+    the last launch's "smem", "route" (a name of BUILD_ROUTES), "plan" (a
+    BuildPlan) and the opt-in shared memory it read ("optin")."""
     n = len(prev_pyr)
     if n == 0 or n > _MAX_LEVELS:
         raise ValueError(f"need 1 to {_MAX_LEVELS} pyramid levels, got {n}")
@@ -868,7 +949,7 @@ def lk_cache_build_cuda(prev_pyr, prev_pts, valid, *, win: int, min_eig_thresh: 
     if not levels or N == 0:
         return tuple(out)
     lib = _lib()
-    rep = (ctypes.c_int * 2)(-1, -1)
+    rep = (ctypes.c_int * _BUILD_REPORT_INTS)(*([-1] * _BUILD_REPORT_INTS))
     with torch.cuda.device(dev):
         rc = lib.lk_cache_build_launch(
             ptrs, strides, ints, divs, len(levels), prev_pts.data_ptr(), valid.data_ptr(),
@@ -876,7 +957,9 @@ def lk_cache_build_cuda(prev_pyr, prev_pts, valid, *, win: int, min_eig_thresh: 
     if rc != 0:
         raise RuntimeError(f"LK cache build launch failed: {lib.lk_error_string(rc).decode()}")
     lk_cache_build_cuda.launches += 1
-    lk_cache_build_cuda.report = {"smem": rep[0], "patch_in_smem": bool(rep[1])}
+    plan = BuildPlan(BUILD_ROUTES[rep[2]], *rep[3:6], rep[0], bool(rep[1]))
+    lk_cache_build_cuda.report = {"smem": rep[0], "route": plan.route, "plan": plan,
+                                  "optin": rep[6]}
     return tuple(out)
 
 

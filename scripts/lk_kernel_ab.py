@@ -1,19 +1,18 @@
 #!/usr/bin/env python3
-"""Time an LK kernel built from two CUDA sources on one card, or the cache
-build kernel against its plain version.
+"""Time an LK kernel built from two CUDA sources on one card.
 
     python3 scripts/lk_kernel_ab.py --other OTHER/kimera_vio_tpu_torch/csrc/lk_kernel.cu
     python3 scripts/lk_kernel_ab.py --replace OLD NEW [--replace ...] \\
         --case 61:none:752x480 --case 101:none:752x480
     python3 scripts/lk_kernel_ab.py --kernel cached --other OTHER/.../lk_kernel.cu --tol 0.01 \\
         --case 24:752x480 --case 24:1241x376 --case 24:752x480:4 --case 53:752x480
-    python3 scripts/lk_kernel_ab.py --kernel build --case 24:752x480 --case 24:752x480:4
+    python3 scripts/lk_kernel_ab.py --kernel build --other OTHER/.../lk_kernel.cu \\
+        --case 24:752x480 --case 24:752x480:4 --case 24:752x480:1:grads --case 241:752x480
 
 `--kernel pyramid` (the default) times `lk_pyramid_kernel` / `lk_wide_kernel`
 (C interface `lk_pyramid_launch`), `--kernel cached` the default tracker's
 `lk_cached_kernel` (`lk_cached_launch`), `--kernel build` its cache build
-`lk_cache_build_kernel` against the plain `optical_flow.build_lk_templates`
-(no older kernel exists; --other / --replace are not read).
+`lk_cache_build_kernel` (`lk_cache_build_launch`).
 
 Builds the other library with the same nvcc flags as this checkout's
 csrc/lk_kernel.cu (the C interface of the kernel timed must be the same):
@@ -25,28 +24,37 @@ of each `--case` through each library in turns: other, this, this, other,
 main path (chip_smoke.main_lk_inputs: 752x480, 5 levels, 256 keypoints, win
 24, 56-row search window); other cases take chip_smoke.wide_inputs
 (keypoints more than win / 2 + 2 px inside). Cached and build cases are
-WIN:SIZE[:B]: chip_smoke.main_lk_inputs (752x480) or kitti_lk_inputs
+WIN:SIZE[:B[:grads]]: chip_smoke.main_lk_inputs (752x480) or kitti_lk_inputs
 (1241x376) at that window, or with B > 1 chip_smoke.fleet_lk_inputs (B
-752x480 streams in one launch); the default is 24:752x480, 24:1241x376 and
-24:752x480:4. Cached cases track against the plain cache of the case. Each
-time is the device time of a CUDA-graph replay of one launch
-(chip_smoke.graph_ms); build cases also time both sides eagerly
-(chip_smoke.time_ms: the host's launch path included). Tracker outputs must
-be identical, or with `--tol` the same `ok` and positions within TOL px;
-build outputs must pass chip_smoke.check_cache. Prints the card's name and
+752x480 streams in one launch); `grads` (build cases) resamples each
+level's full-image Scharr gradients (`prev_grads`). The default is
+24:752x480, 24:1241x376 and 24:752x480:4. Cached cases track against the
+plain cache of the case. Each time is the device time of a CUDA-graph
+replay of one launch (chip_smoke.graph_ms); build cases also time both
+sides eagerly (chip_smoke.time_ms: the host's launch path included) and
+the plain `optical_flow.build_lk_templates` once each way. Tracker outputs
+must be identical, or with `--tol` the same `ok` and positions within TOL
+px; both sides' caches must pass chip_smoke.check_cache against the plain
+build, and their template, gx and gy windows and gates are compared with
+each other (`windows_identical`; the inverses, summed in another order,
+by their largest relative difference). Prints the card's name and
 power limit, then one JSON line per case with the route and shared memory
 each library's launcher chose (on the cached routes also the keypoints a
 block), each side's time with no Gauss-Newton step and
 its µs a step on the longest chain (trackers) and, where its launcher
 reports them (`lk_pyramid_cuda.report`), the cluster size, threads and band
-rows of the plan and the clusters the card holds at once. Needs a card;
+rows of the plan and the clusters the card holds at once; for the build,
+each side's launch report as its library wrote it (shared memory, and
+the plan, or null from a library that reports none). Needs a card;
 exits 2 without one.
 
 A sweep over lk_wide's cluster size: `--replace` the plan's candidates,
 e.g. "kWideClusters[] = {1, 2, 4, 8}" by "kWideClusters[] = {4}". The
 cached tracker's block route at 24 px against its warp route: `--replace
 "win == kCachedWarpWin && slack" "false && slack"` (the other side then
-takes the block routes everywhere).
+takes the block routes everywhere). The cache build's rows staged in shared
+memory at every width against this source's plan: `--replace
+"kBuildStageFrom = 48;" "kBuildStageFrom = 2;"`.
 """
 
 from __future__ import annotations
@@ -100,7 +108,8 @@ def build_other(src: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
     other = ctypes.CDLL(str(so))
     this = lk._lib()
-    for name in ("lk_pyramid_launch", "lk_cached_launch", "lk_error_string"):
+    for name in ("lk_pyramid_launch", "lk_cached_launch", "lk_cache_build_launch",
+                 "lk_error_string"):
         if hasattr(other, name):
             getattr(other, name).argtypes = getattr(this, name).argtypes
             getattr(other, name).restype = getattr(this, name).restype
@@ -108,8 +117,8 @@ def build_other(src: str) -> ctypes.CDLL:
 
 
 def parse_case(text: str) -> tuple:
-    """WIN:SEARCH_ROWS:SIZE (pyramid) or WIN:SIZE[:B] (cached, build), as
-    given: the kernel decides which."""
+    """WIN:SEARCH_ROWS:SIZE (pyramid) or WIN:SIZE[:B[:grads]] (cached,
+    build), as given: the kernel decides which."""
     return tuple(text.split(":"))
 
 
@@ -259,22 +268,72 @@ def cached_case_row(dev, libs: dict, case: tuple, args, smi: str) -> dict:
     return res
 
 
-def build_case_row(dev, case: tuple, args, smi: str) -> dict:
-    """lk_cache_build_kernel ("this") against the plain build ("other")."""
-    label, prev, _, pts, valid, win = cached_case(dev, case)
-    kw = {"win": win, "min_eig_thresh": chip_smoke.MIN_EIG}
-    fns = {"this": lambda: lk.lk_cache_build_cuda(prev, pts, valid, **kw),
-           "other": lambda: of.build_lk_templates(prev, pts, valid, **kw)}
-    res = {"card": smi, "kernel": "lk_cache_build", "shape": label, "other": "plain",
-           **chip_smoke.check_cache(fns["this"](), fns["other"](), label),
-           "routes_and_smem_bytes": {"this": {"lk_cache_build": lk.lk_cache_build_cuda.report},
-                                     "other": {"plain": None}}}
+class ReportRecorder:
+    """A kernel library whose cache-build launches copy their report ints
+    into `into`; every other name is the library's own."""
+
+    def __init__(self, lib, into: list):
+        self._lib, self._into = lib, into
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def lk_cache_build_launch(self, *args):
+        rc = self._lib.lk_cache_build_launch(*args)
+        self._into[:] = list(args[-1])
+        return rc
+
+
+def build_case_row(dev, libs: dict, case: tuple, args, smi: str) -> dict:
+    """lk_cache_build_kernel of two sources in turns, each held to the plain
+    build; the plain build's own times beside them."""
+    label, prev, _, pts, valid, win = cached_case(dev, case[:3])
+    grads = [of._grad(p) for p in prev] if case[3:] == ("grads",) else None
+    if case[3:] not in ((), ("grads",)):
+        raise ValueError(f"case {':'.join(case)}: the fourth field is `grads` or nothing")
+    label += " prev_grads" if grads else ""
+    kw = {"win": win, "min_eig_thresh": chip_smoke.MIN_EIG, "prev_grads": grads}
+
+    def run(name, lib=None):
+        lk._lib = lambda: lib or libs[name]  # the wrapper's library, swapped
+        return lk.lk_cache_build_cuda(prev, pts, valid, **kw)
+
+    plain = of.build_lk_templates(prev, pts, valid, **kw)
+    reports, outs, checks = {}, {}, {}
+    for name in libs:
+        # The launch report as the library wrote it: a library that
+        # reports no plan leaves the ints after the shared memory at -1.
+        rep = []
+        outs[name] = run(name, ReportRecorder(libs[name], rep))
+        torch.cuda.synchronize()
+        reports[name] = {"smem": rep[0], "plan": lk.BuildPlan(
+            lk.BUILD_ROUTES[rep[2]], *rep[3:6], rep[0], bool(rep[1]))._asdict()
+            if rep[2] >= 0 else None}
+        checks[name] = chip_smoke.check_cache(outs[name], plain, f"{label} ({name})")
+    identical, inv_rel = True, 0.0
+    for a, b in zip(outs["this"], outs["other"]):
+        if a is None:
+            continue
+        identical = identical and all(torch.equal(a[k], b[k]) for k in ("tmpl", "gx", "gy", "good_g"))
+        for k in ("inv00", "inv01", "inv11"):
+            inv_rel = max(inv_rel, float((a[k] - b[k]).abs().max()
+                                         / b[k].abs().max().clamp_min(1e-30)))
+    if not identical:
+        raise AssertionError(f"{label}: the two kernels' windows or gates differ")
+    res = {"card": smi, "kernel": "lk_cache_build", "shape": label, "reports": reports,
+           "checks": checks, "windows_identical": identical, "inv_max_rel_diff": inv_rel}
+    fns = {n: (lambda n=n: run(n)) for n in libs}
     res.update(time_turns(fns, args.rounds, chip_smoke.graph_ms))
     eager = time_turns(fns, args.rounds, lambda fn: chip_smoke.time_ms(fn, reps=10))
     res.update(eager_ms=eager["ms"], eager_mean_ms=eager["mean_ms"],
                eager_this_over_other=eager["this_over_other"])
+    if args.profile:
+        res["profiled_kernel_ms"] = {n: profiled_ms(fns[n]) for n in libs}
+    plain_fn = lambda: of.build_lk_templates(prev, pts, valid, **kw)  # noqa: E731
+    res["plain_ms"] = {"graph": chip_smoke.graph_ms(plain_fn, reps=20),
+                       "eager": chip_smoke.time_ms(plain_fn, reps=10)}
     res["bound_ms"], res["bound_by"] = chip_smoke.bound_ms(
-        *chip_smoke.cached_build_work(prev, pts, win))
+        *chip_smoke.cached_build_work(prev, pts, win, grads is not None))
     return res
 
 
@@ -287,7 +346,7 @@ def main() -> int:
                      help="the other source: this one with OLD replaced by NEW")
     ap.add_argument("--case", action="append", type=parse_case,
                     help="pyramid: WIN:SEARCH_ROWS:SIZE, e.g. 61:none:752x480 (default "
-                         "24:56:752x480); cached, build: WIN:SIZE[:B], e.g. 24:752x480:4")
+                         "24:56:752x480); cached, build: WIN:SIZE[:B[:grads]], e.g. 24:752x480:4")
     ap.add_argument("--tol", type=float, default=0.0,
                     help="largest |d| in px between the outputs (default 0: identical)")
     ap.add_argument("--rounds", type=int, default=2)
@@ -295,7 +354,7 @@ def main() -> int:
                     help="also each side's mean device time of the kernel in a torch.profiler "
                          "trace of 20 graph replays")
     args = ap.parse_args()
-    if args.kernel != "build" and not (args.other or args.replace):
+    if not (args.other or args.replace):
         ap.error(f"--kernel {args.kernel} needs --other or --replace")
     if not torch.cuda.is_available():
         print("lk_kernel_ab: needs a CUDA card", file=sys.stderr)
@@ -307,15 +366,14 @@ def main() -> int:
     defaults = {"pyramid": [("24", "56", "752x480")],
                 "cached": [("24", "752x480"), ("24", "1241x376"), ("24", "752x480", "4")]}
     defaults["build"] = defaults["cached"]
-    if args.kernel != "build":
-        libs = {"this": lk._lib(), "other": build_other(other_source(args))}
+    libs = {"this": lk._lib(), "other": build_other(other_source(args))}
     for case in args.case or defaults[args.kernel]:
         if args.kernel == "pyramid":
             res = pyramid_case(dev, libs, case, args, smi)
         elif args.kernel == "cached":
             res = cached_case_row(dev, libs, case, args, smi)
         else:
-            res = build_case_row(dev, case, args, smi)
+            res = build_case_row(dev, libs, case, args, smi)
         print(json.dumps(res), flush=True)
     return 0
 

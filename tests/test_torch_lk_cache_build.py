@@ -15,6 +15,13 @@ launch plan of the frame half's kernel, `lk_cached_kernel`.
     routes at every other window, under the H100's opt-in shared memory and
     a smaller one; the launcher's plan, cut out of csrc/lk_kernel.cu and
     built with g++, equals the twin;
+  * `build_plan`, the twin of the build launcher's `plan_build`: a route
+    at every window, shared memory within the opt-in, four one-warp items
+    a block with no staging at the main path's 24 px, past 16 strips (464
+    px) the wide route of 16 warps an item, each strip taken by one warp;
+    the launcher's plan, cut out of csrc/lk_kernel.cu and built with g++,
+    equals the twin at every window from 2 to 241 px and at wide windows
+    to 1000 px, three opt-in limits, with and without gradients;
   * the frontend builds its cache through `build_lk_templates_lk`.
 
 The kernel itself runs only on the card: chip_smoke.py holds it to the
@@ -285,6 +292,128 @@ def test_launcher_plan_equals_twin(tmp_path):
         route, warps, smem = map(int, line.split())
         want = lk.cached_plan(win, optin, slack)
         assert (lk.CACHED_ROUTES[route], warps, smem) == tuple(want), (optin, win, slack)
+
+
+@pytest.mark.parametrize("optin", [H100_OPTIN, SMALL_OPTIN, 16400])
+def test_build_plan_by_width(optin):
+    """Every window has a route; its shared memory fits the opt-in; a
+    window is cut into strips of at most _BUILD_STRIP columns (32 lanes
+    less 3 of halo), as few as that allows, equal but for the last; a
+    block is whole warps, at most 512 threads; rows are
+    staged in shared memory from _BUILD_STAGE_FROM px wherever one item's
+    staging fits; the main path's 24 px takes four one-warp items a block
+    and no staging; with gradients an item gets _BUILD_WARPS warps."""
+    for grads in (False, True):
+        for win in range(2, 242):
+            plan = lk.build_plan(win, optin, grads)
+            assert plan.route in lk.BUILD_ROUTES and plan.smem <= optin, (win, plan)
+            cw = lk.build_strip_cols(win)
+            assert plan.strips == lk.build_strips(win) == -(-win // cw)
+            assert cw <= lk._BUILD_STRIP and plan.strips == -(-win // lk._BUILD_STRIP)
+            assert (plan.strips - 1) * cw < win <= plan.strips * cw
+            units = lk._BUILD_WARPS if grads else plan.strips
+            assert plan.threads == 32 * plan.items * units <= 512, (win, plan)
+            assert plan.items == 1 or not grads
+            assert plan.route == f"lk_cache_build {'grads' if grads else 'sweep'}", (win, plan)
+            stage = lk.build_stage_bytes(win)
+            assert plan.staged == (not grads and win >= lk._BUILD_STAGE_FROM
+                                   and 16 * units + stage <= optin), (win, plan)
+            if not grads:
+                assert plan.smem == plan.items * (16 * units + (stage if plan.staged else 0))
+    assert lk.build_stage_bytes(24) == 0 and lk.build_stage_bytes(61) == 4 * 6 * 492
+    assert lk.build_plan(24, H100_OPTIN) == lk.BuildPlan("lk_cache_build sweep", 1, 4, 128, 64, False)
+    assert lk.build_plan(41, H100_OPTIN) == lk.BuildPlan("lk_cache_build sweep", 2, 2, 128, 64, False)
+    assert lk.build_plan(61, H100_OPTIN) == lk.BuildPlan("lk_cache_build sweep", 3, 1, 96,
+                                                         48 + 4 * 6 * 492, True)
+    assert lk.build_plan(101, H100_OPTIN)[1::4] == (4, True)
+    assert lk.build_plan(241, H100_OPTIN)[1::4] == (9, True)
+
+
+@pytest.mark.parametrize("optin", [H100_OPTIN, SMALL_OPTIN, 16400])
+@pytest.mark.parametrize("win", [440, 464, 465, 470, 478, 493, 494, 600, 752, 1000])
+def test_build_plan_past_sixteen_strips(optin, win):
+    """A window of more strips than an item may have warps takes the wide
+    route: _BUILD_MAX_UNITS warps, which take the strips unit, unit +
+    _BUILD_MAX_UNITS, ... in turn, so that each strip is swept by exactly
+    one warp; its rows go out directly (a staged chunk would hold columns
+    of a warp's later strip), and the plan's shared memory is the warps'
+    partial sums. Up to 16 strips the sweep, a warp a strip."""
+    plan = lk.build_plan(win, optin)
+    strips = lk.build_strips(win)
+    units = plan.threads // (32 * plan.items)
+    assert plan.strips == strips and plan.items == 1
+    assert units == min(strips, lk._BUILD_MAX_UNITS)
+    swept = sorted(s for unit in range(units) for s in range(unit, strips, units))
+    assert swept == list(range(strips)), (win, plan)
+    if strips > lk._BUILD_MAX_UNITS:
+        assert plan == lk.BuildPlan("lk_cache_build wide", strips, 1, 512, 256, False)
+    else:
+        assert plan.route == "lk_cache_build sweep", (win, plan)
+        assert plan.staged == (16 * units + lk.build_stage_bytes(win) <= optin), (win, plan)
+    assert lk.build_plan(win, optin, True) == lk.BuildPlan(
+        "lk_cache_build grads", strips, 1, 32 * lk._BUILD_WARPS, 16 * lk._BUILD_WARPS, False)
+
+
+def test_build_stage_layout():
+    """Each plane of an item's row staging holds a chunk of window rows
+    after up to 3 floats of alignment, in whole 16-byte units."""
+    for win in range(2, 242):
+        assert lk.build_stage_bytes(win) % 96 == 0
+        if win != lk._BUILD_FIXED_WIN:
+            plane = lk.build_stage_bytes(win) // 24
+            assert lk._BUILD_CHUNK * win + 3 <= plane < lk._BUILD_CHUNK * win + 7
+
+
+def test_build_launcher_plan_equals_twin(tmp_path):
+    """plan_build and what it reads, cut out of csrc/lk_kernel.cu and built
+    with g++, against `build_plan` at every window from 2 to 241 px and at
+    wide windows past 16 strips, with and without gradients, under three
+    opt-in limits; the source's
+    constants equal the twin's."""
+    assert _constexpr("kBuildStrip") == lk._BUILD_STRIP
+    assert _constexpr("kBuildWarps") == lk._BUILD_WARPS
+    assert _constexpr("kBuildMaxUnits") == lk._BUILD_MAX_UNITS
+    assert _constexpr("kBuildChunk") == lk._BUILD_CHUNK
+    assert _constexpr("kBuildFixedWin") == lk._BUILD_FIXED_WIN
+    assert _constexpr("kBuildStageFrom") == lk._BUILD_STAGE_FROM
+    assert _constexpr("kBuildReportInts") == lk._BUILD_REPORT_INTS
+    m = re.search(r"enum BuildRoute : int \{([^}]*)\};", SRC)
+    assert m
+    names = [e.split("=")[0].strip() for e in m.group(1).split(",")]
+    assert [lk.BUILD_ROUTES[names.index(n)]
+            for n in ("kBuildSweep", "kBuildGrads", "kBuildWide")] == list(lk.BUILD_ROUTES)
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "no C++ compiler to build the launcher's plan"
+    src = "\n".join([
+        "#include <cstdio>",
+        "#include <cstddef>",
+        "#define __host__",
+        "#define __device__",
+        _cut("constexpr int kBuildStrip", "BuildPlan plan_build("),
+        _cut("BuildPlan plan_build(", "\n}\n"),
+        "int main() {",
+        "  int optin, win, grads;",
+        "  while (std::scanf(\"%d %d %d\", &optin, &win, &grads) == 3) {",
+        "    const BuildPlan p = plan_build(win, grads, optin);",
+        "    std::printf(\"%d %d %d %d %d %d\\n\", p.route, p.strips, p.items, p.threads, p.smem,",
+        "                p.staged);",
+        "  }",
+        "}",
+    ]).replace("BuildPlan plan_build(\nBuildPlan plan_build(", "BuildPlan plan_build(")
+    (tmp_path / "plan.cpp").write_text(src)
+    exe = tmp_path / "plan"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(exe), str(tmp_path / "plan.cpp")],
+                   check=True, capture_output=True, text=True)
+    cases = [(optin, win, grads) for optin in (H100_OPTIN, SMALL_OPTIN, 16400)
+             for win in [*range(2, 242), 464, 465, 470, 478, 494, 600, 1000]
+             for grads in (0, 1)]
+    out = subprocess.run([str(exe)], input="\n".join(" ".join(map(str, c)) for c in cases),
+                         capture_output=True, text=True, check=True).stdout.split("\n")
+    assert len(list(filter(None, out))) == len(cases)
+    for (optin, win, grads), line in zip(cases, out):
+        route, *rest, staged = map(int, line.split())
+        want = lk.build_plan(win, optin, bool(grads))
+        assert (lk.BUILD_ROUTES[route], *rest, bool(staged)) == tuple(want), (optin, win, grads)
 
 
 def test_frontend_builds_its_cache_through_the_entry_point(monkeypatch):
