@@ -13,8 +13,9 @@ RGB-D, online initialization, pose sources, time alignment), the
 mesher with RegularVIO, the options it used to refuse, the KITTI and
 live providers, the debug overlays, the visualizer and the playground,
 a fleet of eight streams through one batched frame step, the staging
-codecs of the CLI's --chunked mode, LK windows wider than 54 px and the
-fleet over a (data, model) mesh of devices, all with the default LK
+codecs of the CLI's --chunked mode, LK windows wider than 54 px, the
+fleet over a (data, model) mesh of devices and a distorted rig's
+rectification, all with the default LK
 tracker (the JAX package's `lk_impl="matmul"`: `lk_cache_build_kernel`
 at each keyframe, `lk_cached_kernel` at each frame), then
 the pyramid trackers' run paths under KIMERA_LK_IMPL, and checks the
@@ -346,6 +347,25 @@ Phases:
      "gather" (every launch through `lk_wide_kernel` on wide_plan's
      plan). One `[legacy]`, `[kitti]` and `[wide]` line per run. Every
      kernel of the table must have launched on a run path.
+ 13. distorted rig: the keyframe branch's rectification where it is not
+     the identity. The frontend rectifies with `SeparableRemap`, the JAX
+     package's fixed-map remap (a vertical then a horizontal 2-tap pass).
+     (a) On the synthetic 752x480 rig with EuRoC cam0 / cam1's
+     radial-tangential coefficients, on it with an equidistant set, and
+     on phase 7's omni camera (1280x960): the card's `_remap_left` /
+     `_remap_right` against the CPU port's on the same uint8 images,
+     within 1e-3 gray levels (omni: against the CPU port's remap of the
+     card's own map, the map being built on the card; and against the CPU
+     frontend within twice the maps' gap times the image's largest step).
+     (b) Phase 2's 80-frame sequential `run()` on the radial-tangential
+     rig through the default tracker; gates: LK launches = tracked frames,
+     cache builds = the caches the frontend built, finite poses, at least
+     one keyframe, one left and one right separable remap per cache built.
+     No ATE gate: the synthetic images are undistorted, which the
+     distorted model does not fit. (c) One keyframe's two rectifications
+     on that rig, the separable remap against the 4-tap gather on the same
+     maps, graph replay (CUDA events, 200 replays) and eager, in turns.
+     One `[distorted]` line per rig, run and timing.
 """
 
 from __future__ import annotations
@@ -3680,6 +3700,175 @@ def legacy_phase(dev, path: dict, kern: dict, work: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: a distorted rig
+# ---------------------------------------------------------------------------
+
+# EuRoC MAV cam0 / cam1 (sensor.yaml): radial-tangential k1, k2, p1, p2.
+EUROC_RADTAN = ((-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05),
+                (-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05))
+# Equidistant (Kannala-Brandt) k1..k4 of a fisheye calibration's magnitudes.
+EQUIDISTANT = ((0.0034823894, 0.0007150348, -0.0020532361, 0.0002029367),
+               (0.0034003171, 0.0017662782, -0.0026631257, 0.0003299517))
+DISTORTED_FRAMES = 80
+REMAP_REPS = 200
+
+
+def distorted_params(model: str, **kw) -> VioParams:
+    """Phase 2's synthetic rig with `model`'s distortion on both cameras;
+    "omni": the 1280x960 pinhole rig the omni cameras replace."""
+    if model == "omni":
+        return synthetic_params(width=1280, height=960, fx=400.0, **kw)
+    params = synthetic_params(**kw)
+    name, coeffs = (("radial-tangential", EUROC_RADTAN) if model == "radtan"
+                    else ("equidistant", EQUIDISTANT))
+    for cam, c in ((params.left_cam, coeffs[0]), (params.right_cam, coeffs[1])):
+        cam.distortion_model = name
+        cam.distortion_coeffs = np.array(c)
+    return params
+
+
+def distorted_frontend(dev, model: str) -> StereoFrontend:
+    """The port's StereoFrontend on `model`'s rig on `dev` (omni: phase 7's
+    OCamCalib camera swapped in for both pinholes)."""
+    from kimera_vio_tpu_torch.config.params import CameraParams
+    from kimera_vio_tpu_torch.frontend import camera as cam_mod
+    from kimera_vio_tpu_torch.frontend.imu_frontend import PimParams
+    from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendConfig
+
+    params = distorted_params(model, max_features=256)
+    stereo = StereoCamera.from_params(params.left_cam, params.right_cam, device=dev)
+    if model == "omni":
+        cams = [cam_mod.PinholeCamera.from_params(CameraParams(T_BS=c.T_BS, **OMNI), device=dev)
+                for c in (params.left_cam, params.right_cam)]
+        stereo = dataclasses.replace(stereo, left=cams[0], right=cams[1])
+    return StereoFrontend(FrontendConfig.from_params(params.frontend, max_features=256), stereo,
+                          PimParams.from_params(params.imu, device=dev), dev)
+
+
+def remap_card_vs_cpu(dev, model: str) -> dict:
+    """(a) The card's rectified keyframe pair against the CPU port's on the
+    same uint8 images. Radial-tangential and equidistant maps are built on
+    the host, so the two frontends' separable remaps are the same function:
+    within 1e-3 gray levels. An omni map is built on the camera's device
+    (phase 7 holds it to the CPU's within 1e-3 px), so the card is held
+    within 1e-3 to the CPU port's remap of the card's own map, and to the
+    CPU frontend within the maps' gap times the image's largest step,
+    doubled (tests/test_torch_rectification.py's rule)."""
+    from kimera_vio_tpu_torch.frontend.camera import SeparableRemap
+
+    cpu = torch.device("cpu")
+    fe, fe_cpu = distorted_frontend(dev, model), distorted_frontend(cpu, model)
+    if fe.identity_rect or fe_cpu.identity_rect:
+        raise AssertionError(f"{model}: the distorted rig rectifies by identity")
+    H, W = fe.left.height, fe.left.width
+    prov = SyntheticStereoProvider(n_frames=2, width=W, height=H, fx=float(fe.stereo.fx))
+    row = {"model": model, "size": f"{W}x{H}", "taps": fe.sep_remap_left.n_taps}
+    for side in ("left", "right"):
+        img = to_uint8(prov.load_image((side, 0)))
+        card = getattr(fe, f"_remap_{side}")(torch.from_numpy(img).to(dev)).cpu().numpy()
+        want = getattr(fe_cpu, f"_remap_{side}")(torch.from_numpy(img)).numpy()
+        err = float(np.abs(card - want).max())
+        row[f"{side}_max_abs_err"] = err
+        if model != "omni":
+            if not err <= 1e-3:
+                raise AssertionError(f"{model} {side}: card vs CPU remap {err} gray levels")
+            continue
+        own = SeparableRemap(getattr(fe, f"map_{side}").cpu().numpy(), device=cpu)
+        same_map = float(np.abs(card - own(torch.from_numpy(img)).numpy()).max())
+        gap = float((getattr(fe, f"map_{side}").cpu() - getattr(fe_cpu, f"map_{side}")).abs().max())
+        f = img.astype(np.float32)
+        step = max(np.abs(np.diff(f, axis=0)).max(), np.abs(np.diff(f, axis=1)).max())
+        tol = 2.0 * gap * float(step)
+        row.update({f"{side}_same_map_max_abs_err": same_map, f"{side}_map_gap_px": gap,
+                    f"{side}_tol": tol})
+        if not (same_map <= 1e-3 and gap <= 1e-3 and err <= tol):
+            raise AssertionError(f"omni {side}: same map {same_map}, map gap {gap} px, "
+                                 f"card vs CPU {err} > {tol}")
+    log(f"[distorted] {json.dumps(row)}")
+    return row
+
+
+def remap_times(dev) -> dict:
+    """(c) One keyframe's two rectifications on the radial-tangential rig:
+    the separable remap against the 4-tap gather on the same maps, each
+    replayed from a CUDA graph (CUDA events, REMAP_REPS replays) and eager,
+    in turns (separable, gather, separable, gather)."""
+    fe = distorted_frontend(dev, "radtan")
+    prov = SyntheticStereoProvider(n_frames=2, width=fe.left.width, height=fe.left.height,
+                                   fx=float(fe.stereo.fx))
+    left, right = (torch.from_numpy(prov.load_image((s, 0))).to(dev) for s in ("left", "right"))
+
+    def separable():
+        return fe._remap_left(left), fe._remap_right(right)
+
+    def gather():
+        return remap_bilinear(left, fe.map_left), remap_bilinear(right, fe.map_right)
+
+    sep_max = max(float((a - b).abs().max()) for a, b in zip(separable(), gather()))
+    times = {"separable": [], "gather": []}
+    for _ in range(2):
+        for name, fn in (("separable", separable), ("gather", gather)):
+            times[name].append((graph_ms(fn, REMAP_REPS), time_ms(fn, REMAP_REPS)))
+    row = {"rig": "752x480 radial-tangential (EuRoC cam0 / cam1)", "images": 2,
+           "reps": REMAP_REPS, "separable_vs_gather_max_abs_diff": sep_max}
+    for name, t in times.items():
+        row[f"{name}_ms_per_keyframe"] = float(np.mean([g for g, _ in t]))
+        row[f"{name}_ms_per_keyframe_turns"] = [g for g, _ in t]
+        row[f"{name}_eager_ms_per_keyframe"] = float(np.mean([e for _, e in t]))
+    log(f"[distorted] {json.dumps(row)}")
+    return row
+
+
+def distorted_phase(dev, path: dict) -> dict:
+    """Phase 13: a distorted rig. (a) `remap_card_vs_cpu` for the
+    radial-tangential (EuRoC cam0 / cam1), equidistant and omni rigs; (b)
+    phase 2's 80-frame sequential run() on the radial-tangential rig
+    through the default tracker; (c) `remap_times`.
+
+    (b) has no ATE gate: the synthetic provider renders undistorted
+    images, which a distorted camera model does not fit, so the poses
+    drift. Its gates: LK launches = tracked frames (the cache builds = the
+    caches the frontend built, `lk_launches`), finite poses, at least one
+    keyframe, and each keyframe's pair through the separable remap: one
+    left and one right rectification per cache the frontend built (the
+    first frame and each keyframe)."""
+    res = {"remap": {m: remap_card_vs_cpu(dev, m) for m in ("radtan", "equidistant", "omni")}}
+    provider = SyntheticStereoProvider(n_frames=DISTORTED_FRAMES, vx=0.5)
+    params = distorted_params("radtan", nr_states=10, max_features=256, max_landmarks=384)
+    calls = {"left": 0, "right": 0}
+
+    def make_pipe():
+        pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+        fe = pipe.frontend
+        if fe.identity_rect:
+            raise AssertionError("run radtan: the distorted rig rectifies by identity")
+        for side in ("left", "right"):
+            remap = getattr(fe, f"sep_remap_{side}")
+
+            def counted(img, remap=remap, side=side):
+                calls[side] += 1
+                return remap(img)
+
+            setattr(fe, f"sep_remap_{side}", counted)
+        return pipe
+
+    with lk_impl(None):
+        row, out, pipe = run_variant("distorted radtan", make_pipe, provider,
+                                     provider.ground_truth, path["frames_per_s"], None)
+    builds = CACHE_BUILDS["frontend"]
+    if not (out.n_keyframes >= 1 and calls["left"] == calls["right"] == builds >= 2):
+        raise AssertionError(f"run radtan: {out.n_keyframes} keyframes, remaps {calls}, "
+                             f"{builds} cache builds")
+    step = pipe.stats.get("vio_step [ms]")
+    row.update(cache_builds=builds, separable_remaps=calls, step_ms_mean=step.total / step.count,
+               ate_note="no gate: undistorted images under a distorted model")
+    log(f"[distorted] {json.dumps(row)}")
+    res["run"] = row
+    res["times"] = remap_times(dev)
+    return res
+
+
 def build_kernels() -> dict:
     """Build csrc/lk_kernel.cu and log each kernel's registers and spills
     (ptxas): {kernel: [ptxas lines]}."""
@@ -3744,7 +3933,7 @@ def main() -> int:
 
 
 def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) -> int:
-    """Phases 3-11, the kernel table and the result line."""
+    """Phases 3-13, the kernel table and the result line."""
     t = time.perf_counter()
     cli_res = cli_phase(dev, path, work)
     log(f"[phase] cli {time.perf_counter() - t:.1f} s")
@@ -3778,6 +3967,9 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
     t = time.perf_counter()
     legacy = legacy_phase(dev, path, kern, work)
     log(f"[phase] legacy trackers {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    distorted = distorted_phase(dev, path)
+    log(f"[phase] distorted rig {time.perf_counter() - t:.1f} s")
 
     # lk_cached_kernel, the default tracker: every run of phases 2-11.
     cm = kern["cached"]["752x480"]
@@ -3811,6 +4003,7 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
         "launches_mesh_by_device": {name: r["lk_launches_by_device"]
                                     for name, r in fleet_mesh_res.items()},
         "launches_wide_run": wide_res["run"]["lk_launches"],
+        "launches_distorted": distorted["run"]["lk_launches"],
         "launches_codecs": {f"{seq} {codec}": r["lk_launches"]
                             for seq in ("phase3", "slow") for codec, r in codec_res[seq].items()},
         "max_abs_err": cm["max_abs_err"],
@@ -3839,6 +4032,7 @@ def _phases(dev, kern: dict, path: dict, work: str, build: dict, cards: list) ->
         "replaces": "kimera_vio_tpu/ops/optical_flow.py:323",
         "also_replaces": ["kimera_vio_tpu/ops/optical_flow.py:235"],
         "launches": path["cache_builds"],
+        "launches_distorted": distorted["run"]["cache_builds"],
         "in_run_ms_per_keyframe": path["cache_build_ms_per_keyframe"],
         "max_abs_err": max(r["max_abs_err"] for r in build_rows.values()),
         "inv_max_rel_err": max(r["inv_max_rel_err"] for r in build_rows.values()),

@@ -4,8 +4,7 @@ Port of kimera_vio_tpu/common/geometry.py: the same formulas, the same
 small-angle Taylor branches selected with `torch.where` (no data-dependent
 control flow, so the functions also run under `torch.func.vmap` /
 `jacfwd`), every op batched over leading dimensions. Rotations are 3x3
-matrices; poses are (R, t) pairs. Only what the ported modules use is here
-(the reference also has composition / inverse helpers).
+matrices; poses are (R, t) pairs.
 
 Per-rotation scalars (angles, quaternion components) keep a trailing axis
 of size 1 instead of becoming 0-d: under `torch.func.jacfwd`, a 0-d primal
@@ -37,6 +36,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (...,3,3) -> (...,3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _sinc_coeffs(theta2: torch.Tensor):
@@ -152,6 +156,22 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 
+def se3_compose(Ra, ta, Rb, tb):
+    """T_a * T_b for (R, t) pairs."""
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def se3_inverse(R, t):
+    """T^-1 of an (R, t) pair."""
+    Rt = torch.swapaxes(R, -1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_transform(R, t, p):
+    """Apply a pose to points p (...,3)."""
+    return (R @ p[..., None])[..., 0] + t
+
+
 def se3_exp(xi: torch.Tensor):
     """Exp map se(3) -> SE(3); xi = (...,6) [omega, v] (rotation first,
     GTSAM Pose3::Expmap ordering). Returns (R, t)."""
@@ -181,3 +201,20 @@ def se3_log(R, t):
     Jl_inv = eye - 0.5 * W + coef[..., None] * W2
     v = (Jl_inv @ t[..., None])[..., 0]
     return torch.cat([w, v], dim=-1)
+
+
+def se3_retract(R, t, xi):
+    """Right retraction T * Exp(xi) (GTSAM Pose3 retract)."""
+    dR, dt = se3_exp(xi)
+    return se3_compose(R, t, dR, dt)
+
+
+def rotation_between(Ra, Rb):
+    """Relative rotation Ra^T Rb."""
+    return torch.swapaxes(Ra, -1, -2) @ Rb
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """A near-rotation matrix projected back onto SO(3) by a quaternion
+    round trip."""
+    return quat_to_rot(rot_to_quat(R))

@@ -157,6 +157,10 @@ class ImuBias:
             gyro=torch.zeros(3, dtype=dtype, device=device),
         )
 
+    def as_vector(self) -> torch.Tensor:
+        """[accel, gyro] (...,6)."""
+        return torch.cat([self.accel, self.gyro], dim=-1)
+
 
 @dataclass
 class NavState:
@@ -165,6 +169,28 @@ class NavState:
     rot: torch.Tensor
     pos: torch.Tensor
     vel: torch.Tensor
+
+    @classmethod
+    def identity(cls, device="cuda", dtype=torch.float32) -> "NavState":
+        device = resolve_device(device)
+        return cls(
+            rot=torch.eye(3, dtype=dtype, device=device),
+            pos=torch.zeros(3, dtype=dtype, device=device),
+            vel=torch.zeros(3, dtype=dtype, device=device),
+        )
+
+
+@dataclass
+class VioNavState:
+    """NavState + IMU bias, the full per-keyframe estimator state
+    (reference common/VioNavState.h)."""
+
+    nav: NavState
+    bias: ImuBias
+
+    @classmethod
+    def identity(cls, device="cuda", dtype=torch.float32) -> "VioNavState":
+        return cls(nav=NavState.identity(device, dtype), bias=ImuBias.zero(device, dtype))
 
 
 @dataclass
@@ -176,6 +202,10 @@ class ImuBlock:
     gyr: torch.Tensor  # (N, 3)
     dt: torch.Tensor  # (N,)
     mask: torch.Tensor  # (N,) bool
+
+    @property
+    def capacity(self) -> int:
+        return self.acc.shape[-2]
 
 
 @dataclass
@@ -202,6 +232,10 @@ class TrackedFeatures:
             ages=torch.zeros((capacity,), dtype=torch.int32, device=device),
             mask=torch.zeros((capacity,), dtype=torch.bool, device=device),
         )
+
+    @property
+    def capacity(self) -> int:
+        return self.ids.shape[-1]
 
 
 @dataclass

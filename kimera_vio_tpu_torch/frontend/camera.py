@@ -5,10 +5,11 @@ radial-tangential or equidistant distortion (or none), and OCamCalib omni
 cameras (backprojection through the z-polynomial, projection by a Newton
 inversion of it); iterative undistortion, bearing vectors, Bouguet-style stereo
 rectification, keypoint rectification, the dense rectification map (numpy,
-built once per rig) and the bilinear image remap. The reference runs the
-dense remap as a separable shifted-select resample (`SeparableRemap`),
-a TPU workaround for slow gathers; on the GPU the remap is the plain
-4-tap gather `remap_bilinear`.
+built once per rig) and the two image remaps: `SeparableRemap`, the
+fixed-map resample the frontend rectifies keyframes with (a vertical
+then a horizontal 2-tap pass, the JAX package's function computed by
+gathers instead of its tap loop), and the 4-tap gather `remap_bilinear`
+(the mesher's dense depth, as in the JAX package).
 
 Camera constants are 0-d float32 tensors on the pipeline's device, so the
 arithmetic rounds as the reference's float32 scalars do.
@@ -94,6 +95,19 @@ class PinholeCamera:
             dist_model=model,
             width=p.width,
             height=p.height,
+        )
+
+    def K(self) -> torch.Tensor:
+        """The intrinsics as a 3x3 matrix."""
+        z = torch.zeros_like(self.fx)
+        o = torch.ones_like(self.fx)
+        return torch.stack(
+            [
+                torch.stack([self.fx, z, self.cx], -1),
+                torch.stack([z, self.fy, self.cy], -1),
+                torch.stack([z, z, o], -1),
+            ],
+            dim=-2,
         )
 
 
@@ -270,6 +284,16 @@ class StereoCamera:
             t_b_rect=_f32(t_b_rect, device),
         )
 
+    def project_rect(self, p_rect: torch.Tensor):
+        """Rectified-left-frame points (...,3) -> (uL, uR, v) stereo pixels
+        and valid (in front of the camera); gtsam::StereoCamera::project."""
+        z = p_rect[..., 2]
+        safe_z = torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
+        uL = self.fx * p_rect[..., 0] / safe_z + self.cx
+        uR = self.fx * (p_rect[..., 0] - self.baseline) / safe_z + self.cx
+        v = self.fy * p_rect[..., 1] / safe_z + self.cy
+        return torch.stack([uL, uR, v], dim=-1), z > 1e-6
+
     def backproject_rect(self, uLuRv: torch.Tensor) -> torch.Tensor:
         """Stereo measurement -> rectified-left 3D point."""
         uL, uR, v = uLuRv[..., 0], uLuRv[..., 1], uLuRv[..., 2]
@@ -353,6 +377,78 @@ def rectification_map(stereo: StereoCamera, cam: PinholeCamera, R_rect) -> np.nd
     u = float(cam.fx) * xyd[..., 0] + float(cam.cx)
     v = float(cam.fy) * xyd[..., 1] + float(cam.cy)
     return np.stack([u, v], axis=-1).astype(np.float32)
+
+
+class SeparableRemap:
+    """Fixed-map bilinear remap as a vertical then a horizontal resampling
+    pass: the JAX package's `SeparableRemap`
+    (kimera_vio_tpu/frontend/camera.py), which the frontend rectifies
+    keyframe images with.
+
+    The constructor is the JAX one's numpy, line for line: the map is
+    clipped to [0, W - 1.001] x [0, H - 1.001]; each row's x-map is
+    inverted by `np.interp` (a row that is not strictly increasing is made
+    so first) to re-parametrise the y-map by source column, Y(i, j');
+    then Y = i + dy + fy and x = j + dx + fx, with integer offsets dy, dx
+    and fractions fy, fx. So the fields equal the JAX ones bit for bit.
+
+    The JAX call sums, for every offset r of the map's range, a shifted
+    image weighted by (1 - fy) where dy == r, plus fy where dy == r - 1,
+    and 0 elsewhere (and the same along x): the TPU's way around a
+    gather. At a pixel only the taps r = dy and r = dy + 1 have a nonzero
+    weight, and the clip keeps i + dy and i + dy + 1 inside the image, so
+    the edge padding is never read. The sum is therefore exactly
+
+        tmp(i, j) = (1 - fy) img(i + dy, j) + fy img(i + dy + 1, j)
+        out(i, j) = (1 - fx) tmp(i, j + dx) + fx tmp(i, j + dx + 1)
+
+    which `__call__` computes with two 2-tap gathers on index planes made
+    here, in that order of products and sums, on the device the fields
+    live on.
+    """
+
+    def __init__(self, mapxy, device="cuda"):
+        device = resolve_device(device)
+        mapxy = np.asarray(mapxy, np.float32)
+        H, W, _ = mapxy.shape
+        x = np.clip(mapxy[..., 0], 0.0, W - 1.001)
+        y = np.clip(mapxy[..., 1], 0.0, H - 1.001)
+        cols = np.arange(W, dtype=np.float32)
+        Y = np.empty_like(y)
+        for i in range(H):
+            xi = x[i]
+            if not np.all(np.diff(xi) > 0):
+                # Degenerate map row: enforce monotonicity for the inverse.
+                xi = np.maximum.accumulate(xi + np.arange(W) * 1e-6)
+            Y[i] = np.interp(cols, xi, y[i])
+        Y = np.clip(Y, 0.0, H - 1.001)
+        fy = (Y - np.floor(Y)).astype(np.float32)
+        dy = np.floor(Y).astype(np.int32) - np.arange(H, dtype=np.int32)[:, None]
+        fx = (x - np.floor(x)).astype(np.float32)
+        dx = np.floor(x).astype(np.int32) - np.arange(W, dtype=np.int32)[None, :]
+        self.r_lo, self.r_hi = int(dy.min()), int(dy.max()) + 1
+        self.c_lo, self.c_hi = int(dx.min()), int(dx.max()) + 1
+        self.H, self.W = H, W
+        self.n_taps = (self.r_hi - self.r_lo + 1) + (self.c_hi - self.c_lo + 1)
+        self.dy, self.dx = (torch.from_numpy(a).to(device) for a in (dy, dx))
+        # Each pass's two weights, and the flat indices into an (H, W)
+        # image of its two taps: one row (+W) or one column (+1) apart.
+        ii = np.arange(H, dtype=np.int64)[:, None]
+        jj = np.arange(W, dtype=np.int64)[None, :]
+        v0 = ((ii + dy) * W + jj).ravel()
+        h0 = (ii * W + jj + dx).ravel()
+        self._v = torch.from_numpy(np.stack([v0, v0 + W])).to(device)
+        self._h = torch.from_numpy(np.stack([h0, h0 + 1])).to(device)
+        self._wy = torch.from_numpy(np.stack([1.0 - fy, fy]).reshape(2, -1)).to(device)
+        self._wx = torch.from_numpy(np.stack([1.0 - fx, fx]).reshape(2, -1)).to(device)
+        self.fy, self.fx = self._wy[1].view(H, W), self._wx[1].view(H, W)
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        """(..., H, W) float32 or uint8 -> (..., H, W) float32."""
+        flat = img.to(torch.float32).flatten(-2)
+        tmp = self._wy[0] * flat[..., self._v[0]] + self._wy[1] * flat[..., self._v[1]]
+        out = self._wx[0] * tmp[..., self._h[0]] + self._wx[1] * tmp[..., self._h[1]]
+        return out.unflatten(-1, (self.H, self.W))
 
 
 def remap_bilinear(img: torch.Tensor, mapxy: torch.Tensor) -> torch.Tensor:

@@ -64,9 +64,9 @@ from kimera_vio_tpu_torch.common.types import (
 from kimera_vio_tpu_torch.frontend import imu_frontend as imu
 from kimera_vio_tpu_torch.frontend.camera import (
     DIST_NONE,
+    SeparableRemap,
     StereoCamera,
     rectification_map,
-    remap_bilinear,
     undistort_to_normalized,
 )
 from kimera_vio_tpu_torch.loopclosure import orb as orb_mod
@@ -294,10 +294,13 @@ class StereoFrontend:
             )
         )
         if not self.identity_rect:
-            self.map_left = torch.from_numpy(
-                rectification_map(stereo, stereo.left, stereo.R_rect_l)).to(device)
-            self.map_right = torch.from_numpy(
-                rectification_map(stereo, stereo.right, stereo.R_rect_r)).to(device)
+            # The keyframe images rectify through the separable remap, as
+            # in the JAX frontend; the maps stay for the mesher's dense
+            # depth, which the JAX package remaps with the gather.
+            maps = (rectification_map(stereo, stereo.left, stereo.R_rect_l),
+                    rectification_map(stereo, stereo.right, stereo.R_rect_r))
+            self.map_left, self.map_right = (torch.from_numpy(m).to(device) for m in maps)
+            self.sep_remap_left, self.sep_remap_right = (SeparableRemap(m, device) for m in maps)
         K_raw = np.array(
             [[float(lf.fx), 0.0, float(lf.cx)], [0.0, float(lf.fy), float(lf.cy)], [0.0, 0.0, 1.0]],
             np.float32,
@@ -309,10 +312,10 @@ class StereoFrontend:
 
     # ------------------------------------------------------------------
     def _remap_left(self, img):
-        return img if self.identity_rect else remap_bilinear(img, self.map_left)
+        return img if self.identity_rect else self.sep_remap_left(img)
 
     def _remap_right(self, img):
-        return img if self.identity_rect else remap_bilinear(img, self.map_right)
+        return img if self.identity_rect else self.sep_remap_right(img)
 
     def _right_rect(self, img):
         """The rectified right image; an RGB-D depth image is used as it

@@ -1,7 +1,8 @@
 """Multi-view stereo triangulation of smart landmarks, batched.
 
 Port of kimera_vio_tpu/ops/triangulation.py (`triangulate_stereo_landmarks`
-with its closed-form symmetric 3x3 helpers): every landmark is triangulated
+with its closed-form symmetric 3x3 helpers, and the generic ray
+least-squares `triangulate_rays`): every landmark is triangulated
 from all its masked stereo rays across the window (ray least squares),
 polished with Gauss-Newton on the stereo reprojection error, then gated
 by the reference's rankTolerance / landmarkDistanceThreshold /
@@ -79,6 +80,29 @@ def _sym3_min_eig(a, b, c, d, e, f):
     step = torch.clamp(fv / torch.where(torch.abs(fp) < 1e-12, torch.ones_like(fp), fp), -1e-3, 1e-3)
     lam = lam - step
     return lam * sc
+
+
+def triangulate_rays(
+    origins: torch.Tensor,  # (..., M, 3) ray origins (world)
+    dirs: torch.Tensor,  # (..., M, 3) unit ray directions (world)
+    mask: torch.Tensor,  # (..., M)
+):
+    """Least-squares point minimizing the sum of squared distances to rays:
+    [sum_m (I - d d^T)] p = sum_m (I - d d^T) o. Returns (point (...,3),
+    ok (...,): two rays or more, min_eig (...,): the smallest eigenvalue
+    of the normal matrix over the ray count, the rankTolerance measure)."""
+    w = mask.to(origins.dtype)[..., None, None]
+    eye = torch.eye(3, dtype=origins.dtype, device=origins.device)
+    P = eye - dirs[..., :, None] * dirs[..., None, :]  # (..., M, 3, 3)
+    A = torch.sum(P * w, dim=-3)
+    b = torch.sum((P @ origins[..., None]) * w, dim=-3)[..., 0]
+    n_obs = mask.sum(-1)
+    # Regularized for the unobserved case; the gates drop those anyway.
+    A_reg = A + 1e-9 * eye
+    p = torch.linalg.solve(A_reg, b[..., None])[..., 0]
+    eigs = torch.linalg.eigvalsh(A_reg)
+    min_eig = eigs[..., 0] / torch.clamp(n_obs, min=1)
+    return p, n_obs >= 2, min_eig
 
 
 def triangulate_stereo_landmarks(

@@ -212,8 +212,7 @@ class FleetVio:
         B = self.B
         lefts, rights = self._batched("lefts", lefts), self._batched("rights", rights)
         if navs is None:
-            navs = NavState(rot=torch.eye(3).expand(B, 3, 3), pos=torch.zeros((B, 3)),
-                            vel=torch.zeros((B, 3)))
+            navs = tree_map(lambda x: x.expand(B, *x.shape), NavState.identity("cpu"))
         navs = NavState(*(self._batched(f"navs.{k}", getattr(navs, k), torch.float32)
                           for k in ("rot", "pos", "vel")))
         biases = torch.zeros((B, 6)) if biases is None else biases

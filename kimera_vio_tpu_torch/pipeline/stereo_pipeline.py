@@ -488,7 +488,12 @@ class StereoImuPipeline:
         """Dense metric depth of a stereo keyframe: the raw pair rectified
         (through the rectification maps, as in the JAX package, also where
         the frontend skips an identity rectification) and block-matched
-        (ops/stereo_matching.dense_depth)."""
+        (ops/stereo_matching.dense_depth).
+
+        The remap here is the 4-tap gather `remap_bilinear`, not the
+        frontend's `SeparableRemap`: the JAX package's dense depth gathers
+        too (kimera_vio_tpu/pipeline/stereo_pipeline.py, `_dense_depth_for_kf`
+        and the chunked aux stage), so this one stays a gather."""
         if getattr(self, "_dense_maps", None) is None:
             fe, st = self.frontend, self.stereo
             self._dense_maps = (

@@ -118,6 +118,9 @@ class MesherLogger:
                 f.write(f"3 {t[0]} {t[1]} {t[2]}\n")
         self.count += 1
 
+    def close(self):
+        """Nothing stays open: each PLY is written and closed in `log`."""
+
 
 class PipelineLogger:
     """Overall timing CSV (reference PipelineLogger,

@@ -225,3 +225,39 @@ print(len(names))
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert int(res.stdout.strip().splitlines()[-1]) >= 26
+
+
+def test_port_public_names_import_without_jax():
+    """The names the port mirrors from the JAX package's public API
+    (geometry, types, camera, triangulation, logger) import with jax and
+    flax blocked, and none of them pulls in the JAX package."""
+    code = r"""
+import importlib, sys
+for m in ("jax", "flax", "yaml", "cv2", "matplotlib"):
+    sys.modules[m] = None
+names = {
+    "common.geometry": ["vee", "se3_compose", "se3_inverse", "se3_transform", "se3_retract",
+                        "rotation_between", "normalize_rotation"],
+    "common.types": ["ImuBias.as_vector", "NavState.identity", "VioNavState.identity",
+                     "ImuBlock.capacity", "TrackedFeatures.capacity"],
+    "frontend.camera": ["PinholeCamera.K", "StereoCamera.project_rect", "SeparableRemap"],
+    "ops.triangulation": ["triangulate_rays"],
+    "utils.logger": ["MesherLogger.close"],
+}
+n = 0
+for mod, attrs in names.items():
+    m = importlib.import_module("kimera_vio_tpu_torch." + mod)
+    for a in attrs:
+        obj = m
+        for part in a.split("."):
+            obj = getattr(obj, part)
+        n += 1
+bad = [m for m in sys.modules if m == "kimera_vio_tpu" or m.startswith("kimera_vio_tpu.")]
+assert not bad, bad
+print(n)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert int(res.stdout.strip().splitlines()[-1]) == 17
