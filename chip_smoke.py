@@ -80,7 +80,8 @@ Phases:
      gates `lk_cache_build_kernel`'s launches equal to the caches the
      frontend built on the card (`lk_launches`), with no plain build
      there. Phase 2 prints the cache build's ms a keyframe (launch +
-     kernel, CUDA events around each build).
+     kernel, CUDA events around each build), and on a line of its own
+     each keyframe's `n_mono_inliers` (the 2-pt mono RANSAC's count).
   3. cli: phase 2's sequence written as a EuRoC `mav0` folder (PNGs from
      the package's encoder, dataprovider/png.py, whose rows cycle through
      all five PNG filters; CSVs with repr floats) and phase 2's params as a
@@ -365,7 +366,16 @@ Phases:
      distorted model does not fit. (c) One keyframe's two rectifications
      on that rig, the separable remap against the 4-tap gather on the same
      maps, graph replay (CUDA events, 200 replays) and eager, in turns.
-     One `[distorted]` line per rig, run and timing.
+     (d) The 2-pt mono RANSAC's guard on the card: `ransac_2pt_mono` on
+     CUDA tensors of 256 matches (phase 2's features), one injected draw
+     at a time. On low-parallax bearings (|n| ~ 1e-3, noisy, so proper
+     hypotheses keep few inliers) every repeated-index draw and every
+     draw of two matches with parallel normals scores 0; on a
+     well-conditioned fixture (gross outliers, 10 % of the mask off) each
+     proper draw's count equals the CPU port's, and a batch mixing them
+     with repeated draws gives the CPU port's count and inliers and its t
+     within 1e-5. (b) prints each keyframe's `n_mono_inliers` on a line
+     of its own. One `[distorted]` line per rig, run, timing and gate.
 """
 
 from __future__ import annotations
@@ -387,7 +397,7 @@ import numpy as np
 import torch
 
 from kimera_vio_tpu_torch import __main__ as cli
-from kimera_vio_tpu_torch.common.geometry import quat_to_rot
+from kimera_vio_tpu_torch.common.geometry import quat_to_rot, so3_exp
 from kimera_vio_tpu_torch.common.types import (
     ImuBlock,
     replace,
@@ -1116,6 +1126,22 @@ def kitti_lk_inputs(dev, margin: float = 14.0):
             torch.ones(256, dtype=torch.bool, device=dev))
 
 
+def record_keyframe_inliers(pipe) -> list:
+    """Each keyframe's `n_mono_inliers` of `pipe`'s runs, in order (the
+    frame step looked up at each call, so that `counted_steps` still
+    counts it)."""
+    rows = []
+
+    def step(*a, **kw):
+        res = type(pipe)._step(pipe, *a, **kw)
+        if res[4] is not None:
+            rows.append(int(res[3]["n_mono_inliers"]))
+        return res
+
+    pipe._step = step
+    return rows
+
+
 def path_phase(dev) -> dict:
     params = synthetic_params(nr_states=10, max_features=256, max_landmarks=384)
     # Warm-up (CUDA context, cuBLAS/cuSOLVER handles, kernel library).
@@ -1123,6 +1149,7 @@ def path_phase(dev) -> dict:
         SyntheticStereoProvider(n_frames=6, vx=0.5))
     provider = SyntheticStereoProvider(n_frames=80, vx=0.5)
     pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+    kf_inliers = record_keyframe_inliers(pipe)
     torch.cuda.synchronize()
     reset_lk_counts()
     lk.lk_cached_cuda.routes.clear()
@@ -1165,6 +1192,7 @@ def path_phase(dev) -> dict:
         "cache_build_ms_per_keyframe": float(np.mean(build_ms)),
         "cache_build_ms_median": float(np.median(build_ms)),
     }
+    log(f"[path] keyframe n_mono_inliers {json.dumps(kf_inliers)}")
     log(f"[path] {json.dumps(res)}")
     res["stamps_ns"], res["positions"], res["pipe"] = out.stamps_ns, est, pipe
     return res
@@ -3820,11 +3848,84 @@ def remap_times(dev) -> dict:
     return row
 
 
+GUARD_MATCHES = 256
+
+
+def guard_bearings(scale: float, seed: int, noise: float, outliers: int = 0):
+    """(f_ref, f_cur, mask, R) of GUARD_MATCHES matches of points 4-12 m
+    away, 10 `scale` m of translation (so |f_ref x R f_cur| lies around
+    `scale`), f_cur perturbed by `noise` rad, the last `outliers` matches
+    gross outliers and 10 % of the mask off where there are any."""
+    rng = np.random.default_rng(seed)
+    n = GUARD_MATCHES
+    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(4, 12, n)], -1)
+    R = so3_exp(torch.tensor([0.02, -0.03, 0.01], dtype=torch.float64)).numpy()
+    t = np.array([0.6, 0.2, -0.4])
+    p_cur = (pts - t / np.linalg.norm(t) * 10 * scale) @ R
+    f_ref = pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+    f_cur = p_cur / np.linalg.norm(p_cur, axis=-1, keepdims=True)
+    f_cur = f_cur + rng.normal(0, noise, f_cur.shape)
+    mask = np.ones(n, bool)
+    if outliers:
+        f_cur[n - outliers:] = rng.normal(size=(outliers, 3)) + [0, 0, 5]
+        mask = rng.uniform(size=n) > 0.1
+    f_cur /= np.linalg.norm(f_cur, axis=-1, keepdims=True)
+    return f_ref.astype(np.float32), f_cur.astype(np.float32), mask, R.astype(np.float32)
+
+
+def ransac_guard_gate(dev) -> dict:
+    """(d) The guarded 2-pt mono RANSAC on CUDA tensors against the CPU
+    port, each draw injected alone (`indices`) and as a batch."""
+    from kimera_vio_tpu_torch.ops import ransac
+
+    cpu = torch.device("cpu")
+
+    def on(args, device):
+        return [torch.from_numpy(a).to(device) for a in args]
+
+    def per_draw(args, idx, device):
+        targs, ti = on(args, device), torch.from_numpy(idx).to(device)
+        return np.array([int(ransac.ransac_2pt_mono(*targs, indices=ti[h:h + 1])[2])
+                         for h in range(len(idx))])
+
+    n = GUARD_MATCHES
+    rng = np.random.default_rng(21)
+    # Low parallax, noisy: 240 matches and 16 of them again (parallel normals).
+    low = guard_bearings(1e-3, 3, 1e-5)
+    for a in low[:3]:
+        a[n - 16:] = a[:16]
+    degenerate = np.concatenate([np.stack([np.arange(n)] * 2, -1),
+                                 np.stack([np.arange(16), np.arange(n - 16, n)], -1)])
+    deg_scores = per_draw(low, degenerate, dev)
+    # Well conditioned: exact inliers, 64 gross outliers, 10 % of the mask off.
+    good = guard_bearings(0.039, 4, 0.0, outliers=64)
+    valid = np.flatnonzero(good[2])
+    proper = np.stack([rng.choice(valid, 2, replace=False) for _ in range(n)])
+    card, host = per_draw(good, proper, dev), per_draw(good, proper, cpu)
+    mixed = rng.permutation(np.concatenate([proper, np.stack([valid[:64]] * 2, -1)]))
+    t_c, inl_c, n_c = ransac.ransac_2pt_mono(*on(good, dev), indices=torch.from_numpy(mixed).to(dev))
+    t_h, inl_h, n_h = ransac.ransac_2pt_mono(*on(good, cpu), indices=torch.from_numpy(mixed))
+    t_err = float((t_c.cpu() - t_h).abs().max())
+    row = {"gate": "2-pt mono RANSAC guard", "matches": n, "degenerate_draws": len(degenerate),
+           "degenerate_max_score": int(deg_scores.max()), "proper_draws": len(proper),
+           "proper_equal_to_cpu": int((card == host).sum()), "proper_max_score": int(card.max()),
+           "batch_n_inliers": int(n_c), "batch_n_inliers_cpu": int(n_h),
+           "batch_t_max_abs_err": t_err, "parallel_eps": ransac.PARALLEL_EPS}
+    log(f"[distorted] {json.dumps(row)}")
+    if not (deg_scores == 0).all():
+        raise AssertionError(f"ransac guard: degenerate draws scored {deg_scores.max()}")
+    if not ((card == host).all() and int(n_c) == int(n_h)
+            and torch.equal(inl_c.cpu(), inl_h) and t_err <= 1e-5):
+        raise AssertionError(f"ransac guard: card vs CPU port: {row}")
+    return row
+
+
 def distorted_phase(dev, path: dict) -> dict:
     """Phase 13: a distorted rig. (a) `remap_card_vs_cpu` for the
     radial-tangential (EuRoC cam0 / cam1), equidistant and omni rigs; (b)
     phase 2's 80-frame sequential run() on the radial-tangential rig
-    through the default tracker; (c) `remap_times`.
+    through the default tracker; (c) `remap_times`; (d)
+    `ransac_guard_gate`.
 
     (b) has no ATE gate: the synthetic provider renders undistorted
     images, which a distorted camera model does not fit, so the poses
@@ -3837,9 +3938,11 @@ def distorted_phase(dev, path: dict) -> dict:
     provider = SyntheticStereoProvider(n_frames=DISTORTED_FRAMES, vx=0.5)
     params = distorted_params("radtan", nr_states=10, max_features=256, max_landmarks=384)
     calls = {"left": 0, "right": 0}
+    kf_inliers = []
 
     def make_pipe():
         pipe = StereoImuPipeline(params, parallel_run=False, device=dev)
+        kf_inliers.append(record_keyframe_inliers(pipe))
         fe = pipe.frontend
         if fe.identity_rect:
             raise AssertionError("run radtan: the distorted rig rectifies by identity")
@@ -3863,9 +3966,11 @@ def distorted_phase(dev, path: dict) -> dict:
     step = pipe.stats.get("vio_step [ms]")
     row.update(cache_builds=builds, separable_remaps=calls, step_ms_mean=step.total / step.count,
                ate_note="no gate: undistorted images under a distorted model")
+    log(f"[distorted] run radtan keyframe n_mono_inliers {json.dumps(kf_inliers[-1])}")
     log(f"[distorted] {json.dumps(row)}")
     res["run"] = row
     res["times"] = remap_times(dev)
+    res["ransac_guard"] = ransac_guard_gate(dev)
     return res
 
 

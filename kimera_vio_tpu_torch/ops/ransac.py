@@ -18,6 +18,10 @@ import torch
 
 from kimera_vio_tpu_torch.common import geometry as geo
 
+# The 2-pt mono solver's bound on |n1 x n2| / (|n1| |n2|), the sine
+# between a hypothesis' two normals, below which it scores nothing.
+PARALLEL_EPS = 1e-5
+
 
 def _sample_indices(generator: torch.Generator, n_hyp: int, k: int, n: int, weights: torch.Tensor):
     """(n_hyp, k) correspondence indices drawn with replacement from the
@@ -43,8 +47,27 @@ def ransac_2pt_mono(
 ):
     """Translation-only RANSAC given the rotation (2-point mono, the
     reference's ransac_use_2point_mono): each match constrains
-    t . (f_ref x R f_cur) = 0. Returns (t_unit (3,), inliers (N,),
-    n_inliers)."""
+    t . n = 0 with n = f_ref x R f_cur, and two matches give the
+    hypothesis t = n1 x n2. Returns (t_unit (3,), inliers (N,),
+    n_inliers).
+
+    A hypothesis is degenerate, and scores no inliers, where its two
+    indices are equal or its two normals are parallel to working
+    precision, |n1 x n2| <= PARALLEL_EPS |n1| |n2|. Its t is then
+    rounding noise: unit length in a noise direction above the 1e-12
+    clamp, and below it (|n| under about 1e-2) a short vector whose squared
+    residuals shrink with it, so that it passes far more matches than a
+    proper hypothesis. The test is scale-free because |n| is the track's
+    parallax sine (1e-4 to 1e-1): an absolute bound would reject proper
+    hypotheses at low parallax. PARALLEL_EPS sits above the float32 noise
+    of the cross product (a few 1e-7 of |n1| |n2|) and far below the
+    angle between the normals of two distinct landmarks. When every
+    hypothesis is degenerate (one valid match) no match is an inlier.
+
+    The JAX package has no such guard (kimera_vio_tpu/ops/ransac.py:40-43
+    says repeated draws "score poorly and lose"; :85-90 builds and clamps
+    t): there a repeated draw can win, its direction differing between
+    the packages; tests/test_torch_mono_ransac.py names the divergence."""
     n = f_ref.shape[0]
     Rf = torch.einsum("ij,nj->ni", R_ref_cur, f_cur)
     normals = torch.linalg.cross(f_ref, Rf)
@@ -55,10 +78,13 @@ def ransac_2pt_mono(
     n2 = normals[idx[:, 1]]
     t_hyp = torch.linalg.cross(n1, n2)
     t_norm = torch.linalg.norm(t_hyp, dim=-1, keepdim=True)
+    n_norm = torch.linalg.norm(normals, dim=-1)
+    degenerate = (idx[:, 0] == idx[:, 1]) | (
+        t_norm[:, 0] <= PARALLEL_EPS * n_norm[idx[:, 0]] * n_norm[idx[:, 1]])
     t_hyp = t_hyp / torch.clamp(t_norm, min=1e-12)
-    nn = normals / torch.clamp(torch.linalg.norm(normals, dim=-1, keepdim=True), min=1e-12)
+    nn = normals / torch.clamp(n_norm[:, None], min=1e-12)
     res = torch.einsum("hi,ni->hn", t_hyp, nn) ** 2
-    inl = (res < threshold) & mask[None, :]
+    inl = (res < threshold) & mask[None, :] & ~degenerate[:, None]
     scores = inl.sum(-1)
     best = torch.argmax(scores)
     t_best = t_hyp[best]

@@ -2,7 +2,7 @@
 """Compare two checkouts of the PyTorch port on one card, in turns.
 
     python3 scripts/tree_ab.py --path OTHER_ROOT [--fleet OTHER_ROOT]
-        [--stage OTHER_ROOT] [--rounds 2]
+        [--stage OTHER_ROOT] [--inliers OTHER_ROOT] [--rounds 2]
 
 Every measurement is a fresh process that imports the package (and
 chip_smoke.py) from one checkout's root, builds that checkout's LK kernel
@@ -22,7 +22,11 @@ and warms up before it times anything:
     uint8 and rendered before timing) in each `KIMERA_STAGE_CODEC` codec,
     three super-batches a codec with the last two alive (the prefetch
     depth): the stager's own ms (image loads, encode, pack, pinned
-    allocation) and the copy's ms (CUDA events), medians of the three.
+    allocation) and the copy's ms (CUDA events), medians of the three;
+  * `--inliers`: phase 2's run and phase 13(b)'s, the same 80 frames on
+    chip_smoke's radial-tangential rig (EuRoC cam0 / cam1), `--runs`
+    times each: every keyframe's `n_mono_inliers` (the 2-pt mono
+    RANSAC's count, read from the frame step's outputs) and frames/s.
 
 Each round runs other, this, this, other for each comparison given. Prints
 the card's name and power limit, one JSON line per process, then one
@@ -125,6 +129,47 @@ def fleet_runs(runs: int) -> dict:
     return {"runs": rows}
 
 
+def inlier_runs(runs: int) -> dict:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from kimera_vio_tpu_torch.dataprovider.synthetic import (
+        SyntheticStereoProvider,
+        synthetic_params,
+    )
+    from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
+
+    def run(params):
+        pipe = StereoImuPipeline(params, parallel_run=False, device="cuda")
+        kf = []
+
+        def step(*a, **kw):
+            res = type(pipe)._step(pipe, *a, **kw)
+            if res[4] is not None:
+                kf.append(int(res[3]["n_mono_inliers"]))
+            return res
+
+        pipe._step = step
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe.run(SyntheticStereoProvider(n_frames=80, vx=0.5))
+        torch.cuda.synchronize()
+        return out.n_frames / (time.perf_counter() - t), kf, np.stack(out.positions).tolist()
+
+    kw = dict(nr_states=10, max_features=256, max_landmarks=384)
+    StereoImuPipeline(synthetic_params(**kw), parallel_run=False, device="cuda").run(
+        SyntheticStereoProvider(n_frames=6, vx=0.5))
+    rows = []
+    for _ in range(runs):
+        fps, kf, pos = run(synthetic_params(**kw))
+        d_fps, d_kf, d_pos = run(cs.distorted_params("radtan", **kw))
+        rows.append({"frames_per_s": fps, "keyframe_n_mono_inliers": kf, "positions": pos,
+                     "distorted_frames_per_s": d_fps, "distorted_keyframe_n_mono_inliers": d_kf,
+                     "distorted_positions": d_pos})
+    return {"runs": rows}
+
+
 CODECS = ("raw", "delta4", "delta4c", "delta3")
 
 
@@ -172,7 +217,8 @@ def stage_runs(runs: int) -> dict:
 def worker(root: str, what: str, runs: int) -> int:
     sys.path.insert(0, root)
     os.chdir(root)
-    res = {"path": path_runs, "fleet": fleet_runs, "stage": stage_runs}[what](runs)
+    res = {"path": path_runs, "fleet": fleet_runs, "stage": stage_runs,
+           "inliers": inlier_runs}[what](runs)
     print(json.dumps(res))
     return 0
 
@@ -192,7 +238,8 @@ def summary(what: str, sides: dict) -> dict:
 
     keys = {"path": ("frames_per_s", "frame_ms", "keyframe_ms"),
             "fleet": ("stream_frames_per_s", "frame_step_ms", "keyframe_ms_per_stream"),
-            "stage": tuple(f"{c}_{k}" for c in CODECS for k in ("stage_ms", "copy_ms"))}[what]
+            "stage": tuple(f"{c}_{k}" for c in CODECS for k in ("stage_ms", "copy_ms")),
+            "inliers": ("frames_per_s", "distorted_frames_per_s")}[what]
     res = {"compare": what}
     for side, runs in sides.items():
         for k in keys:
@@ -203,6 +250,14 @@ def summary(what: str, sides: dict) -> dict:
     pos = {side: [np.array(r["positions"]) for r in runs] for side, runs in sides.items()}
     res["max_abs_dpos_m"] = max(float(np.abs(a - b).max())
                                 for a in pos["this"] for b in pos["other"])
+    if what == "inliers":
+        for side, runs in sides.items():
+            for k in ("keyframe_n_mono_inliers", "distorted_keyframe_n_mono_inliers"):
+                res[f"{side}_{k}"] = [r[k] for r in runs]
+        pos = {side: [np.array(r["distorted_positions"]) for r in runs]
+               for side, runs in sides.items()}
+        res["distorted_max_abs_dpos_m"] = max(float(np.abs(a - b).max())
+                                              for a in pos["this"] for b in pos["other"])
     return res
 
 
@@ -211,9 +266,12 @@ def main() -> int:
     ap.add_argument("--path", help="the other checkout's root for the phase-2 comparison")
     ap.add_argument("--fleet", help="the other checkout's root for the fleet comparison")
     ap.add_argument("--stage", help="the other checkout's root for the stager comparison")
+    ap.add_argument("--inliers", help="the other checkout's root for the keyframe-inlier "
+                    "comparison (phases 2 and 13)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--runs", type=int, default=2, help="timed runs per process")
-    ap.add_argument("--worker", choices=("path", "fleet", "stage"), help=argparse.SUPPRESS)
+    ap.add_argument("--worker", choices=("path", "fleet", "stage", "inliers"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -227,7 +285,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
     plan = [(what, os.path.abspath(other)) for what, other in
-            (("path", args.path), ("fleet", args.fleet), ("stage", args.stage)) if other]
+            (("path", args.path), ("fleet", args.fleet), ("stage", args.stage),
+             ("inliers", args.inliers)) if other]
     sides = {what: {"this": [], "other": []} for what, _ in plan}
     for rnd in range(args.rounds):
         for side in ("other", "this", "this", "other"):
@@ -236,7 +295,7 @@ def main() -> int:
                 sides[what][side] += res["runs"]
                 print(json.dumps({"round": rnd, "side": side, "compare": what,
                                   **{k: [r[k] for r in res["runs"]] for k in res["runs"][0]
-                                     if k != "positions"}}), flush=True)
+                                     if not k.endswith("positions")}}), flush=True)
     for what, _ in plan:
         print(json.dumps(summary(what, sides[what])), flush=True)
     return 0

@@ -69,10 +69,12 @@ def _params(win):
 
 @pytest.fixture(scope="module", params=[24, 53], ids=["win24", "win53"])
 def jax_run(request):
-    """One run of the JAX pipeline per window, with its default tracker."""
+    """One run of the JAX pipeline per window, with its default tracker and
+    its 2-pt mono RANSAC guarded as the port's (`var.guard_jax`)."""
     win = request.param
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("KIMERA_LK_IMPL", raising=False)
+        var.guard_jax(mp)
         jp, _ = _params(win)
         pipe = JPipeline(jp, parallel_run=False)
         assert pipe.frontend_cfg.lk_impl == "matmul"

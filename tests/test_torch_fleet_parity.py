@@ -21,15 +21,14 @@ another order throughout; the port tracks with the JAX gather tracker's
 level plan and draws the JAX RANSAC hypotheses). In (b) the same 28
 output keys, and every switched field on every stream and frame,
 keyframing or not:
-  * the float fields within 1e-3, but for the three the stereo RANSAC
-    gives (`vis_rot_angle`, `init_R_rel_body`, `init_t_rel_body`) on a
-    keyframe where the two sides' RANSAC kept different numbers of
-    inliers: there within 1e-2. At this size a RANSAC's best hypothesis
-    is chaotic: on stream 1 (every keyframe) bearings within 8e-7 of
-    each other move the argmax among hypotheses within one inlier of
-    each other, so the 3-pt rotation is fitted over another inlier set
-    (up to 1.0e-3 rad and 5.2e-3 m apart seen); the fleets' positions
-    still agree within 1e-3 m;
+  * the same mono and stereo RANSAC inlier counts on every stream and
+    frame, and the float fields within 1e-3 (the three the stereo RANSAC
+    gives, `vis_rot_angle`, `init_R_rel_body` and `init_t_rel_body`, within
+    5.6e-4 seen). The JAX fleet's 2-pt mono RANSAC is guarded as the
+    port's (tests/test_torch_variants.py::guard_jax): unguarded, a
+    degenerate draw wins at every keyframe of this run (18-23 inliers
+    against the guarded 12-20), the stereo RANSAC then keeps other
+    tracks, and `init_t_rel_body` parts by up to 1.6e-2 m;
   * `lcd_ok` equal wherever the two sides' keypoints (`lcd_uv`) agree,
     `lcd_desc` equal bit for bit wherever both sides' `lcd_ok` are true
     and the keypoints agree, but for the bits whose pair of ORB samples
@@ -74,7 +73,6 @@ SWITCHES = ("use_lcd", "do_fine_imu_camera_temporal_sync")
 INIT_FIELDS = ("init_R_rel_body", "init_t_rel_body", "init_pim_delta_R", "init_pim_delta_v",
                "init_pim_delta_p", "init_pim_dR_dbg")
 LCD_FLOATS = ("lcd_uv", "lcd_versors", "lcd_pts3")
-STEREO_RANSAC = ("vis_rot_angle", "init_R_rel_body", "init_t_rel_body")
 SWITCHED = LCD_FLOATS + ("lcd_ok", "lcd_desc", "vis_rot_angle") + INIT_FIELDS
 
 
@@ -201,7 +199,9 @@ def _switches_on():
 @pytest.fixture(scope="module")
 def jax_switched_run():
     """The JAX FleetVio on a one-device mesh with the three switches on,
-    tracking with its gather LK: per step every output as numpy."""
+    tracking with its gather LK, its 2-pt mono RANSAC guarded as the
+    port's (tests/test_torch_variants.py::guard_jax): per step every
+    output as numpy."""
     import jax
     from jax.sharding import Mesh
 
@@ -211,6 +211,7 @@ def jax_switched_run():
     navs, biases = _tf._gt_navs(StereoImuPipeline(_params(), parallel_run=False, device="cpu"))
     with pytest.MonkeyPatch.context() as mp, _switches_on():
         mp.setenv("KIMERA_LK_IMPL", "gather")
+        _tf._tv.guard_jax(mp)
         mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
         fleet = JFleetVio(_switched_params(jax_params=True), _tf.B, mesh=mesh)
         lefts, rights = _tf._jax_frame(0)
@@ -257,20 +258,18 @@ def _bits(desc):
 
 def test_switched_outputs_match_jax_fleet(jax_switched_run, like_jax):
     fleet, outs = _switched_fleet_run(jax_switched_run["navs"], jax_switched_run["biases"])
-    n_kf = n_lcd = n_other = 0
+    n_kf = n_lcd = 0
     for k, (out, want) in enumerate(zip(outs, jax_switched_run["steps"], strict=True), start=1):
         assert set(out) == set(want) and len(want) == 28, sorted(set(out) ^ set(want))
         _tf._assert_like_jax(out, want, k)
         got = {name: out[name].numpy() for name in SWITCHED}
         for name in SWITCHED:
             assert got[name].shape == want[name].shape, name
-        same_ransac = ((out["n_mono_inliers"] == want["n_mono_inliers"])
-                       & (out["n_stereo_inliers"] == want["n_stereo_inliers"]))
-        n_other += int((~same_ransac).sum())
+        for name in ("n_mono_inliers", "n_stereo_inliers"):
+            assert np.array_equal(out[name], want[name]), (name, k)
         for name in LCD_FLOATS + ("vis_rot_angle",) + INIT_FIELDS:
-            atol = np.where(same_ransac | (name not in STEREO_RANSAC), 1e-3, 1e-2)
             for b in range(_tf.B):
-                np.testing.assert_allclose(got[name][b], want[name][b], atol=atol[b], rtol=0,
+                np.testing.assert_allclose(got[name][b], want[name][b], atol=1e-3, rtol=0,
                                            err_msg=f"{name} at frame {k}, stream {b}")
         same_uv = (np.abs(got["lcd_uv"] - want["lcd_uv"]) < 1e-3).all(-1)  # (B, n)
         assert np.array_equal(got["lcd_ok"][same_uv], want["lcd_ok"][same_uv]), k
@@ -283,5 +282,5 @@ def test_switched_outputs_match_jax_fleet(jax_switched_run, like_jax):
         n_lcd += int(both.sum())
         # A tracking stream's fields are the JAX tracking branch's.
         assert not got["lcd_ok"][~kf].any() and (got["vis_rot_angle"][~kf] == 0).all()
-    assert n_kf >= 2 * _tf.B and n_lcd > 0 and n_other < n_kf / 2
+    assert n_kf >= 2 * _tf.B and n_lcd > 0
     assert (np.stack([o["vis_rot_angle"].numpy() for o in outs]) > 0).any()

@@ -247,8 +247,10 @@ def _params(**over):
 def _both(jp, tp, monkeypatch):
     # Like with like: the JAX side tracks with its gather LK; the port with
     # the gather tracker's level plan, drawing the JAX package's RANSAC
-    # hypotheses (tests/test_torch_variants.py::_jax_draws).
+    # hypotheses (tests/test_torch_variants.py::_jax_draws); the JAX 2-pt
+    # mono RANSAC guarded as the port's (`guard_jax`).
     monkeypatch.setenv("KIMERA_LK_IMPL", "gather")
+    _tv.guard_jax(monkeypatch)
     monkeypatch.setattr(vision_frontend, "klt_track_lk",
                         functools.partial(klt_track_lk, search_rows=None))
     monkeypatch.setattr(transac, "_sample_indices", _tv._jax_draws)

@@ -14,7 +14,8 @@ Module parity:
     (`convert.state_from_numpy`), and both run the keyframe branch on the
     same tracked features, PIM and images, the port drawing the JAX
     package's RANSAC hypotheses (the same `jax.random` indices, fed
-    through `ops.ransac._sample_indices`). The same inlier counts,
+    through `ops.ransac._sample_indices`), the JAX 2-pt mono RANSAC
+    guarded as the port's (`guard_jax`). The same inlier counts,
     measurement masks and ids, and next landmark id; measurement uvs
     within 1e-2 px (re-detections refine to sub-pixel and stereo matches
     are SSD minima, summed in another order, as in
@@ -96,6 +97,53 @@ def _jax_draws(generator, n_hyp, k, n, weights):
             key = jax.random.fold_in(key, 1)
     idx = jransac._sample_indices(key, n_hyp, k, n, jnp.asarray(weights.cpu().numpy()))
     return torch.as_tensor(np.array(idx), dtype=torch.int64, device=weights.device)
+
+
+JAX_RANSAC_2PT_MONO = jransac.ransac_2pt_mono  # the JAX package's, unguarded
+PARALLEL_EPS = 1e-5  # kimera_vio_tpu_torch/ops/ransac.py's bound, restated
+
+
+def jax_guarded_2pt_mono(f_ref, f_cur, mask, R_ref_cur, key, *, n_hyp=256, threshold=1e-6):
+    """The JAX package's `ransac_2pt_mono` with the port's guard: a draw
+    whose two indices are equal or whose two normals are parallel,
+    |n1 x n2| <= PARALLEL_EPS |n1| |n2|, scores no inliers.
+
+    The JAX function itself scores and refits. Its draws (the JAX
+    package's `_sample_indices`) go in with each degenerate draw replaced
+    by the batch's first proper one: a copy can only tie the draw it
+    copies, and that draw comes first among the proper ones, so the
+    winner is the draw the guard lets win. Where no draw is proper, the
+    mask is emptied: no inliers, as the port gives. The JAX package's
+    fault, repeated draws that win (tests/test_torch_mono_ransac.py),
+    does not reach a run that patches this in (`guard_jax`)."""
+    n = f_ref.shape[0]
+    idx = jransac._sample_indices(key, n_hyp, 2, n, mask.astype(jnp.float32))
+    normals = jnp.cross(f_ref, jnp.einsum("ij,nj->ni", R_ref_cur, f_cur))
+    n_norm = jnp.linalg.norm(normals, axis=-1)
+    t_norm = jnp.linalg.norm(jnp.cross(normals[idx[:, 0]], normals[idx[:, 1]]), axis=-1)
+    proper = (idx[:, 0] != idx[:, 1]) & (
+        t_norm > PARALLEL_EPS * n_norm[idx[:, 0]] * n_norm[idx[:, 1]])
+    draws = jnp.where(proper[:, None], idx, idx[jnp.argmax(proper)])
+    sample = jransac._sample_indices
+    jransac._sample_indices = lambda *_: draws
+    try:
+        return JAX_RANSAC_2PT_MONO(f_ref, f_cur, mask & proper.any(), R_ref_cur, key,
+                                   n_hyp=n_hyp, threshold=threshold)
+    finally:
+        jransac._sample_indices = sample
+
+
+def guard_jax(mp):
+    """Through `mp` (a pytest MonkeyPatch), the JAX package's 2-pt mono
+    RANSAC guarded as the port's (`jax_guarded_2pt_mono`) in this test
+    process. Call it before the JAX frontend is built and traced. No file
+    of the JAX package changes."""
+    mp.setattr(jransac, "ransac_2pt_mono", jax_guarded_2pt_mono)
+
+
+@pytest.fixture
+def jax_guard(monkeypatch):
+    guard_jax(monkeypatch)
 
 
 @pytest.fixture
@@ -192,7 +240,7 @@ def _to_np(tree):
 
 
 @pytest.mark.parametrize("mode", ["5pt3pt", "mono"])
-def test_keyframe_branch_matches_jax(like_jax, mode):
+def test_keyframe_branch_matches_jax(like_jax, jax_guard, mode):
     over = {"ransac_use_2point_mono": False, "ransac_use_1point_stereo": False}
     jp, tp = _params(**over) if mode == "5pt3pt" else _params()
     jfe, tfe = _frontends(jp, tp, "stereo" if mode == "5pt3pt" else "mono")
@@ -221,7 +269,17 @@ def test_keyframe_branch_matches_jax(like_jax, mode):
     tk, tm, to = tfe._keyframe_branch(
         ts, ts.features, tof.build_pyramid(torch.from_numpy(left), tfe.cfg.klt_max_level),
         torch.from_numpy(left), torch.from_numpy(right), ts.pim, tR, stamp)
-    assert to["n_mono_inliers"] == int(jo["n_mono_inliers"]) >= 20
+    n_mono = to["n_mono_inliers"]
+    assert n_mono == int(jo["n_mono_inliers"])
+    if mode == "mono":
+        # The best proper 2-pt hypothesis keeps 17 of the 23 tracked pairs:
+        # a majority, and enough for the trust gate to filter the tracks.
+        # (The unguarded JAX function let a repeated-index draw win with
+        # all 23, tests/test_torch_mono_ransac.py.)
+        pairs = int((ts.features.mask & ts.lkf_features.mask).sum())
+        assert 2 * n_mono > pairs and n_mono >= tfe.cfg.min_mono_inliers
+    else:
+        assert n_mono >= 20
     assert to["n_stereo_inliers"] == int(jo["n_stereo_inliers"])
     compared = ("R_mono", "t_mono", "R_stereo", "t_stereo_vote")
     if mode == "5pt3pt":
