@@ -52,6 +52,7 @@ from kimera_vio_tpu_torch.frontend.imu_frontend import (
     pim_predict,
 )
 from kimera_vio_tpu_torch.ops.triangulation import triangulate_stereo_landmarks
+from kimera_vio_tpu_torch.utils.stats import span
 
 S_DOF = 15
 _TH = slice(0, 3)
@@ -557,8 +558,10 @@ def _pair_factor_blocks(cfg: BackendConfig, win: Window, ks=None):
     """Every factor on the consecutive-pair layout, in the reference's
     order: IMU + bias, no-motion, external odometry, between-stereo,
     constant velocity."""
+    with span("backend.imu_factors"):
+        imu = _imu_factor_blocks(cfg, win, ks)
     return (
-        _imu_factor_blocks(cfg, win, ks),
+        imu,
         _no_motion_blocks(cfg, win, ks),
         _ext_odom_blocks(cfg, win, ks),
         _between_stereo_blocks(cfg, win, ks),
@@ -776,7 +779,8 @@ def _assemble(cfg: BackendConfig, win: Window, lmk, pts_fixed=None):
     dev, dt = win.pos.device, win.pos.dtype
     H = torch.zeros((K, S_DOF, K, S_DOF), dtype=dt, device=dev)
     g = torch.zeros((K, S_DOF), dtype=dt, device=dev)
-    H_pose, g_pose, points = _smart_factor_system(cfg, win, lmk, pts_fixed)
+    with span("backend.smart_factors"):
+        H_pose, g_pose, points = _smart_factor_system(cfg, win, lmk, pts_fixed)
     H[:, 0:6, :, 0:6] += H_pose
     g[:, 0:6] += g_pose
     for Ji, Jj, r in _pair_factor_blocks(cfg, win):
@@ -810,27 +814,29 @@ def _gn_solve(cfg: BackendConfig, win: Window, lmk):
     n_recovered = 0
     pts_fixed = None
     for _ in range(cfg.gn_iters):
-        H, g, points = _assemble(cfg, win, lmk, pts_fixed)
-        D = H.shape[0]
-        eye = torch.eye(D, dtype=H.dtype, device=H.device)
-        finite_in = bool(torch.all(torch.isfinite(H)) & torch.all(torch.isfinite(g)))
-        H = torch.where(torch.isfinite(H), H, torch.zeros_like(H))
-        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        H = 0.5 * (H + H.T)
-        d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
-        dinv = 1.0 / d
-        Hs = H * dinv[:, None] * dinv[None, :]
-        delta = _cho_step(Hs + 1e-5 * eye, g * dinv) * dinv
-        bad = not (finite_in and bool(torch.all(torch.isfinite(delta))))
-        if bad:
-            newest = max(win.n - 1, 0)
-            extra = torch.zeros(D, dtype=H.dtype, device=H.device)
-            extra[newest * S_DOF : (newest + 1) * S_DOF] = 1.0
-            delta = _cho_step(Hs + 1e-2 * eye + torch.diag(extra), g * dinv) * dinv
-        delta = torch.where(torch.isfinite(delta), delta, torch.zeros_like(delta))
-        delta = delta.reshape(K, S_DOF) * win.mask[:, None]
-        rot, pos, vel, bias = retract_states(win.rot, win.pos, win.vel, win.bias, delta)
-        win = replace(win, rot=rot, pos=pos, vel=vel, bias=bias)
+        with span("backend.gn_iter"):
+            H, g, points = _assemble(cfg, win, lmk, pts_fixed)
+            with span("backend.solve"):
+                D = H.shape[0]
+                eye = torch.eye(D, dtype=H.dtype, device=H.device)
+                finite_in = bool(torch.all(torch.isfinite(H)) & torch.all(torch.isfinite(g)))
+                H = torch.where(torch.isfinite(H), H, torch.zeros_like(H))
+                g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+                H = 0.5 * (H + H.T)
+                d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
+                dinv = 1.0 / d
+                Hs = H * dinv[:, None] * dinv[None, :]
+                delta = _cho_step(Hs + 1e-5 * eye, g * dinv) * dinv
+                bad = not (finite_in and bool(torch.all(torch.isfinite(delta))))
+                if bad:
+                    newest = max(win.n - 1, 0)
+                    extra = torch.zeros(D, dtype=H.dtype, device=H.device)
+                    extra[newest * S_DOF : (newest + 1) * S_DOF] = 1.0
+                    delta = _cho_step(Hs + 1e-2 * eye + torch.diag(extra), g * dinv) * dinv
+                delta = torch.where(torch.isfinite(delta), delta, torch.zeros_like(delta))
+                delta = delta.reshape(K, S_DOF) * win.mask[:, None]
+                rot, pos, vel, bias = retract_states(win.rot, win.pos, win.vel, win.bias, delta)
+                win = replace(win, rot=rot, pos=pos, vel=vel, bias=bias)
         n_recovered += int(bad)
         pts_fixed = points
     return win, pts_fixed, n_recovered
@@ -1091,8 +1097,9 @@ def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable | ShardedLa
     K = cfg.nr_states
     dev = win.pos.device
     if win.n >= K:
-        win = _marginalize_oldest(cfg, win)
-        lmk = shift_landmarks(lmk)
+        with span("backend.marginalize"):
+            win = _marginalize_oldest(cfg, win)
+            lmk = shift_landmarks(lmk)
     slot = min(win.n, K - 1)
     prev = max(slot - 1, 0)
     prev_nav = NavState(rot=win.rot[prev], pos=win.pos[prev], vel=win.vel[prev])
@@ -1142,7 +1149,8 @@ def backend_step(cfg: BackendConfig, win: Window, lmk: LandmarkTable | ShardedLa
         btw_valid=put_valid(win.btw_valid, btw_valid),
         n=min(win.n + 1, K),
     )
-    lmk = update_landmarks(lmk, meas_ids, meas_uvd, meas_mask, slot)
+    with span("backend.landmarks"):
+        lmk = update_landmarks(lmk, meas_ids, meas_uvd, meas_mask, slot)
     win, points, n_recovered = _gn_solve(cfg, win, lmk)
     lmk = lmk.with_shards([replace(s, pts=pts, pts_ok=ok)
                            for s, (pts, ok) in zip(lmk.shards, points)])

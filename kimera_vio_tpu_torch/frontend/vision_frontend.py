@@ -77,6 +77,7 @@ from kimera_vio_tpu_torch.ops.lk_kernel import MAX_WIN as LK_MAX_WIN
 from kimera_vio_tpu_torch.ops.lk_kernel import (build_lk_templates_lk, klt_track_cached_lk,
                                                 klt_track_lk)
 from kimera_vio_tpu_torch.ops.stereo_matching import match_stereo
+from kimera_vio_tpu_torch.utils.stats import span
 
 TRACKING_VALID = 0
 TRACKING_LOW_DISPARITY = 1
@@ -270,7 +271,8 @@ class Tracked:
 
     def read(self) -> "Tracked":
         """The policy inputs copied to the host, in one transfer."""
-        return replace(self, policy=self.policy.cpu().numpy())
+        with span("frontend.track_read"):
+            return replace(self, policy=self.policy.cpu().numpy())
 
 class StereoFrontend:
     """Host orchestrator of the per-frame / per-keyframe computations."""
@@ -353,13 +355,14 @@ class StereoFrontend:
         storage policy): under matmul the template cache of its features
         (gradients taken on the patches) and no pyramid; otherwise the
         pyramid and its Scharr gradients."""
-        if self.cfg.lk_impl == "matmul":
-            return {"lkf_pyramid": (), "lkf_grads": (),
-                    "lkf_templates": build_lk_templates_lk(list(pyr), feats.uv, feats.mask,
-                                                           win=self.cfg.klt_win,
-                                                           device=self.device)}
-        return {"lkf_pyramid": tuple(pyr), "lkf_grads": tuple(of._grad(p) for p in pyr),
-                "lkf_templates": ()}
+        with span("lk.cache_build"):
+            if self.cfg.lk_impl == "matmul":
+                return {"lkf_pyramid": (), "lkf_grads": (),
+                        "lkf_templates": build_lk_templates_lk(list(pyr), feats.uv, feats.mask,
+                                                               win=self.cfg.klt_win,
+                                                               device=self.device)}
+            return {"lkf_pyramid": tuple(pyr), "lkf_grads": tuple(of._grad(p) for p in pyr),
+                    "lkf_templates": ()}
 
     # ------------------------------------------------------------------
     def init_state(self, left_img, right_img, stamp: float):
@@ -443,11 +446,17 @@ class StereoFrontend:
         """`track` with its work queued on the device and the policy
         inputs left there (`Tracked.read` copies them), so that a caller
         driving several devices can queue each before it waits on one."""
-        cfg = self.cfg
-        left_img = left_img.to(torch.float32)
-        cur_pyr = of.build_pyramid(left_img, cfg.klt_max_level)
+        with span("frontend.track"):
+            return self._track(state, left_img, imu_block)
 
-        pim = imu.preintegrate(self.pim_params, imu_block, state.imu_bias, init=state.pim)
+    def _track(self, state: FrontendState, left_img, imu_block: ImuBlock) -> Tracked:
+        cfg = self.cfg
+        with span("frontend.pyramid"):
+            left_img = left_img.to(torch.float32)
+            cur_pyr = of.build_pyramid(left_img, cfg.klt_max_level)
+
+        with span("imu.preintegrate"):
+            pim = imu.preintegrate(self.pim_params, imu_block, state.imu_bias, init=state.pim)
         R_cam = self.R_cam_body @ pim.delta_R @ self.R_cam_body.T
         R_cam_raw = self.R_leftcam_body @ pim.delta_R @ self.R_leftcam_body.T
         feats = state.lkf_features
@@ -457,17 +466,18 @@ class StereoFrontend:
         )
         lk_kw = dict(win=cfg.klt_win, max_iter=cfg.klt_max_iter, eps=cfg.klt_eps,
                      device=self.device)
-        if cfg.lk_impl == "matmul":
-            tracked_uv, ok = klt_track_cached_lk(state.lkf_templates, cur_pyr, init_uv,
-                                                 feats.mask, **lk_kw)
-        else:
-            # The window rule admits no window over 54 px: "pallas" tracks
-            # those with the gather rule.
-            gather = cfg.lk_impl == "gather" or cfg.klt_win > LK_MAX_WIN
-            tracked_uv, ok = klt_track_lk(
-                list(state.lkf_pyramid), cur_pyr, feats.uv, init_uv, feats.mask,
-                prev_grads=list(state.lkf_grads), **({"search_rows": None} if gather else {}),
-                **lk_kw)
+        with span("lk.track"):
+            if cfg.lk_impl == "matmul":
+                tracked_uv, ok = klt_track_cached_lk(state.lkf_templates, cur_pyr, init_uv,
+                                                     feats.mask, **lk_kw)
+            else:
+                # The window rule admits no window over 54 px: "pallas"
+                # tracks those with the gather rule.
+                gather = cfg.lk_impl == "gather" or cfg.klt_win > LK_MAX_WIN
+                tracked_uv, ok = klt_track_lk(
+                    list(state.lkf_pyramid), cur_pyr, feats.uv, init_uv, feats.mask,
+                    prev_grads=list(state.lkf_grads), **({"search_rows": None} if gather else {}),
+                    **lk_kw)
         ok = ok & feats.mask & (feats.ages < cfg.max_feature_age)
         tracked_rect, tracked_versors = self._rect_and_versors(tracked_uv)
         cur_feats = TrackedFeatures(
@@ -514,12 +524,18 @@ class StereoFrontend:
         then the frame's outputs. A tracking frame reads only the state's
         host scalars and passes `trk`'s features and PIM on whole.
         Returns (state, outputs)."""
+        with span("frontend.finish"):
+            return self._finish(state, trk, left_img, right_img, stamp, decision)
+
+    def _finish(self, state: FrontendState, trk: Tracked, left_img, right_img, stamp: float,
+                decision: tuple[bool, int]):
         cfg = self.cfg
         is_keyframe, status = decision
         if is_keyframe:
-            state, meas, extras = self._keyframe_branch(
-                state, trk.features, trk.pyramid, left_img.to(torch.float32),
-                right_img.to(torch.float32), trk.pim, trk.R_cam, stamp)
+            with span("frontend.keyframe_branch"):
+                state, meas, extras = self._keyframe_branch(
+                    state, trk.features, trk.pyramid, left_img.to(torch.float32),
+                    right_img.to(torch.float32), trk.pim, trk.R_cam, stamp)
             ransac_few = extras["n_mono_inliers"] < cfg.min_mono_inliers or (
                 not (cfg.mono or cfg.rgbd) and extras["n_stereo_inliers"] < cfg.min_stereo_inliers)
             if ransac_few and status == TRACKING_VALID:
@@ -554,8 +570,9 @@ class StereoFrontend:
     def _keyframe_branch(self, state, cur_feats, cur_pyr, left_img, right_img, pim, R_cam, stamp):
         cfg = self.cfg
         dev = self.device
-        left_rect = self._remap_left(left_img)
-        right_rect = self._right_rect(right_img)
+        with span("frontend.rectify"):
+            left_rect = self._remap_left(left_img)
+            right_rect = self._right_rect(right_img)
         eye = torch.eye(3, dtype=torch.float32, device=dev)
 
         # 5. Mono RANSAC on lkf <-> cur bearings: 2-pt with the gyro
@@ -564,18 +581,19 @@ class StereoFrontend:
         pair_mask = cur_feats.mask & state.lkf_features.mask
         gen = torch.Generator(device=dev)
         gen.manual_seed(state.frame_count)
-        if cfg.use_2point_mono:
-            t_mono, mono_inl, n_mono_t = ransac.ransac_2pt_mono(
-                f_ref, f_cur, pair_mask, R_cam, gen,
-                n_hyp=cfg.n_hyp_mono, threshold=cfg.ransac_threshold_mono,
-            )
-            R_mono = R_cam
-        else:
-            R_mono, t_mono, mono_inl, n_mono_t = ransac.ransac_5pt_mono(
-                f_ref, f_cur, pair_mask, gen,
-                n_hyp=cfg.n_hyp_mono, threshold=cfg.ransac_threshold_mono,
-            )
-        n_mono = int(n_mono_t)
+        with span("frontend.ransac_mono"):
+            if cfg.use_2point_mono:
+                t_mono, mono_inl, n_mono_t = ransac.ransac_2pt_mono(
+                    f_ref, f_cur, pair_mask, R_cam, gen,
+                    n_hyp=cfg.n_hyp_mono, threshold=cfg.ransac_threshold_mono,
+                )
+                R_mono = R_cam
+            else:
+                R_mono, t_mono, mono_inl, n_mono_t = ransac.ransac_5pt_mono(
+                    f_ref, f_cur, pair_mask, gen,
+                    n_hyp=cfg.n_hyp_mono, threshold=cfg.ransac_threshold_mono,
+                )
+            n_mono = int(n_mono_t)
         mono_trust = n_mono >= cfg.min_mono_inliers
         feats_inl = replace(
             cur_feats,
@@ -584,9 +602,13 @@ class StereoFrontend:
 
         # 6+8: re-detect, merge, one stereo match (or depth lookup) for the
         # merged set.
-        uv_new, new_valid = self._detect(left_img, feats_inl)
-        feats_full, next_id = self._merge_detections(feats_inl, uv_new, new_valid, state.next_id)
-        meas_full = self._stereo_measurements(left_rect, right_rect, feats_full)
+        with span("frontend.detect"):
+            uv_new, new_valid = self._detect(left_img, feats_inl)
+        with span("frontend.merge"):
+            feats_full, next_id = self._merge_detections(feats_inl, uv_new, new_valid,
+                                                         state.next_id)
+        with span("frontend.stereo_match"):
+            meas_full = self._stereo_measurements(left_rect, right_rect, feats_full)
 
         if cfg.mono:
             # No stereo RANSAC: NaN-uR measurements of the refilled set.
@@ -595,25 +617,26 @@ class StereoFrontend:
         else:
             # 7. Stereo RANSAC on lkf <-> cur 3D points: 1-pt voting given
             # the rotation (Tracker.cpp:497-596) or 3-pt Arun (:667-742).
-            tracked_mask = meas_full.mask & feats_inl.mask
-            st = self.stereo
-            p_cur = st.backproject_rect(meas_full.uvs)
-            p_ref = st.backproject_rect(state.lkf_uvd)
-            both = tracked_mask & state.lkf_uvd_mask
-            if cfg.use_1point_stereo:
-                cov_cur = ransac.stereo_point_cov_from_rect(
-                    st.fx, st.fy, st.cx, st.cy, st.baseline, meas_full.uvs, cfg.pixel_sigma)
-                cov_ref = ransac.stereo_point_cov_from_rect(
-                    st.fx, st.fy, st.cx, st.cy, st.baseline, state.lkf_uvd, cfg.pixel_sigma)
-                t_vote, stereo_inl, n_stereo_t = ransac.voting_1pt_stereo(
-                    p_ref, p_cur, cov_ref, cov_cur, both, R_cam,
-                    threshold=cfg.ransac_threshold_stereo,
-                )
-                R_stereo = R_cam
-            else:
-                R_stereo, t_vote, stereo_inl, n_stereo_t = ransac.ransac_3pt_arun(
-                    p_ref, p_cur, both, gen, threshold=0.1)
-            n_stereo = int(n_stereo_t)
+            with span("frontend.ransac_stereo"):
+                tracked_mask = meas_full.mask & feats_inl.mask
+                st = self.stereo
+                p_cur = st.backproject_rect(meas_full.uvs)
+                p_ref = st.backproject_rect(state.lkf_uvd)
+                both = tracked_mask & state.lkf_uvd_mask
+                if cfg.use_1point_stereo:
+                    cov_cur = ransac.stereo_point_cov_from_rect(
+                        st.fx, st.fy, st.cx, st.cy, st.baseline, meas_full.uvs, cfg.pixel_sigma)
+                    cov_ref = ransac.stereo_point_cov_from_rect(
+                        st.fx, st.fy, st.cx, st.cy, st.baseline, state.lkf_uvd, cfg.pixel_sigma)
+                    t_vote, stereo_inl, n_stereo_t = ransac.voting_1pt_stereo(
+                        p_ref, p_cur, cov_ref, cov_cur, both, R_cam,
+                        threshold=cfg.ransac_threshold_stereo,
+                    )
+                    R_stereo = R_cam
+                else:
+                    R_stereo, t_vote, stereo_inl, n_stereo_t = ransac.ransac_3pt_arun(
+                        p_ref, p_cur, both, gen, threshold=0.1)
+                n_stereo = int(n_stereo_t)
             if n_stereo >= cfg.min_stereo_inliers:
                 # Stereo-RANSAC outliers lose their track (Tracker.cpp:856-917).
                 kill = both & ~stereo_inl

@@ -19,14 +19,14 @@ Per keyframe:
 RANSAC draws come from a `torch.Generator` seeded, for every solver of a
 candidate pair, with the integer the reference seeds its PRNG key with
 (match_id * 100003 + kf_id). Keyframe payloads live in the disk-backed
-FrameCache. With a StatsCollector, the host times of the BoW stage, of
-each verification and of the PGO are recorded under "lcd ..." tags (each
-ends in a host read of its device results).
+FrameCache. The BoW stage, each verification and the PGO are spans
+(`lcd.bow_query`, `lcd.verify`, `lcd.pgo`); with a StatsCollector their
+host times are recorded under "lcd ..." tags (each ends in a host read of
+its device results).
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,6 +38,7 @@ from kimera_vio_tpu_torch.loopclosure import pgo as pgo_mod
 from kimera_vio_tpu_torch.loopclosure.frame_cache import FrameCache
 from kimera_vio_tpu_torch.loopclosure.vocab import BowVocabulary, as_u32, as_words
 from kimera_vio_tpu_torch.ops import ransac
+from kimera_vio_tpu_torch.utils.stats import span
 
 
 def _host(x) -> np.ndarray:
@@ -152,9 +153,9 @@ class LoopClosureDetector:
         self._latest_query_id = 0
         self.focal = float(stereo.fx) if stereo is not None else 450.0
 
-    def _stat(self, tag: str, tic: float):
-        if self.stats is not None:
-            self.stats.add(tag, (time.perf_counter() - tic) * 1e3)
+    def _span(self, name: str, tag: str):
+        """Span `name`, its milliseconds added to `tag` with a StatsCollector."""
+        return span(name) if self.stats is None else self.stats.span(name, tag)
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -173,33 +174,30 @@ class LoopClosureDetector:
             desc, _, ok = orb_mod.orb_descriptors(
                 self._t(img, torch.float32), self._t(uv, torch.float32), self._t(mask, torch.bool))
         desc, ok = as_u32(desc), _host(ok)
-        tic = time.perf_counter()
-        bow = self.vocab.transform_np(desc, ok)
         kf_id = self.n_kf
-
         result = None
         candidate = None
-        max_match = kf_id - cfg.recent_frames_window
-        if max_match > 0:
-            scores = self._query_index(bow, max_match)
-            nss = 1.0
-            if cfg.use_nss and self.latest_bow is not None:
-                nss = float(BowVocabulary.score_np(bow, self.latest_bow[None])[0])
-            if not cfg.use_nss or nss >= cfg.min_nss_factor:
-                order = np.argsort(scores)[::-1][: cfg.max_db_results]
-                cand = [(int(c), float(scores[c])) for c in order
-                        if scores[c] > cfg.alpha * max(nss, 1e-9)]
-                if cand:
-                    islands = self._compute_islands(cand)
-                    if islands:
-                        best = max(islands, key=lambda i: i.score)
-                        if self._check_temporal(kf_id, best):
-                            candidate = cand[0][0]  # top scorer (detectLoop :738)
-        self._stat("lcd bow+query [ms]", tic)
+        with self._span("lcd.bow_query", "lcd bow+query [ms]"):
+            bow = self.vocab.transform_np(desc, ok)
+            max_match = kf_id - cfg.recent_frames_window
+            if max_match > 0:
+                scores = self._query_index(bow, max_match)
+                nss = 1.0
+                if cfg.use_nss and self.latest_bow is not None:
+                    nss = float(BowVocabulary.score_np(bow, self.latest_bow[None])[0])
+                if not cfg.use_nss or nss >= cfg.min_nss_factor:
+                    order = np.argsort(scores)[::-1][: cfg.max_db_results]
+                    cand = [(int(c), float(scores[c])) for c in order
+                            if scores[c] > cfg.alpha * max(nss, 1e-9)]
+                    if cand:
+                        islands = self._compute_islands(cand)
+                        if islands:
+                            best = max(islands, key=lambda i: i.score)
+                            if self._check_temporal(kf_id, best):
+                                candidate = cand[0][0]  # top scorer (detectLoop :738)
         if candidate is not None:
-            tic = time.perf_counter()
-            result = self._verify(kf_id, candidate, desc, ok, uv, versors, pts3d)
-            self._stat("lcd verify [ms]", tic)
+            with self._span("lcd.verify", "lcd verify [ms]"):
+                result = self._verify(kf_id, candidate, desc, ok, uv, versors, pts3d)
             if result is not None:
                 self.loops.append(result)
 
@@ -348,7 +346,10 @@ class LoopClosureDetector:
     def optimize_graph(self):
         """PCM + optional GNC + pose-graph Gauss-Newton over odometry and
         verified loops; returns (rot (K,3,3), pos (K,3)) on the host."""
-        tic = time.perf_counter()
+        with self._span("lcd.pgo", "lcd pgo [ms]"):
+            return self._optimize_graph()
+
+    def _optimize_graph(self):
         K = self.n_kf
         rot = self._t(np.stack([p[0] for p in self.kf_pose]), torch.float32)
         pos = self._t(np.stack([p[1] for p in self.kf_pose]), torch.float32)
@@ -389,9 +390,7 @@ class LoopClosureDetector:
             rot2, pos2 = self._gnc_optimize(rot, pos, edges, w, n_odom)
         else:
             rot2, pos2, _ = pgo_mod.optimize_pose_graph(rot, pos, *edges, w)
-        out = rot2.cpu().numpy(), pos2.cpu().numpy()
-        self._stat("lcd pgo [ms]", tic)
-        return out
+        return rot2.cpu().numpy(), pos2.cpu().numpy()
 
     def _gnc_optimize(self, rot, pos, edges, w0, n_odom):
         """Graduated non-convexity on the loop-edge weights (GM-style

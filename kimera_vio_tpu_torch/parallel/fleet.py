@@ -66,6 +66,11 @@ runs each stream's rest of the frame, row after row. So on distinct
 cards the rows' batched frame steps overlap, and their keyframe halves
 do not: each row's run after the previous row's on the one host thread.
 
+Each `step` is a span of the port's recorder (utils/stats.py, off unless
+turned on): `fleet.step` with the step's number, a `fleet.stream` with
+the stream's index around each stream's rest of the frame (the keyframe
+branch and half inside it), and `fleet.outputs`.
+
 Under the switches the JAX fleet's fused step reads, `step` also returns
 that step's optional outputs (`_switched_outputs`): the LCD features
 under `use_lcd`, the visual rotation angle under
@@ -103,6 +108,7 @@ from kimera_vio_tpu_torch.common.types import (
 from kimera_vio_tpu_torch.config.params import VioParams
 from kimera_vio_tpu_torch.frontend.vision_frontend import FrontendState
 from kimera_vio_tpu_torch.pipeline.stereo_pipeline import StereoImuPipeline
+from kimera_vio_tpu_torch.utils.stats import span
 
 
 @dataclass
@@ -195,6 +201,7 @@ class FleetVio:
         self._pipes = [StereoImuPipeline(params, parallel_run=False, device=row[0])
                        for row in self.mesh]
         self._pipe = self._pipes[0]
+        self._n_steps = 0  # `step` calls so far: the `step` id of their spans
 
     # ------------------------------------------------------------------
     def _batched(self, name: str, x, dtype=None) -> torch.Tensor:
@@ -251,34 +258,40 @@ class FleetVio:
         if len(state.rows) != len(self.mesh):
             raise ValueError(f"state: {len(state.rows)} data rows != the mesh's {len(self.mesh)}")
         stamps = [float(s) for s in stamps]
-        # Every row's batched frame step is queued before any row is waited
-        # on, then each row's policy inputs are read back.
-        inputs, trks = [], []
-        for pipe, devs, sl, row in zip(self._pipes, self.mesh, self._slices, state.rows):
-            dev = devs[0]
-            inputs.append((lefts[sl].to(dev), rights[sl].to(dev)))
-            trks.append(pipe.frontend.track_async(row.fe_state, inputs[-1][0],
-                                                  tree_map(lambda x: x[sl].to(dev), blocks)))
-        trks = [trk.read() for trk in trks]
-        rows, outs, fe_outs = [], [], []
-        for pipe, sl, row, trk, (lefts_r, rights_r) in zip(
-                self._pipes, self._slices, state.rows, trks, inputs):
-            row, out, fo = self._row_step(pipe, row, trk, lefts_r, rights_r, stamps[sl])
-            rows.append(row)
-            outs.append(out)
-            fe_outs += fo
-        out = {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
-        host = {"is_keyframe": bool, "n_tracked": np.int64, "median_disparity": np.float32,
-                "n_mono_inliers": np.int64, "n_stereo_inliers": np.int64}
-        out.update({k: np.array([o[k] for o in fe_outs], dt) for k, dt in host.items()})
+        self._n_steps += 1
+        with span("fleet.step", step=self._n_steps):
+            # Every row's batched frame step is queued before any row is
+            # waited on, then each row's policy inputs are read back.
+            inputs, trks = [], []
+            for pipe, devs, sl, row in zip(self._pipes, self.mesh, self._slices, state.rows):
+                dev = devs[0]
+                inputs.append((lefts[sl].to(dev), rights[sl].to(dev)))
+                trks.append(pipe.frontend.track_async(row.fe_state, inputs[-1][0],
+                                                      tree_map(lambda x: x[sl].to(dev), blocks)))
+            trks = [trk.read() for trk in trks]
+            rows, outs, fe_outs = [], [], []
+            for pipe, sl, row, trk, (lefts_r, rights_r) in zip(
+                    self._pipes, self._slices, state.rows, trks, inputs):
+                row, out, fo = self._row_step(pipe, row, trk, lefts_r, rights_r, stamps[sl],
+                                              sl.start)
+                rows.append(row)
+                outs.append(out)
+                fe_outs += fo
+            with span("fleet.outputs"):
+                out = {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
+                host = {"is_keyframe": bool, "n_tracked": np.int64,
+                        "median_disparity": np.float32, "n_mono_inliers": np.int64,
+                        "n_stereo_inliers": np.int64}
+                out.update({k: np.array([o[k] for o in fe_outs], dt) for k, dt in host.items()})
         return FleetState(rows=rows), out
 
     def _row_step(self, pipe: StereoImuPipeline, row: RowState, trk, lefts, rights,
-                  stamps: list) -> tuple:
+                  stamps: list, first: int) -> tuple:
         """One data row's frame past its batched frame step (`trk`, read):
         each stream's policy and frame end, and the keyframing streams'
-        keyframe halves. Returns (new row state, device outputs, frontend
-        outputs per stream)."""
+        keyframe halves; `first` is the fleet's index of the row's first
+        stream. Returns (new row state, device outputs, frontend outputs
+        per stream)."""
         fe, B = pipe.frontend, len(stamps)
         fs = row.fe_state
         # Every stream moves on as a tracking frame; the keyframing ones
@@ -289,32 +302,35 @@ class FleetVio:
         scalars = [f.name for f in fields(fs) if isinstance(getattr(fs, f.name), np.ndarray)]
         fe_outs, kf_rows = [], {}
         for b in range(B):
-            # Stream b's host scalars over the stacked tensors: all that the
-            # policy and a tracking frame read. A keyframe takes the
-            # stream's own views (one `unbind` a leaf, at the row's first
-            # keyframe, when the copies are made too).
-            fs_b = replace(fs, **{k: getattr(fs, k)[b].item() for k in scalars})
-            trk_b = replace(trk, policy=trk.policy[b])
-            decision = fe.decide(fs_b, trk_b, stamps[b])
-            if decision[0]:
-                if views is None:
-                    views = unstack_trees(fs, B), unstack_trees(trk, B)
-                    new_fs, win, lmk = (tree_clone(t) for t in (new_fs, win, lmk))
-                fs_b, trk_b = views[0][b], views[1][b]
-            st_b, fe_out = fe.finish(fs_b, trk_b, lefts[b], rights[b], stamps[b], decision)
-            if decision[0]:
-                st_b, win_b, lmk_b, _, bout = pipe._keyframe_half(
-                    st_b, unstack_trees(win, B)[b], unstack_trees(lmk, B)[b], fe_out, stamps[b])
-                tree_set(new_fs, b, st_b)
-                tree_set(win, b, win_b)
-                tree_set(lmk, b, lmk_b)
-                kf_rows[b] = (bout, fe_out["measurements"])
-            else:  # its tensors are the batched part's, already in new_fs
-                new_fs.frame_count[b] = st_b.frame_count
-                new_fs.last_status[b] = st_b.last_status
-            fe_outs.append(fe_out)
-        out = self._outputs(pipe.device, win, lmk, trk.features, kf_rows)
-        out.update(self._switched_outputs(pipe, fe_outs, trk.pim))
+            with span("fleet.stream", b=first + b):
+                # Stream b's host scalars over the stacked tensors: all that
+                # the policy and a tracking frame read. A keyframe takes the
+                # stream's own views (one `unbind` a leaf, at the row's first
+                # keyframe, when the copies are made too).
+                fs_b = replace(fs, **{k: getattr(fs, k)[b].item() for k in scalars})
+                trk_b = replace(trk, policy=trk.policy[b])
+                decision = fe.decide(fs_b, trk_b, stamps[b])
+                if decision[0]:
+                    if views is None:
+                        views = unstack_trees(fs, B), unstack_trees(trk, B)
+                        new_fs, win, lmk = (tree_clone(t) for t in (new_fs, win, lmk))
+                    fs_b, trk_b = views[0][b], views[1][b]
+                st_b, fe_out = fe.finish(fs_b, trk_b, lefts[b], rights[b], stamps[b], decision)
+                if decision[0]:
+                    st_b, win_b, lmk_b, _, bout = pipe._keyframe_half(
+                        st_b, unstack_trees(win, B)[b], unstack_trees(lmk, B)[b], fe_out,
+                        stamps[b])
+                    tree_set(new_fs, b, st_b)
+                    tree_set(win, b, win_b)
+                    tree_set(lmk, b, lmk_b)
+                    kf_rows[b] = (bout, fe_out["measurements"])
+                else:  # its tensors are the batched part's, already in new_fs
+                    new_fs.frame_count[b] = st_b.frame_count
+                    new_fs.last_status[b] = st_b.last_status
+                fe_outs.append(fe_out)
+        with span("fleet.outputs"):
+            out = self._outputs(pipe.device, win, lmk, trk.features, kf_rows)
+            out.update(self._switched_outputs(pipe, fe_outs, trk.pim))
         return RowState(fe_state=new_fs, win=win, lmk=lmk), out, fe_outs
 
     @staticmethod
